@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``larndsim_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--profile DIR]
+
+Phases, one line each; any failure exits non-zero with nothing caught:
+
+1. device: torch / CUDA versions and the card's name and power limit;
+2. build: compile the CUDA kernels of ``larndsim_tpu_torch/csrc``;
+3. reference: the port's CLI on a tiny noise-free geometry, on the card
+   (kernels) and on the CPU (plain versions, which tests/test_torch_*.py
+   hold against the JAX package): data packets must agree;
+4. warm-up: the main path once, capturing the first batch's kernel inputs;
+5. K1 / K2: each kernel against its plain PyTorch version on the card, at
+   the first batch's shapes (and, for the FSM, a drawn case with many
+   hits), with CUDA-event times of both;
+6. slice: the main path timed: ``larndsim_tpu_torch.cli.simulate_pixels.
+   run_simulation``, charge only, on a Module-0-shaped detector at the
+   published widths (2 TPCs x 2x4 tiles of 70x70 pixels, 78,400 pixels),
+   the synthetic 45x45x1891 response and 8 spills of 16 tracks x 42
+   segments, with every launch counter set to 0 before and read after;
+   the plain versions are forbidden during it, and by its end neither JAX
+   nor the JAX package ``larndsim_tpu`` may have been imported.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
+and prints no result.  ``--profile DIR`` adds a cProfile table (host) and a
+``torch.profiler`` table (device) of two more slice runs to DIR.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+#: the slice's input: bench.py's per-spill tracks, Module-0 occupancy 4
+SPILLS = dict(n_events=8, tracks_per_event=16, segments_per_track=42,
+              segment_length=0.4, dEdx=8.0, seed=2)
+K1_SOURCE = 'larndsim_tpu_torch/csrc/induced_current.cu'
+K2_SOURCE = 'larndsim_tpu_torch/csrc/fee_fsm.cu'
+K1_REPLACES = 'larndsim_tpu/ops/current_pallas.py:608'
+K2_REPLACES = 'larndsim_tpu/ops/fee_pallas.py:293'
+
+
+def log(phase: str, msg: str) -> None:
+    print(f'[{phase}] {msg}', flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` on the current stream (CUDA events),
+    after one untimed call."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def data_packets(path: str) -> collections.Counter:
+    from larndsim_tpu_torch.io.h5 import File
+    with File(path, 'r') as f:
+        pk = np.array(f['packets'])
+    pk = pk[pk['packet_type'] == 0]
+    return collections.Counter(
+        tuple(int(p[k]) for k in ('io_group', 'io_channel', 'chip_id',
+                                  'channel_id', 'timestamp', 'dataword'))
+        for p in pk)
+
+
+def reference_phase(tmp: str) -> None:
+    """Tiny noise-free run: on the card == on the CPU (plain versions)."""
+    from larndsim_tpu_torch.assets.geometry import write_module0
+    from larndsim_tpu_torch.assets.make_input import write_input
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    from larndsim_tpu_torch.params import load_detector
+    quiet = dict(long_diff=0.0, tran_diff=0.0, reset_noise_charge=0.0,
+                 uncorrelated_noise_charge=0.0, discriminator_noise=0.0)
+    paths = write_module0(os.path.join(tmp, 'tiny'), tiles=(1, 1),
+                          pixels_per_tile=14, drift_length=3.0,
+                          time_interval=(0.0, 30.0), time_padding=10.0,
+                          time_window=8.9, detector_overrides=quiet)
+    inp = os.path.join(tmp, 'tiny.h5')
+    write_input(inp, load_detector(paths['detector_properties'],
+                                   paths['pixel_layout']).tpc_borders,
+                n_events=2, tracks_per_event=3, segments_per_track=6,
+                segment_length=0.4, dEdx=8.0, seed=2)
+    kw = dict(detector_properties=paths['detector_properties'],
+              pixel_layout=paths['pixel_layout'],
+              simulation_properties=paths['simulation_properties'],
+              response_file=os.path.join(tmp, 'tiny_response.npy'),
+              rand_seed=7, step_scale=2.0)
+    outs = {}
+    for dev in ('cuda', 'cpu'):
+        outs[dev] = os.path.join(tmp, f'tiny_{dev}.h5')
+        run_simulation(inp, outs[dev], device=dev, **kw)
+    on_card, on_cpu = data_packets(outs['cuda']), data_packets(outs['cpu'])
+    n = max(sum(on_card.values()), sum(on_cpu.values()))
+    matched = sum((on_card & on_cpu).values())
+    assert n > 0 and matched >= 0.99 * n, (matched, n)
+    log('reference', f'tiny run: {matched}/{n} data packets agree, card '
+        'vs CPU plain versions')
+
+
+def compare_k1(args) -> dict:
+    import torch
+    from larndsim_tpu_torch.ops import current
+    got = current.induced_current(*args)
+    want = current.current_plain(*args)
+    torch.cuda.synchronize()
+    peak = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert peak > 0, 'first batch induced no current'
+    assert err <= 2e-5 * peak, f'K1 disagrees: max |err| {err} vs peak {peak}'
+    ms = cuda_ms(lambda: current.induced_current(*args), reps=5)
+    plain_ms = cuda_ms(lambda: current.current_plain(*args), reps=1)
+    S, n_steps = args[0].shape
+    log('K1', f'induced current (S={S}, P={args[4].shape[1]}, '
+        f't_sig={args[9].shape[1]}, n_steps={n_steps}): max |err| {err:.3e} '
+        f'(peak {peak:.4e}, tol 2e-5 x peak); kernel {ms:.3f} ms, plain '
+        f'{plain_ms:.3f} ms')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def _fsm_case(args, label: str):
+    import torch
+    from larndsim_tpu_torch.ops import fee
+    got = fee.fee_fsm(*args)
+    want = fee.fee_fsm_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(fee.FeeResult._fields, want, got):
+        if a.dtype.is_floating_point:
+            d = (b - a).abs()
+            assert bool((d <= 1e-2 + 1e-5 * a.abs()).all()), \
+                f'K2 {label} {name} disagrees: max |err| {float(d.max())}'
+            err = max(err, float(d.max()))
+        else:
+            assert torch.equal(a, b), f'K2 {label} {name} differs'
+    n_hits = int(want[2].sum())
+    assert n_hits > 0, f'K2 {label}: no hits'
+    ms = cuda_ms(lambda: fee.fee_fsm(*args), reps=5)
+    plain_ms = cuda_ms(lambda: fee.fee_fsm_plain(*args), reps=1)
+    U = args[0].shape[1]
+    log('K2', f'FSM {label} (U={U}, n_scan={args[0].shape[0]}, max_adc='
+        f'{args[5].max_adc}): {n_hits} hits, integers equal, max float '
+        f'|err| {err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def compare_k2(args, det) -> dict:
+    """The first batch's FSM inputs, then a drawn case with many hits."""
+    import torch
+    from larndsim_tpu_torch.ops import fee
+    first = _fsm_case(args, 'first batch')
+    dev = args[0].device
+    gen = torch.Generator(dev).manual_seed(11)
+    U = 16384
+    n_scan = det.time_ticks + det.integrate_ticks + det.busy_ticks + 4
+    sig = torch.rand((n_scan, U), generator=gen, device=dev) * 30000.0
+    sig = torch.where(torch.rand((n_scan, U), generator=gen, device=dev)
+                      > 0.97, sig, 0.0)
+    sig[det.time_ticks:] = 0.0
+    s = fee.fsm_scalars(det, max_adc=args[5].max_adc)
+    drawn = _fsm_case(
+        (sig, torch.randn((n_scan, 5, U), generator=gen, device=dev),
+         torch.randn((U,), generator=gen, device=dev) * s.sigma_reset,
+         torch.full((U,), det.f32('discrimination_threshold'), device=dev),
+         fee.tick_times(det, dev), s), 'drawn')
+    first['max_abs_err'] = max(first['max_abs_err'], drawn['max_abs_err'])
+    return first
+
+
+def slice_checks(out: str) -> int:
+    from larndsim_tpu_torch.io.h5 import File
+    with File(out, 'r') as f:
+        for name in ('packets', 'mc_packets_assn', 'segments'):
+            assert name in f, f'output lacks {name}'
+        pk = np.array(f['packets'])
+        n_assn = f['mc_packets_assn'].shape[0]
+    data = pk[pk['packet_type'] == 0]
+    assert len(data) > 0, 'no data packets'
+    adc = data['dataword'].astype(np.int64)
+    assert ((adc >= 0) & (adc <= 255)).all(), 'ADC outside [0, 255]'
+    assert n_assn == len(pk), (n_assn, len(pk))
+    return len(data)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--profile', default=None,
+                    help='directory for host and device profiles of the slice')
+    opts = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device available', file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log('device', f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
+        f'{torch.cuda.device_count()} device(s); nvidia-smi: {smi}')
+
+    from larndsim_tpu_torch.assets.geometry import write_module0
+    from larndsim_tpu_torch.assets.make_input import write_input
+    from larndsim_tpu_torch.cli import simulate_pixels as cli
+    from larndsim_tpu_torch.kernels import binding, build
+    from larndsim_tpu_torch.ops import current, fee
+    from larndsim_tpu_torch.params import load_detector
+
+    t0 = time.perf_counter()
+    build.load()
+    log('build', f'{len(build.sources())} CUDA sources -> '
+        f'{os.path.basename(build.library_path())} in '
+        f'{time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds:.2f} s)')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reference_phase(tmp)
+
+        paths = write_module0(os.path.join(tmp, 'module0'))
+        dm = load_detector(paths['detector_properties'],
+                           paths['pixel_layout'])
+        inp = os.path.join(tmp, 'spills.h5')
+        n_seg = write_input(inp, dm.tpc_borders, **SPILLS)
+        kw = dict(config='module0',
+                  detector_properties=paths['detector_properties'],
+                  pixel_layout=paths['pixel_layout'],
+                  simulation_properties=paths['simulation_properties'],
+                  # absent file: the synthetic 45 x 45 x 1891 response
+                  response_file=os.path.join(tmp, 'response_44.npy'),
+                  rand_seed=7, step_scale=1.0, device='cuda')
+        det = dm.params
+        log('slice', f'Module-0-shaped: n_pixels {det.n_pixels} x '
+            f'{det.n_tpcs} TPCs, {det.time_ticks} ticks; input {n_seg} '
+            f'segments in {SPILLS["n_events"]} spills')
+
+        # warm-up run; the first call of each dispatcher keeps its inputs
+        captured = {}
+
+        def capture(mod, name):
+            orig = getattr(mod, name)
+
+            def spy(*args):
+                captured.setdefault(name, args)
+                return orig(*args)
+            setattr(mod, name, spy)
+            return orig
+
+        orig_k1 = capture(current, 'induced_current')
+        orig_k2 = capture(fee, 'fee_fsm')
+        try:
+            t0 = time.perf_counter()
+            cli.run_simulation(inp, os.path.join(tmp, 'warm.h5'), **kw)
+            torch.cuda.synchronize()
+            log('warm-up', f'slice run {time.perf_counter() - t0:.2f} s '
+                '(first call: CUDA context, allocator, response upload)')
+        finally:
+            current.induced_current, fee.fee_fsm = orig_k1, orig_k2
+
+        k1 = compare_k1(captured['induced_current'])
+        k2 = compare_k2(captured['fee_fsm'],
+                        load_detector(paths['detector_properties'],
+                                      paths['pixel_layout'],
+                                      device='cuda').params)
+
+        def forbidden(name):
+            def plain(*args, **kwargs):
+                raise AssertionError(f'{name} ran on the main path')
+            return plain
+
+        plains = (current.current_plain, fee.fee_fsm_plain)
+        current.current_plain = forbidden('current_plain')
+        fee.fee_fsm_plain = forbidden('fee_fsm_plain')
+        out = os.path.join(tmp, 'slice.h5')
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            binding.reset_launches()
+            t0 = time.perf_counter()
+            cli.run_simulation(inp, out, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(binding.launches)
+        finally:
+            current.current_plain, fee.fee_fsm_plain = plains
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        assert launches['induced_current'] > 0, launches
+        assert launches['fee_fsm'] > 0, launches
+        foreign = sorted(m for m in sys.modules
+                         if m.split('.')[0] in ('jax', 'flax', 'larndsim_tpu'))
+        assert not foreign, f'the port imported {foreign}'
+        n_data = slice_checks(out)
+        log('slice', f'wall {wall:.3f} s, {n_seg / wall:.1f} segments/s, '
+            f'{n_data} data packets, launches {launches}, peak device '
+            f'memory {peak_gib:.2f} GiB')
+
+        if opts.profile:
+            profile_slice(inp, os.path.join(tmp, 'profiled.h5'), kw,
+                          opts.profile, cli)
+
+    kernels = [
+        dict(name='induced_current', route='cuda', source=K1_SOURCE,
+             replaces=K1_REPLACES, launches=launches['induced_current'],
+             **k1),
+        dict(name='fee_fsm', route='cuda', source=K2_SOURCE,
+             replaces=K2_REPLACES, launches=launches['fee_fsm'], **k2),
+    ]
+    print(json.dumps({'kernels': kernels}))
+    print(f'card: {smi}')
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+def profile_slice(inp: str, out: str, kw: dict, directory: str, cli) -> None:
+    """Two more slice runs: one under cProfile (host time by function),
+    one under torch.profiler (device time by kernel)."""
+    import cProfile
+    import pstats
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(directory, exist_ok=True)
+    host = cProfile.Profile()
+    host.runcall(cli.run_simulation, inp, out + '.host', **kw)
+    torch.cuda.synchronize()
+    with open(os.path.join(directory, 'slice_host.txt'), 'w') as f:
+        pstats.Stats(host, stream=f).sort_stats('cumulative').print_stats(60)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cli.run_simulation(inp, out, **kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # 'cuda' names the device column in every torch version
+    table = prof.key_averages().table(sort_by='self_cuda_time_total',
+                                      row_limit=40)
+    path = os.path.join(directory, 'slice_profile.txt')
+    with open(path, 'w') as f:
+        f.write(f'profiled slice wall {wall:.3f} s\n{table}\n')
+    from torch.autograd import DeviceType
+    device_ms = {e.key: e.self_device_time_total / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+    ours = {name: round(v, 3) for k, v in device_ms.items()
+            for name in ('induced_current_kernel', 'fee_fsm_kernel')
+            if name in k}
+    busy_ms = sum(device_ms.values())
+    log('profile', f'wall {wall:.3f} s under the profiler; device kernels '
+        f'{busy_ms:.1f} ms in all ({100 * busy_ms / (1e3 * wall):.1f}% of '
+        f'that wall), ours {ours} -> {path}')
+
+
+if __name__ == '__main__':
+    sys.exit(main())

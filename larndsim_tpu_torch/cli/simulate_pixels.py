@@ -1,0 +1,337 @@
+"""Charge-only simulation entry point: edep-sim HDF5 in -> LArPix packets out.
+
+Counterpart of ``larndsim_tpu.cli.simulate_pixels.run_simulation`` with
+light off, one module (no module-to-module variation), one device and one
+event per batch.  Flag names match the JAX CLI for every flag supported
+here, plus ``--device``.  Random draws come from a ``torch.Generator`` per
+batch, seeded from (rand_seed, event, batch number); event times come from
+``np.random.default_rng(rand_seed)`` as in the JAX CLI, so the packet
+timestamps match it.
+
+    python -m larndsim_tpu_torch.cli.simulate_pixels IN.h5 OUT.h5 \\
+        --detector_properties det.yaml --pixel_layout layout.yaml \\
+        --simulation_properties sim.yaml --response_file missing.npy
+"""
+from __future__ import annotations
+
+import os
+import time
+import warnings
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from ..assets.response import load_response
+from ..config import get_config
+from ..io import edep, export
+from ..io.edep import swap_coordinates
+from ..io.h5 import File
+from ..models.charge import bucket, generator_draw, simulate_charge_batch
+from ..ops.drift import drift, select_active_volume
+from ..ops.quench import quench
+from ..params import get_module_ids, load_detector, load_sim, physics
+from ..params.detector import light_trig_mode
+from ..segments import from_structured, to_structured
+from ..utils.batching import TPCBatcher
+from ..utils.pixel_lut import PixelLUT
+
+
+def gen_event_times(nevents: int, event_rate: float, t0: float = 0.0,
+                    rng=None) -> np.ndarray:
+    """Sequential uncorrelated event times [us] (fee.gen_event_times,
+    fee.py:66-81)."""
+    rng = rng or np.random.default_rng()
+    return np.cumsum(rng.exponential(scale=event_rate,
+                                     size=int(nevents))) + t0
+
+
+def _single(value, what: str):
+    if isinstance(value, list):
+        if len(value) > 1:
+            raise NotImplementedError(
+                f'several {what} files need module variation, which this '
+                'port does not run')
+        return value[0]
+    return value
+
+
+def batch_generator(rand_seed: int, i_mod: int, event: int, seq: int,
+                    device) -> torch.Generator:
+    """Generator of one batch's draws, seeded from its identity."""
+    seed = np.random.SeedSequence(
+        [rand_seed, max(i_mod, 0), int(event), seq]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def run_simulation(input_filename: str,
+                   output_filename: str,
+                   config: str = 'module0',
+                   pixel_layout=None,
+                   detector_properties: str | None = None,
+                   simulation_properties: str | None = None,
+                   response_file=None,
+                   light_simulated: bool | None = None,
+                   bad_channels: str | None = None,
+                   n_events: int | None = None,
+                   pixel_thresholds_file=None,
+                   pixel_gains_file=None,
+                   rand_seed: int | None = None,
+                   step_scale: float = 1.0,
+                   device: str = 'cuda'):
+    """Simulate the charge readout of a pixelated LArTPC.
+
+    ``step_scale`` coarsens the MC charge-sampling density (1.0 is the
+    reference MIN_STEP_SIZE density); ``device`` is where the chain runs
+    ('cuda' raises when no card is present).
+    """
+    if light_simulated:
+        raise NotImplementedError('the light simulation is not ported yet')
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('device cuda requested but no CUDA device is '
+                           'available')
+    # float32 products in full float32 on the card, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not os.path.exists(input_filename):
+        raise FileNotFoundError(input_filename)
+    if os.path.exists(output_filename):
+        raise FileExistsError(output_filename)
+
+    cfg = get_config(config)
+    pixel_layout = _single(pixel_layout or cfg['PIXEL_LAYOUT'], 'layout')
+    detector_properties = detector_properties or cfg['DET_PROPERTIES']
+    simulation_properties = simulation_properties or cfg['SIM_PROPERTIES']
+    response_file = _single(response_file or cfg['RESPONSE'], 'response')
+    if pixel_thresholds_file is None:
+        pixel_thresholds_file = cfg.get('PIXEL_THRESHOLDS_FILE')
+    if pixel_gains_file is None:
+        pixel_gains_file = cfg.get('PIXEL_GAINS_FILE')
+    pixel_thresholds_file = _single(pixel_thresholds_file, 'threshold')
+    pixel_gains_file = _single(pixel_gains_file, 'gain')
+    get_module_ids(detector_properties)  # validates module_to_tpcs
+
+    sim = load_sim(simulation_properties)
+    t_sim0 = time.time()
+    if rand_seed is None:
+        rand_seed = int(time.time())
+    np_rng = np.random.default_rng(rand_seed)
+
+    # ---------------- input ----------------
+    inp = edep.load_edep(input_filename, n_events=n_events,
+                         event_separator=sim.event_separator,
+                         is_spill_sim=sim.is_spill_sim,
+                         spill_period=sim.spill_period,
+                         max_events_per_file=sim.max_events_per_file)
+    tracks = inp.tracks
+    vertices, mc_hdr, mc_stack = inp.vertices, inp.mc_hdr, inp.mc_stack
+
+    det_model = load_detector(detector_properties, pixel_layout,
+                              device=device)
+    det = det_model.params
+    trig_mode = light_trig_mode(detector_properties)
+
+    num_evids = int(tracks[sim.event_separator].max()
+                    % sim.max_events_per_file) + 1
+    if sim.is_spill_sim:
+        event_times = np.arange(num_evids) * sim.spill_period
+    else:
+        event_times = gen_event_times(num_evids, det.event_rate,
+                                      t0=det.non_beam_event_gap, rng=np_rng)
+
+    # event times into vertices/mc_hdr (cli:616-642)
+    if vertices is not None and not sim.is_spill_sim:
+        import numpy.lib.recfunctions as rfn
+        if 't_event' not in vertices.dtype.names:
+            vertices = rfn.merge_arrays(
+                (np.zeros(vertices.shape[0], dtype=[('t_event', 'f4')]),
+                 vertices), flatten=True)
+        uniq_ev, counts = np.unique(vertices[sim.event_separator],
+                                    return_counts=True)
+        vertices['t_event'] = np.repeat(
+            event_times[uniq_ev % sim.max_events_per_file], counts)
+    if mc_hdr is not None and vertices is not None \
+            and 't_event' in vertices.dtype.names:
+        import numpy.lib.recfunctions as rfn
+        if 't_event' not in mc_hdr.dtype.names:
+            mc_hdr = rfn.merge_arrays(
+                (np.zeros(mc_hdr.shape[0], dtype=[('t_event', 'f4')]),
+                 mc_hdr), flatten=True)
+        mc_hdr['t_event'] = vertices['t_event']
+
+    active_mask = select_active_volume(tracks, det_model.tpc_borders)
+    all_mod_tracks = tracks[active_mask]
+    segment_ids = inp.segment_ids[active_mask]
+    traj_ids = inp.trajectory_ids[active_mask]
+    i_mod = -1
+
+    n_resp_t = int(round(det.f32('time_window')
+                         / det.f32('response_sampling')))
+    response = torch.from_numpy(load_response(
+        response_file, n_t=n_resp_t,
+        bin_size=det.f32('response_bin_size'),
+        sampling=det.f32('response_sampling'),
+        pixel_pitch=det.f32('pixel_pitch'))).to(device)
+    thresholds_lut = (PixelLUT.load(pixel_thresholds_file)
+                      if pixel_thresholds_file else None)
+    gains_lut = PixelLUT.load(pixel_gains_file) if pixel_gains_file else None
+
+    io_groups = np.array(list(det_model.module_to_io_groups.values()))
+    trig_module = int(np.argwhere(
+        io_groups == export.get_trig_io(trig_mode))[0][0]) + 1 \
+        if io_groups.size else 1
+
+    # ---- quench + drift over the whole module ----
+    t0 = time.time()
+    segs_all = from_structured(all_mod_tracks,
+                               pad_to=bucket(len(all_mod_tracks), lo=64),
+                               device=device)
+    segs_all = drift(quench(segs_all, det, physics.BIRKS), det)
+    tracks_mod = to_structured(segs_all, dtype=all_mod_tracks.dtype)
+    print(f'Quenching and drifting: {time.time() - t0:.2f} s')
+
+    # ---- batching loop ----
+    # the output lives in memory and is written once, at the end
+    out = File(output_filename, 'w')
+    results_acc = defaultdict(list)
+    clock_period = det.clock_reset_period * det.clock_cycle
+    sync_start = (event_times[0] // clock_period * clock_period
+                  + clock_period)
+
+    def flush_results():
+        nonlocal results_acc
+        if not results_acc.get('event_pix'):
+            results_acc = defaultdict(list)
+            return
+        res = {k: np.concatenate([np.asarray(x) for x in v], axis=0)
+               for k, v in results_acc.items() if len(v)}
+        uniq_events = np.unique(res['event_pix'])
+        uniq_event_times = event_times[uniq_events
+                                       % sim.max_events_per_file]
+        export.export_to_hdf5(
+            res['event_pix'], res['hit_row'], res['hit_adc'],
+            res['hit_ticks'], res['hit_frac'], res['unique_pix'],
+            res['track_pixel_map'], res['traj_pixel_map'],
+            out, uniq_event_times, det_model, trig_mode, sim,
+            light_trigger_times=np.zeros_like(uniq_event_times),
+            light_trigger_event_id=uniq_events,
+            light_trigger_modules=np.ones(len(uniq_events)),
+            bad_channels=bad_channels, i_mod=i_mod)
+        results_acc = defaultdict(list)
+
+    def process(ievd, sel, seq):
+        selected = tracks_mod[sel]
+        segs = from_structured(selected, pad_to=bucket(len(sel), lo=32),
+                               device=device)
+        gen = batch_generator(rand_seed, i_mod, ievd, seq, device)
+        res = simulate_charge_batch(
+            segs, det_model, sim, generator_draw(gen, device), response,
+            pixel_thresholds=thresholds_lut, pixel_gains=gains_lut,
+            already_drifted=True, step_scale=step_scale, host_segs=selected)
+        if res.overflow:
+            warnings.warn('More segments per pixel than MAX_TRACKS_PER_PIXEL '
+                          f'({sim.max_tracks_per_pixel}); backtracking may '
+                          'be incomplete')
+        # batch-local track indices -> global ids (cli:1112-1115)
+        tmap = res.track_pixel_map
+        tmap_seg = np.where(tmap >= 0,
+                            segment_ids[sel][np.clip(tmap, 0, None)], -1)
+        tmap_trj = np.where(tmap >= 0,
+                            traj_ids[sel][np.clip(tmap, 0, None)], -1)
+        valid_u = res.unique_pix >= 0
+        row_offset = sum(len(x) for x in results_acc['unique_pix'])
+        new_row = np.cumsum(valid_u) - 1
+        keep_h = valid_u[res.hit_row]
+        results_acc['event_pix'].append(
+            np.full(int(valid_u.sum()), ievd, dtype=np.int64))
+        results_acc['unique_pix'].append(res.unique_pix[valid_u])
+        results_acc['track_pixel_map'].append(tmap_seg[valid_u])
+        results_acc['traj_pixel_map'].append(tmap_trj[valid_u])
+        results_acc['hit_row'].append(
+            new_row[res.hit_row[keep_h]] + row_offset)
+        results_acc['hit_adc'].append(res.hit_adc[keep_h])
+        results_acc['hit_ticks'].append(res.hit_ticks[keep_h])
+        results_acc['hit_frac'].append(res.hit_fractions[keep_h])
+        if len(results_acc['event_pix']) >= sim.write_batch_size:
+            flush_results()
+
+    batcher = TPCBatcher(all_mod_tracks, tracks_mod, sim.event_separator,
+                         tpc_batch_size=sim.event_batch_size,
+                         tpc_borders=det_model.tpc_borders)
+    event_id_buffer = -1
+    seq = 0
+    for ievd, batch_mask in batcher:
+        this_event_time = event_times[int(ievd) % sim.max_events_per_file]
+        if ievd > event_id_buffer:
+            event_id_buffer = ievd
+            if this_event_time - sync_start >= 0:
+                sync_times = np.arange(sync_start, this_event_time + 1,
+                                       clock_period)
+                if len(sync_times):
+                    export.export_sync_to_hdf5(
+                        out, np.full(sync_times.shape,
+                                                 clock_period),
+                        det_model, sim, i_mod)
+                    sync_start = sync_times[-1] + clock_period
+            if i_mod == trig_module or i_mod == -1:
+                export.export_timestamp_trigger_to_hdf5(
+                    out, [this_event_time], det_model,
+                    trig_mode, sim, i_mod)
+        idx = np.nonzero(batch_mask)[0]
+        if len(idx) == 0:
+            continue
+        if len(idx) > sim.batch_size:
+            warnings.warn('Entered sub-batch loop; consider increasing '
+                          f'batch_size (currently {sim.batch_size})')
+        for i0 in range(0, len(idx), sim.batch_size):
+            seq += 1
+            process(ievd, idx[i0:i0 + sim.batch_size], seq)
+    flush_results()
+
+    # ---------------- truth + final exports ----------------
+    segments_to_files = tracks_mod
+    if sim.is_spill_sim:
+        local_spill = edep.local_spill_ids(segments_to_files,
+                                           sim.event_separator,
+                                           sim.max_events_per_file)
+        for fld in ('t0_start', 't0_end', 't0'):
+            if fld in segments_to_files.dtype.names:
+                segments_to_files[fld] = (segments_to_files[fld]
+                                          + local_spill * sim.spill_period)
+    swap_coordinates(segments_to_files)
+    out.create_dataset(sim.tracks_dset_name, data=segments_to_files)
+    out[sim.tracks_dset_name].attrs['zbeam'] = True
+    for name, data in (('trajectories', inp.trajectories),
+                       ('vertices', vertices), ('mc_hdr', mc_hdr),
+                       ('mc_stack', mc_stack)):
+        if data is not None:
+            out.create_dataset(name, data=data)
+    if 'configs' in out:
+        out['configs'].attrs['pixel_layout'] = str(pixel_layout)
+    out.close()
+    print(f'Output saved in: {output_filename}')
+    print(f'Elapsed time: {time.time() - t_sim0:.2f} s')
+
+
+def main(argv=None):
+    import argparse
+    import inspect
+
+    def _bool(v):
+        return str(v).lower() in ('1', 'true', 'yes', 'on')
+
+    parser = argparse.ArgumentParser(description=run_simulation.__doc__)
+    for name, p in inspect.signature(run_simulation).parameters.items():
+        if p.default is inspect.Parameter.empty:
+            parser.add_argument(name)
+            continue
+        ann = str(p.annotation)
+        typ = (_bool if 'bool' in ann else int if 'int' in ann
+               else float if 'float' in ann else str)
+        parser.add_argument(f'--{name}', type=typ, default=p.default)
+    run_simulation(**vars(parser.parse_args(argv)))
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,462 @@
+"""HDF5 export of the charge readout: LArPix packets + MC-truth association.
+
+Counterpart of the charge part of ``larndsim_tpu.io.export`` (reference
+fee.export_to_hdf5 fee.py:84-359, export_sync/timestamp_trigger
+fee.py:361-497): the packet stream is assembled from dense index arrays in
+numpy and written through ``io.larpix_packets`` into an open ``io.h5.File``
+(the caller opens the output once and closes it at the end of the run).  The light
+parameters these writers read reduce to the light-trigger mode.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import warnings
+
+import numpy as np
+import yaml
+
+from .. import units
+from ..params.detector import DetectorModel
+from ..params.sim import SimParams
+from . import larpix_packets as lp
+
+logger = logging.getLogger('export')
+
+
+def get_trig_io(light_trig_mode: int) -> int:
+    """io_group receiving forwarded triggers (fee.get_trig_io, fee.py:30-38)."""
+    return 2 if light_trig_mode == 0 else 1
+
+
+def _digitize_zero(det) -> float:
+    """ADC count for zero integrated charge (fee.digitize on host floats)."""
+    hc = det.host
+    v = hc['v_pedestal'] * units.mV - hc['v_cm'] * units.mV
+    return min(round(max(v, 0.0) * det.adc_counts
+                     / (hc['v_ref'] * units.mV - hc['v_cm'] * units.mV)),
+               det.adc_counts - 1)
+
+
+# --------------------------------------------------------------------------
+# pixel id -> readout coordinates (dense)
+# --------------------------------------------------------------------------
+
+def pixel_readout_coords(pixel_ids: np.ndarray, det_model: DetectorModel):
+    """Vectorized pixel id -> (io_group, io_channel, chip, channel, ok).
+
+    Replaces the per-packet dict lookups at fee.py:147-157 and :227-247.
+    """
+    layout = det_model.layout
+    nx, ny = layout.n_pixels
+    nppt = layout.n_pixels_per_tile
+    pix_x = pixel_ids % nx
+    pix_y = (pixel_ids // nx) % ny
+    plane = pixel_ids // (nx * ny)
+    module_id = plane // 2 + 1
+
+    tile_x = pix_x // nppt[0]
+    tile_y = pix_y // nppt[1]
+    anode_id = plane % 2
+    tile_map = np.asarray(det_model.tile_map)  # (n_anode, ntx, nty)
+    ok = ((anode_id >= 0) & (anode_id < tile_map.shape[0])
+          & (tile_x < tile_map.shape[1]) & (tile_y < tile_map.shape[2]))
+    tile_id = tile_map[np.clip(anode_id, 0, tile_map.shape[0] - 1),
+                       np.clip(tile_x, 0, tile_map.shape[1] - 1),
+                       np.clip(tile_y, 0, tile_map.shape[2] - 1)]
+
+    in_x = pix_x % nppt[0]
+    in_y = pix_y % nppt[1]
+    chip = layout.chip_id_map[tile_id, in_x, in_y]
+    channel = layout.channel_id_map[tile_id, in_x, in_y]
+    io_group_local = layout.io_group_map[tile_id, in_x, in_y]
+    io_channel = layout.io_channel_map[tile_id, in_x, in_y]
+
+    # module io-group remap (fee.py:247)
+    mod_keys = sorted(det_model.module_to_io_groups)
+    io_lut = np.full((max(mod_keys) + 2,
+                      max(len(v) for v in det_model.module_to_io_groups.values()) + 1),
+                     -1, np.int32)
+    for m, groups in det_model.module_to_io_groups.items():
+        for i, g in enumerate(groups):
+            io_lut[m, i + 1] = g
+    mod_ok = (module_id >= 1) & (module_id <= max(mod_keys))
+    ok &= mod_ok & (chip >= 0) & (io_group_local >= 1)
+    safe_mod = np.clip(module_id, 1, max(mod_keys))
+    safe_local = np.clip(io_group_local, 0, io_lut.shape[1] - 1)
+    io_group = io_lut[safe_mod, safe_local]
+    ok &= io_group >= 0
+    return io_group, io_channel, chip, channel, ok
+
+
+# --------------------------------------------------------------------------
+# MC association helpers
+# --------------------------------------------------------------------------
+
+def _aggregate_traj_fractions(traj_ids: np.ndarray, fracs: np.ndarray):
+    """Per-row: unique trajectory ids with summed fractions (fee.py:322-328).
+
+    Args:
+        traj_ids: (N, K) int, -1 padding.
+        fracs: (N, K) float.
+
+    Returns:
+        (N, K) unique ids (-1 padded, ascending per row) and summed fractions.
+    """
+    N, K = traj_ids.shape
+    if N == 0:
+        return traj_ids.copy(), np.zeros_like(fracs)
+    mask = traj_ids > -1
+    big = np.int64(1) << 40
+    keys = (np.arange(N)[:, None] * big
+            + np.where(mask, traj_ids.astype(np.int64), big - 1))
+    order = np.argsort(keys, axis=1, kind='stable')
+    sk = np.take_along_axis(keys, order, axis=1)
+    sf = np.take_along_axis(np.where(mask, fracs, 0.0), order, axis=1)
+    st = np.take_along_axis(np.where(mask, traj_ids, -1), order, axis=1)
+
+    flat_k = sk.reshape(-1)
+    first = np.concatenate([[True], flat_k[1:] != flat_k[:-1]])
+    group = np.cumsum(first) - 1
+    sums = np.bincount(group, weights=sf.reshape(-1))
+    # rank of each unique group within its row
+    first2d = first.reshape(N, K)
+    rank = np.cumsum(first2d, axis=1) - 1
+    out_ids = np.full((N, K), -1, np.int64)
+    out_fr = np.zeros((N, K))
+    rows = np.repeat(np.arange(N), K).reshape(N, K)
+    sel = first2d & (st >= 0)
+    out_ids[rows[sel], rank[sel]] = st[sel]
+    out_fr[rows[sel], rank[sel]] = sums[group.reshape(N, K)[sel]]
+    return out_ids, out_fr
+
+
+def _assn_dtype(store: int) -> np.dtype:
+    return np.dtype([('event_ids', '(1,)i8'),
+                     ('segment_ids', f'({store},)i8'),
+                     ('fraction', f'({store},)f8'),
+                     ('file_traj_ids', f'({store},)i8'),
+                     ('fraction_traj', f'({store},)f8')])
+
+
+def _pad_to(arr: np.ndarray, width: int, fill):
+    if arr.shape[1] >= width:
+        return arr[:, :width]
+    return np.pad(arr, ((0, 0), (0, width - arr.shape[1])),
+                  constant_values=fill)
+
+
+def _append_dataset(f, name: str, data: np.ndarray):
+    if data.shape[0] == 0:
+        return
+    if name not in f:
+        maxshape = (None,) + data.shape[1:]
+        f.create_dataset(name, data=data, maxshape=maxshape)
+    else:
+        n0 = f[name].shape[0]
+        f[name].resize(n0 + data.shape[0], axis=0)
+        f[name][n0:] = data
+
+
+_BAD_CHANNELS_CACHE: dict = {}
+
+
+def _packed_bad_channels(path, bad_channels_list: dict) -> np.ndarray:
+    """Flatten the bad-channels YAML ('{io_group}-{io_channel}-{chip}' ->
+    [channels], fee.py:250-254) into sorted packed int64 keys, cached per
+    (file path, mtime, size) so a rewritten file is repacked."""
+    try:
+        st = os.stat(path)
+        cache_key = (path, st.st_mtime_ns, st.st_size)
+    except OSError:
+        cache_key = path
+    hit = _BAD_CHANNELS_CACHE.get(cache_key)
+    if hit is not None:
+        return hit
+    keys = []
+    for key, channels in bad_channels_list.items():
+        g, c, ch = (int(x) for x in str(key).split('-'))
+        for chan in channels or ():
+            keys.append((((g << 16 | c) << 16 | ch) << 16) | int(chan))
+    packed = np.sort(np.asarray(keys, np.int64))
+    if len(_BAD_CHANNELS_CACHE) > 8:
+        _BAD_CHANNELS_CACHE.clear()
+    _BAD_CHANNELS_CACHE[cache_key] = packed
+    return packed
+
+
+# --------------------------------------------------------------------------
+# charge export
+# --------------------------------------------------------------------------
+
+def export_to_hdf5(event_pix, hit_row, hit_adc, hit_ticks, hit_fractions,
+                   unique_pix, track_ids, traj_ids, f,
+                   event_start_times, det_model: DetectorModel,
+                   light_trig_mode: int, sim: SimParams,
+                   light_trigger_times=None, light_trigger_event_id=None,
+                   light_trigger_modules=None, bad_channels=None,
+                   i_mod: int = -1):
+    """Write the LArPix packet stream + mc_packets_assn for one write batch
+    into the open file ``f``.
+
+    Semantics match fee.export_to_hdf5 (fee.py:84-359) with hits in
+    *compact* form: ``event_pix``/``unique_pix``/``track_ids``/``traj_ids``
+    are per pixel row; ``hit_row``/``hit_adc``/``hit_ticks``/
+    ``hit_fractions`` are per latched hit, in (pixel-row, adc-slot)
+    row-major order — the order the reference's dense np.nonzero flatten
+    produced.  `track_ids`/`traj_ids` carry *global* segment / trajectory
+    ids per (pixel, track-slot).
+    """
+    det = det_model.params
+    clock = det.clock_cycle
+    reset_period = det.clock_reset_period
+    store = sim.association_count_to_store
+    K = track_ids.shape[1]
+
+    event_pix = np.asarray(event_pix)
+    hit_row = np.asarray(hit_row)
+    hit_adc = np.asarray(hit_adc)
+    hit_ticks = np.asarray(hit_ticks)
+    hit_fractions = np.asarray(hit_fractions)
+    unique_pix = np.asarray(unique_pix)
+    track_ids = np.asarray(track_ids)
+    traj_ids = np.asarray(traj_ids)
+
+    io_groups_all = np.unique(
+        np.array(list(det_model.module_to_io_groups.values())))
+    if i_mod >= 1:
+        io_groups_all = io_groups_all[(i_mod - 1) * 2: i_mod * 2]
+
+    bad_channels_list = None
+    if bad_channels:
+        with open(bad_channels) as bcf:
+            bad_channels_list = yaml.safe_load(bcf)
+
+    # --- per-pixel event times ---
+    unique_events, unique_events_inv = np.unique(event_pix,
+                                                 return_inverse=True)
+    event_t0_ticks = (event_start_times[unique_events_inv]
+                      / clock).astype(np.int64)
+
+    light_trigger_times = (np.empty(0) if light_trigger_times is None
+                           else np.asarray(light_trigger_times))
+    light_trigger_event_id = (np.empty(0, int) if light_trigger_event_id is
+                              None else np.asarray(light_trigger_event_id))
+    light_trigger_modules = (np.empty(0) if light_trigger_modules is None
+                             else np.asarray(light_trigger_modules))
+
+    # --- filter hits above the digitized zero (order is already
+    # (pixel-row, adc-slot) row-major) ---
+    dig0 = _digitize_zero(det)
+    above = hit_adc > dig0
+    pix_row = hit_row[above]
+    n_hits = pix_row.size
+
+    if n_hits == 0:
+        return
+
+    pix_ids = unique_pix[pix_row]
+    io_group, io_channel, chip, channel, ok = pixel_readout_coords(
+        pix_ids, det_model)
+    event = event_pix[pix_row]
+    ev_t0 = event_t0_ticks[pix_row]
+    t_us = hit_ticks[above]
+    # Clock rollover (fee.py:163-183): per hit, the reference subtracts
+    # CLOCK_RESET_PERIOD from `event_start_time_list[itick:]` until the
+    # hit tick fits; with event times nondecreasing along the stream the
+    # resulting data/sync/trigger timestamps equal a plain modulo, and the
+    # only *observable* state is the cumulative rollover count (which
+    # drives the tick-group timestamp payload below).  tt_raw // period
+    # is the per-hit rollover demand; its running max is the reference's
+    # sequential counter, vectorized.
+    tt_raw = np.floor(t_us / clock + ev_t0).astype(np.int64)
+    rollovers = np.maximum.accumulate(
+        np.maximum(tt_raw // reset_period, 0))
+    time_tick = tt_raw % reset_period
+    ev_t0_mod = ev_t0 % reset_period
+
+    if not ok.all():
+        n_bad = int((~ok).sum())
+        logger.warning('%d hits on unmapped pixels dropped', n_bad)
+
+    # bad-channel masking (fee.py:250-254), vectorized: the YAML's
+    # '{io_group}-{io_channel}-{chip}' -> [channels] map is flattened once
+    # into packed (io_group, io_channel, chip, channel) int64 keys and the
+    # per-hit test becomes one np.isin against the sorted pack
+    if bad_channels_list:
+        packed_bad = _packed_bad_channels(bad_channels, bad_channels_list)
+        hit_keys = (((io_group.astype(np.int64) << 16 | io_channel) << 16
+                     | chip) << 16) | channel
+        ok &= ~np.isin(hit_keys, packed_bad)
+
+    # --- service-packet schedule (per hit, in stream order) ---
+    # event boundary: first hit of each event above the digitized zero —
+    # NOT gated on channel mapping: the reference emits the event's
+    # timestamp/sync/trigger packets before the chip lookup can `continue`
+    # (fee.py:186-225 precede the KeyError/bad-channel drops :229-254)
+    new_event = np.concatenate([[True], event[1:] != event[:-1]])
+    # timestamp-group boundary: time_tick change *among surviving hits*
+    # (last_time_tick only updates after the drop checks, fee.py:262)
+    surv = np.nonzero(ok)[0]
+    tick_surv = time_tick[surv]
+    new_tick_surv = np.concatenate([[True],
+                                    tick_surv[1:] != tick_surv[:-1]])
+
+    assn_dtype = _assn_dtype(store)
+
+    def service_assn(n, event_vals=-1):
+        a = np.zeros(n, dtype=assn_dtype)
+        a['event_ids'] = np.full((n, 1), event_vals)
+        a['segment_ids'] = -1
+        a['file_traj_ids'] = -1
+        return a
+
+    # the stream is assembled from vectorized blocks + (hit, priority)
+    # sort keys; a final stable argsort interleaves them in the reference's
+    # order: event-boundary service packets, timestamp-group packet, data
+    parts, part_assn, part_keys = [], [], []
+
+    def add(pkts, assn, hits, prio):
+        parts.append(pkts)
+        part_assn.append(assn)
+        part_keys.append(np.stack([np.broadcast_to(hits, (len(pkts),)),
+                                   np.full(len(pkts), prio)], axis=1)
+                         if np.ndim(hits) == 0 else
+                         np.stack([hits, np.full(len(pkts), prio)], axis=1))
+
+    if light_trig_mode != 1:
+        for h in np.nonzero(new_event)[0]:
+            ev = event[h]
+            pk = []
+            for g in io_groups_all:
+                tp = lp.make_timestamp_packets(
+                    [event_start_times[unique_events_inv[pix_row[h]]]
+                     * units.mus / units.s], io_group=g)
+                sp = lp.make_sync_packets([time_tick[h]], g)
+                pk += [tp, sp]
+            trig_mask = light_trigger_event_id == ev
+            if trig_mask.any():
+                for t_trig, module_trig in zip(
+                        light_trigger_times[trig_mask],
+                        light_trigger_modules[trig_mask]):
+                    t_trig_tick = int(np.floor(
+                        t_trig / clock + ev_t0_mod[h])) % reset_period
+                    if light_trig_mode == 0:
+                        for g in det_model.module_to_io_groups[
+                                int(module_trig)]:
+                            pk.append(lp.make_trigger_packets(
+                                [t_trig_tick], g))
+            pkts = np.concatenate(pk)
+            add(pkts, service_assn(len(pkts)), int(h), 0)
+
+    # per-timestamp-group timestamp packet (fee.py:267): payload tracks
+    # `event_start_time_list[0]` — the raw t0 of pixel row 0, decremented
+    # by one reset period per rollover triggered while processing row 0's
+    # hits (adjustments at later rows touch only slices [itick:], so [0]
+    # freezes once the stream moves past row 0).
+    tick_hits = surv[new_tick_surv]
+    if len(tick_hits):
+        if pix_row[0] == 0:
+            row0_hits = np.nonzero(pix_row == 0)[0]
+            last_row0 = row0_hits[-1]
+            adj = rollovers[np.minimum(tick_hits, last_row0)]
+        else:
+            adj = np.zeros(len(tick_hits), np.int64)
+        ts_payload = np.floor(
+            (event_t0_ticks[0] - adj * reset_period).astype(np.float64)
+            * clock * units.mus / units.s)
+        tp = lp.make_timestamp_packets(ts_payload)
+        tp['io_group'] = io_group[tick_hits]
+        add(tp, service_assn(len(tick_hits)), tick_hits, 1)
+
+    # --- data packets (vectorized) ---
+    sel = np.nonzero(ok)[0]
+    adc_above = hit_adc[above]
+    data_pkts = lp.make_data_packets(
+        io_group[sel], io_channel[sel], chip[sel], channel[sel],
+        time_tick[sel], adc_above[sel])
+
+    # --- data-packet associations ---
+    fr = hit_fractions[above][sel]                            # (n, K)
+    tid = track_ids[pix_row[sel]]                             # (n, K)
+    trj = traj_ids[pix_row[sel]]
+    order = np.flip(np.argsort(fr, axis=1), axis=1)
+    fr_s = np.take_along_axis(fr, order, axis=1)
+    tid_s = np.take_along_axis(tid, order, axis=1)
+    trj_s = np.take_along_axis(trj, order, axis=1)
+    uniq_trj, uniq_fr = _aggregate_traj_fractions(trj_s, fr_s)
+
+    data_assn = np.zeros(len(sel), dtype=assn_dtype)
+    data_assn['event_ids'] = event[sel][:, None]
+    data_assn['segment_ids'] = _pad_to(tid_s, store, -1)
+    data_assn['fraction'] = _pad_to(fr_s, store, 0.0)
+    data_assn['file_traj_ids'] = _pad_to(uniq_trj, store, -1)
+    data_assn['fraction_traj'] = _pad_to(uniq_fr, store, 0.0)
+    add(data_pkts, data_assn, sel, 2)
+
+    # --- assemble in stream order (one concat + one stable lexsort) ---
+    keys = np.concatenate(part_keys)
+    stream_order = np.lexsort((keys[:, 1], keys[:, 0]))
+    packets = np.concatenate(parts)[stream_order]
+    assn = np.concatenate(part_assn)[stream_order]
+
+    lp.to_file(f, packets)
+    _append_dataset(f, 'mc_packets_assn', assn)
+    hc = det.host
+    f['configs'].attrs['vdrift'] = hc['v_drift']
+    f['configs'].attrs['long_diff'] = hc['long_diff']
+    f['configs'].attrs['tran_diff'] = hc['tran_diff']
+    f['configs'].attrs['lifetime'] = hc['electron_lifetime']
+    f['configs'].attrs['drift_length'] = det.drift_length
+
+
+def export_sync_to_hdf5(f, sync_times, det_model: DetectorModel,
+                        sim: SimParams, i_mod: int = -1):
+    """PPS sync packets (fee.export_sync_to_hdf5, fee.py:361-424)."""
+    det = det_model.params
+    io_groups = (det_model.module_to_io_groups[i_mod] if i_mod > 0 else
+                 np.unique(np.array(
+                     list(det_model.module_to_io_groups.values()))))
+    sync_ticks = np.asarray(sync_times) / det.clock_cycle
+    rounded = (sync_ticks // det.clock_reset_period
+               * det.clock_reset_period)
+    off = sync_ticks % det.clock_reset_period != 0
+    if off.any():
+        warnings.warn('The provided sync time is not a multiple of the '
+                      'reset period!')
+    sync_ticks = np.where(off, rounded, sync_ticks)
+    pk = [lp.make_sync_packets([t], g) for t in sync_ticks for g in io_groups]
+    if not pk:
+        return
+    packets = np.concatenate(pk)
+    lp.to_file(f, packets)
+    a = np.zeros(len(packets), dtype=_assn_dtype(sim.association_count_to_store))
+    a['event_ids'] = -1
+    a['segment_ids'] = -1
+    a['file_traj_ids'] = -1
+    _append_dataset(f, 'mc_packets_assn', a)
+
+
+def export_timestamp_trigger_to_hdf5(f, event_start_times,
+                                     det_model: DetectorModel,
+                                     light_trig_mode: int, sim: SimParams,
+                                     i_mod: int = -1):
+    """Beam timestamp+trigger packets (fee.py:426-497)."""
+    det = det_model.params
+    io_group = get_trig_io(light_trig_mode)
+    pk = []
+    for evt_time in np.asarray(event_start_times):
+        t_trig = int(np.floor(evt_time / det.clock_cycle)) \
+            % det.clock_reset_period
+        pk.append(lp.make_timestamp_packets(
+            [evt_time * units.mus / units.s], io_group=io_group))
+        pk.append(lp.make_trigger_packets([t_trig], io_group))
+    if not pk:
+        return
+    packets = np.concatenate(pk)
+    lp.to_file(f, packets)
+    a = np.zeros(len(packets), dtype=_assn_dtype(sim.association_count_to_store))
+    a['event_ids'] = -1
+    a['segment_ids'] = -1
+    a['file_traj_ids'] = -1
+    _append_dataset(f, 'mc_packets_assn', a)

@@ -1,0 +1,149 @@
+"""Port parity end to end: both ``simulate_pixels`` CLIs, charge only.
+
+Both run on a tiny generated geometry with diffusion and every noise
+charge set to 0, so each run is deterministic and the two packet streams
+can be compared packet by packet.  The JAX run takes its production
+induced-current backend (the Pallas kernel, interpret mode on CPU), whose
+response-window edges the port follows.
+
+Tolerance: data packets (``packet_type == 0``) agree on (io_group,
+io_channel, chip_id, channel_id, timestamp, dataword) for >= 99% of
+packets, and matched packets carry the same ``mc_packets_assn`` segment
+ids with fractions within atol 1e-4 (tied fractions may sort either
+way).  Also: the port imports no JAX, and runs where neither JAX, the JAX
+package nor h5py can be imported.
+"""
+from __future__ import annotations
+
+import collections
+import functools
+import os
+import subprocess
+import sys
+
+import h5py
+import numpy as np
+import pytest
+
+from larndsim_tpu.assets.make_input import write_input
+from larndsim_tpu.cli import simulate_pixels as jcli
+from larndsim_tpu.models import charge as jcharge
+from larndsim_tpu_torch.cli import simulate_pixels as tcli
+
+import torch_port_assets as tpa
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: an unset id: -1 stored through the input's uint32 id columns
+NO_ID = 0xFFFFFFFF
+FIELDS = ('io_group', 'io_channel', 'chip_id', 'channel_id', 'timestamp',
+          'dataword')
+
+
+def _data_packets(path):
+    with h5py.File(path, 'r') as f:
+        pk = np.array(f['packets'])
+        assn = np.array(f['mc_packets_assn'])
+        assert len(assn) == len(pk)
+        for name in ('segments', 'trajectories', 'vertices'):
+            assert name in f, name
+    data = pk['packet_type'] == 0
+    keys = [tuple(int(p[k]) for k in FIELDS) for p in pk[data]]
+    return keys, assn[data]
+
+
+def _truth(assn_row):
+    """{segment id: fraction} of one association row (padding dropped)."""
+    return {int(s): float(f) for s, f in zip(assn_row['segment_ids'],
+                                             assn_row['fraction'])
+            if s not in (NO_ID, -1)}
+
+
+def test_clis_agree(tmp_path, monkeypatch):
+    paths = tpa.write_tree(tmp_path / 'tree', detector_overrides=tpa.QUIET)
+    dm = tpa.load_jax(paths)
+    inp = str(tmp_path / 'in.h5')
+    n = write_input(inp, dm.tpc_borders, n_events=2, tracks_per_event=3,
+                    segments_per_track=6, segment_length=0.4, dEdx=8.0,
+                    seed=2)
+    assert n > 0
+    kw = dict(detector_properties=paths['detector_properties'],
+              pixel_layout=paths['pixel_layout'],
+              simulation_properties=paths['simulation_properties'],
+              response_file=str(tmp_path / '__missing__.npy'),
+              light_simulated=False, rand_seed=7, step_scale=2.0)
+    out_j, out_t = str(tmp_path / 'jax.h5'), str(tmp_path / 'torch.h5')
+    monkeypatch.setattr(jcli, 'simulate_charge_batch', functools.partial(
+        jcharge.simulate_charge_batch, backend='pallas'))
+    jcli.run_simulation(inp, out_j, config='module0', **kw)
+    tcli.run_simulation(inp, out_t, config='module0', device='cpu', **kw)
+
+    keys_j, assn_j = _data_packets(out_j)
+    keys_t, assn_t = _data_packets(out_t)
+    assert len(keys_j) > 0, 'test must produce data packets'
+    matched = sum((collections.Counter(keys_j)
+                   & collections.Counter(keys_t)).values())
+    assert matched >= 0.99 * max(len(keys_j), len(keys_t))
+    by_key_j = dict(zip(keys_j, map(_truth, assn_j)))
+    by_key_t = dict(zip(keys_t, map(_truth, assn_t)))
+    for k in set(by_key_j) & set(by_key_t):
+        want, got = by_key_j[k], by_key_t[k]
+        assert set(got) == set(want), k
+        for seg, frac in want.items():
+            assert got[seg] == pytest.approx(frac, abs=1e-4), (k, seg)
+    with h5py.File(out_t, 'r') as f:
+        adc = np.array(f['packets'])['dataword'][
+            np.array(f['packets'])['packet_type'] == 0]
+        assert ((adc >= 0) & (adc <= 255)).all()
+
+
+def test_cli_refuses_what_it_does_not_run(tmp_path):
+    inp = tmp_path / 'in.h5'
+    inp.write_bytes(b'')
+    with pytest.raises(NotImplementedError):
+        tcli.run_simulation(str(inp), str(tmp_path / 'o.h5'),
+                            light_simulated=True, device='cpu')
+
+
+def test_port_runs_without_jax_or_h5py(tmp_path):
+    """The port imports no JAX, and runs end to end where neither JAX, the
+    JAX package nor h5py can be imported (as on a machine that has only
+    PyTorch)."""
+    paths = tpa.write_tree(tmp_path / 'tree')
+    code = (
+        'import importlib, pkgutil, sys\n'
+        'class Block:\n'
+        '    def find_spec(self, name, path=None, target=None):\n'
+        '        if name.split(".")[0] in ("jax", "jaxlib", "flax", "h5py",\n'
+        '                                  "larndsim_tpu"):\n'
+        '            raise ImportError(name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'import larndsim_tpu_torch as p\n'
+        'for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):\n'
+        '    importlib.import_module(m.name)\n'
+        'from larndsim_tpu_torch.assets.make_input import write_input\n'
+        'from larndsim_tpu_torch.cli.simulate_pixels import run_simulation\n'
+        'from larndsim_tpu_torch.io.h5 import File\n'
+        'from larndsim_tpu_torch.params import load_detector\n'
+        f'det, lay, simp, d = {paths["detector_properties"]!r}, '
+        f'{paths["pixel_layout"]!r}, {paths["simulation_properties"]!r}, '
+        f'{str(tmp_path)!r}\n'
+        'write_input(d + "/in.h5", load_detector(det, lay).tpc_borders,\n'
+        '            n_events=1, tracks_per_event=2, segments_per_track=4,\n'
+        '            dEdx=8.0, seed=2)\n'
+        'run_simulation(d + "/in.h5", d + "/out.h5",\n'
+        '               detector_properties=det, pixel_layout=lay,\n'
+        '               simulation_properties=simp,\n'
+        '               response_file=d + "/r.npy", rand_seed=7,\n'
+        '               step_scale=4.0, device="cpu")\n'
+        'with File(d + "/out.h5") as f:\n'
+        '    assert len(f["packets"]) == len(f["mc_packets_assn"]) > 0\n'
+        'bad = [m for m in ("jax", "flax", "jaxlib", "h5py", "larndsim_tpu")\n'
+        '       if m in sys.modules]\n'
+        'assert not bad, bad\n'
+        'print("ok")\n')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and 'ok' in proc.stdout, proc.stderr
+    with h5py.File(str(tmp_path / 'out.h5'), 'r') as f:
+        assert {'packets', 'mc_packets_assn', 'segments'} <= set(f.keys())
