@@ -19,8 +19,18 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    published widths (2 TPCs x 2x4 tiles of 70x70 pixels, 78,400 pixels),
    the synthetic 45x45x1891 response and 8 spills of 16 tracks x 42
    segments, with every launch counter set to 0 before and read after;
-   the plain versions are forbidden during it, and by its end neither JAX
-   nor the JAX package ``larndsim_tpu`` may have been imported.
+   the plain versions are forbidden during it;
+7. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
+   (``probe_folded``): cases a-g, each in its own process, each OK and
+   importing nothing of JAX; each of its three kernels against its plain
+   version.  P2 / P3 (``probe_fee`` / ``probe_fee2``): every variant timed
+   at the probe shapes beside the FSM kernel (the entry points, launch
+   counters set to 0 before and read after), then every variant equal to
+   its plain version at the same shapes on a random signal;
+8. guard: ``tools.perf_guard`` times the chain's hot ops at production
+   shapes, with each one's bound on this card and the share reached.
+By the end neither JAX nor the JAX package ``larndsim_tpu`` may have been
+imported.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -47,10 +57,29 @@ K1_SOURCE = 'larndsim_tpu_torch/csrc/induced_current.cu'
 K2_SOURCE = 'larndsim_tpu_torch/csrc/fee_fsm.cu'
 K1_REPLACES = 'larndsim_tpu/ops/current_pallas.py:608'
 K2_REPLACES = 'larndsim_tpu/ops/fee_pallas.py:293'
+P1_SOURCE = 'larndsim_tpu_torch/csrc/probe_window.cu'
+P23_SOURCE = 'larndsim_tpu_torch/csrc/probe_fee.cu'
+#: P1's kernels: the JAX probe's pallas_calls each replaces, and the case
+#: that holds it against its plain version here
+P1_KERNELS = dict(probe_window=('tools/probe_folded.py:55, :92', 'a'),
+                  probe_roll=('tools/probe_folded.py:74, :138', 'c'),
+                  probe_async_copy=('tools/probe_folded.py:115', 'g'))
 
 
 def log(phase: str, msg: str) -> None:
     print(f'[{phase}] {msg}', flush=True)
+
+
+def event_ms(fn):
+    """``fn()`` and its milliseconds on the current stream (CUDA events)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -116,6 +145,7 @@ def reference_phase(tmp: str) -> None:
 def compare_k1(args) -> dict:
     import torch
     from larndsim_tpu_torch.ops import current
+    from larndsim_tpu_torch.tools import perf_guard as pg
     got = current.induced_current(*args)
     want = current.current_plain(*args)
     torch.cuda.synchronize()
@@ -125,17 +155,21 @@ def compare_k1(args) -> dict:
     assert err <= 2e-5 * peak, f'K1 disagrees: max |err| {err} vs peak {peak}'
     ms = cuda_ms(lambda: current.induced_current(*args), reps=5)
     plain_ms = cuda_ms(lambda: current.current_plain(*args), reps=1)
+    c = pg.k1_costs(args)
+    b = pg.bound(c['bytes'], c['ops'], ms)
     S, n_steps = args[0].shape
     log('K1', f'induced current (S={S}, P={args[4].shape[1]}, '
         f't_sig={args[9].shape[1]}, n_steps={n_steps}): max |err| {err:.3e} '
         f'(peak {peak:.4e}, tol 2e-5 x peak); kernel {ms:.3f} ms, plain '
-        f'{plain_ms:.3f} ms')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f'{plain_ms:.3f} ms, bound {b["bound_ms"]:.4f} ms by {b["bound_by"]}')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b['bound_ms'], bound_by=b['bound_by'])
 
 
 def _fsm_case(args, label: str):
     import torch
     from larndsim_tpu_torch.ops import fee
+    from larndsim_tpu_torch.tools import perf_guard as pg
     got = fee.fee_fsm(*args)
     want = fee.fee_fsm_plain(*args)
     torch.cuda.synchronize()
@@ -152,11 +186,16 @@ def _fsm_case(args, label: str):
     assert n_hits > 0, f'K2 {label}: no hits'
     ms = cuda_ms(lambda: fee.fee_fsm(*args), reps=5)
     plain_ms = cuda_ms(lambda: fee.fee_fsm_plain(*args), reps=1)
-    U = args[0].shape[1]
-    log('K2', f'FSM {label} (U={U}, n_scan={args[0].shape[0]}, max_adc='
+    n_scan, U = args[0].shape
+    c = pg.fsm_costs(n_scan, U, args[5].max_adc, args[4].shape[0],
+                     drawn=False)
+    b = pg.bound(c['bytes'], c['ops'], ms)
+    log('K2', f'FSM {label} (U={U}, n_scan={n_scan}, max_adc='
         f'{args[5].max_adc}): {n_hits} hits, integers equal, max float '
-        f'|err| {err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f'|err| {err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+        f'bound {b["bound_ms"]:.4f} ms by {b["bound_by"]}')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b['bound_ms'], bound_by=b['bound_by'])
 
 
 def compare_k2(args, det) -> dict:
@@ -177,9 +216,143 @@ def compare_k2(args, det) -> dict:
         (sig, torch.randn((n_scan, 5, U), generator=gen, device=dev),
          torch.randn((U,), generator=gen, device=dev) * s.sigma_reset,
          torch.full((U,), det.f32('discrimination_threshold'), device=dev),
-         fee.tick_times(det, dev), s), 'drawn')
+         fee.tick_times(det), s), 'drawn')
     first['max_abs_err'] = max(first['max_abs_err'], drawn['max_abs_err'])
     return first
+
+
+def p1_entries() -> list[dict]:
+    """P1: the seven cases, each in its own process (as the JAX probe runs
+    them), then each kernel against its plain version on the card."""
+    import torch
+    from larndsim_tpu_torch.tools import perf_guard as pg
+    from larndsim_tpu_torch.tools import probe_folded as p1
+    records = p1.run_isolated('cuda')
+    bad = [r for r in records if not r['ok']]
+    assert not bad, f'P1 cases failed: {bad}'
+    log('probes', 'P1 ' + ' '.join(f'{r["case"]}:OK' for r in records)
+        + ', each in its own process with nothing of JAX imported')
+    plain = {p1.window: p1.window_plain, p1.roll: p1.roll_plain,
+             p1.async_copy: p1.async_copy_plain}
+    entries = []
+    for name, (replaces, case) in P1_KERNELS.items():
+        fn, (x, *rest), _ = p1.case_call(case)
+        x = torch.from_numpy(x).cuda()
+        got, want = fn(x, *rest), plain[fn](x, *rest)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert err == 0.0, f'{name} disagrees with its plain version: {err}'
+        ms = cuda_ms(lambda: fn(x, *rest), reps=20)
+        plain_ms = cuda_ms(lambda: plain[fn](x, *rest), reps=20)
+        b = pg.bound(2 * got.numel() * 4, 0)   # the window in, once out
+        launches = sum(r['launches'] for r in records
+                       if p1.KERNEL[r['case']] == name)
+        assert launches > 0, (name, records)
+        log('probes', f'P1 {name} (case {case}, out {tuple(got.shape)}): '
+            f'equal to its plain version; {launches} launches in the cases; '
+            f'kernel {ms:.4f} ms, plain (one PyTorch call) {plain_ms:.4f} '
+            f'ms, bound {b["bound_ms"]:.6f} ms by {b["bound_by"]}')
+        entries.append(dict(
+            name=name, route='cuda', source=P1_SOURCE, replaces=replaces,
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b['bound_ms'], bound_by=b['bound_by'],
+            library_ms=plain_ms,
+            library='the plain version: one PyTorch call'))
+    return entries
+
+
+def _max_err(got, want, skip_outs: bool) -> float:
+    """Max |got - want| over a probe's results (the ``anyio`` outputs,
+    which neither version writes, skipped); raises unless all are equal."""
+    import torch
+    err = 0.0
+    for name, g, w in zip(want._fields, got, want):
+        if name == 'outs':
+            if skip_outs:
+                continue
+            pairs = list(zip(g, w))
+        else:
+            pairs = [(g, w)]
+        for a, b in pairs:
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            err = max(err, float((a.double() - b.double()).abs().max()))
+            assert torch.equal(a, b), f'{name} disagrees: max |err| {err}'
+    return err
+
+
+def p23_entries() -> list[dict]:
+    """P2 / P3 through their entry points at the probe shapes (launch
+    counters set to 0 before, read after), then every variant against its
+    plain version at the same shapes on a random signal."""
+    import torch
+    from larndsim_tpu_torch.kernels import binding
+    from larndsim_tpu_torch.tools import probe_fee, probe_fee2
+    binding.reset_launches()
+    records = {'probe_fee': probe_fee.main([]),
+               'probe_fee2': probe_fee2.main([])}
+    torch.cuda.synchronize()
+    launches = dict(binding.launches)
+    U, n_scan_p, n_scan = probe_fee.U, probe_fee.N_SCAN_P, probe_fee.N_SCAN
+    entries = []
+    for name, mod, ref, replaces in (
+            ('probe_fee', probe_fee, 'full', 'tools/probe_fee.py:133'),
+            ('probe_fee2', probe_fee2, 'base',
+             'tools/probe_fee2.py:133, :146')):
+        assert launches[name] > 0, launches
+        run = getattr(mod, name)
+        plain = getattr(mod, f'{name}_plain')
+        args = tuple(mod.make_inputs(U, n_scan_p, 'cuda').values())
+        err, plain_ms = 0.0, {}
+        for v in mod.VARIANTS:
+            got = run(v, *args, n_scan=n_scan)
+            want, plain_ms[v] = event_ms(
+                lambda: plain(v, *args, n_scan=n_scan))
+            err = max(err, _max_err(got, want, 'anyio' in v))
+        del args
+        rows = records[name]['rows']
+        variants = {}
+        for v in mod.VARIANTS:
+            b = mod.costs(v, U, n_scan, n_scan_p)
+            variants[v] = dict(ms=rows[v]['min_ms'],
+                               share_of_k2=rows[v]['share_of_k2'],
+                               bound_ms=b['bound_ms'], bound_by=b['bound_by'],
+                               share=b['bound_ms'] / rows[v]['min_ms'],
+                               plain_ms=plain_ms[v])
+        k2_ms = rows['fee_fsm (K2)']['min_ms']
+        log('probes', f'{name}: {len(mod.VARIANTS)} variants equal to their '
+            f'plain versions (U={U}, n_scan_p={n_scan_p}, n_scan={n_scan}, '
+            f'random signal; max |err| {err}); {launches[name]} launches in '
+            f'the timed run; {ref} {variants[ref]["ms"]:.3f} ms vs plain '
+            f'{plain_ms[ref]:.3f} ms')
+        entries.append(dict(
+            name=name, route='cuda', source=P23_SOURCE, replaces=replaces,
+            launches=launches[name], max_abs_err=err,
+            ms=variants[ref]['ms'], plain_ms=plain_ms[ref],
+            bound_ms=variants[ref]['bound_ms'],
+            bound_by=variants[ref]['bound_by'], library_ms=None,
+            library='none: a per-pixel recurrence over ticks; no one '
+            'PyTorch call computes it', k2_ms=k2_ms, variants=variants))
+    return entries
+
+
+def guard_phase() -> dict:
+    """tools.perf_guard at production shapes, counters set to 0 before
+    and read after."""
+    import torch
+    from larndsim_tpu_torch.kernels import binding
+    from larndsim_tpu_torch.tools import perf_guard as pg
+    binding.reset_launches()
+    entry = pg.main([])
+    torch.cuda.synchronize()
+    launches = dict(binding.launches)
+    assert launches['induced_current'] > 0 and launches['fee_fsm'] > 0, \
+        launches
+    for name, r in entry['roofline'].items():
+        assert np.isfinite(entry['ops_ms'][name]['min_ms']), name
+        log('guard', f'{name}: {entry["ops_ms"][name]["min_ms"]:.3f} ms, '
+            f'bound {r["bound_ms"]:.4f} ms by {r["bound_by"]}, share '
+            f'{r["share"]:.4f} (shapes {entry["shapes"]})')
+    return entry
 
 
 def slice_checks(out: str) -> int:
@@ -298,9 +471,6 @@ def main(argv=None) -> int:
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         assert launches['induced_current'] > 0, launches
         assert launches['fee_fsm'] > 0, launches
-        foreign = sorted(m for m in sys.modules
-                         if m.split('.')[0] in ('jax', 'flax', 'larndsim_tpu'))
-        assert not foreign, f'the port imported {foreign}'
         n_data = slice_checks(out)
         log('slice', f'wall {wall:.3f} s, {n_seg / wall:.1f} segments/s, '
             f'{n_data} data packets, launches {launches}, peak device '
@@ -310,13 +480,29 @@ def main(argv=None) -> int:
             profile_slice(inp, os.path.join(tmp, 'profiled.h5'), kw,
                           opts.profile, cli)
 
+    probes = p1_entries() + p23_entries()
+    guard = guard_phase()
+    foreign = sorted(m for m in sys.modules
+                     if m.split('.')[0] in ('jax', 'flax', 'larndsim_tpu'))
+    assert not foreign, f'the port imported {foreign}'
+
+    def at_production(name):
+        return dict(guard_ms=guard['ops_ms'][name]['min_ms'],
+                    guard_shapes=guard['shapes'], **{
+                        f'guard_{k}': v for k, v in
+                        guard['roofline'][name].items()},
+                    launches_per_batch=guard['kernels'][name][
+                        'launches_per_batch'],
+                    library_ms=None, library=guard['kernels'][name]['library'])
+
     kernels = [
         dict(name='induced_current', route='cuda', source=K1_SOURCE,
              replaces=K1_REPLACES, launches=launches['induced_current'],
-             **k1),
+             **k1, **at_production('induced_current')),
         dict(name='fee_fsm', route='cuda', source=K2_SOURCE,
-             replaces=K2_REPLACES, launches=launches['fee_fsm'], **k2),
-    ]
+             replaces=K2_REPLACES, launches=launches['fee_fsm'], **k2,
+             **at_production('fee_fsm')),
+    ] + probes
     print(json.dumps({'kernels': kernels}))
     print(f'card: {smi}')
     print(json.dumps({'ok': True, 'device': {

@@ -3,12 +3,14 @@
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 outputs with ``torch.empty``, launches, raises if the launch reports an
 error, and counts the launch in :data:`launches`.  Callers reach them
-through the dispatching functions ``ops.current.induced_current`` and
-``ops.fee.fee_fsm``.
+through the dispatching functions ``ops.current.induced_current``,
+``ops.fee.fee_fsm`` and those of the card probes in ``tools/``
+(``probe_folded``, ``probe_fee``, ``probe_fee2``).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -19,12 +21,23 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: kernel launches by kernel name since the last :func:`reset_launches`;
 #: a run reads them to show that its main path went through the kernels
-launches = {'induced_current': 0, 'fee_fsm': 0}
+launches = {'induced_current': 0, 'fee_fsm': 0, 'probe_window': 0,
+            'probe_roll': 0, 'probe_async_copy': 0, 'probe_fee': 0,
+            'probe_fee2': 0}
 
+_U = ctypes.c_uint
 _SIGNATURES = {
     'induced_current_launch': [_P] * 12 + [_I] * 8 + [_F] * 5 + [_P],
     'fee_fsm_launch': [_P] * 10 + [_F] * 7 + [_I] * 7 + [_P],
+    'probe_window_launch': [_P] * 2 + [_I] * 5 + [_P],
+    'probe_roll_launch': [_P] * 2 + [_I] * 4 + [_P],
+    'probe_async_copy_launch': [_P] * 2 + [_I] * 6 + [_P],
+    'probe_fee_launch': [_U] + [_P] * 13 + [_I] * 5 + [_P],
+    'probe_fee2_launch': [_U] + [_P] * 13 + [_I] * 5 + [_P],
 }
+#: pixels and ticks per grid step of the JAX FEE probes: U and the padded
+#: tick count must be multiples of them
+PROBE_TILE, PROBE_CHUNK = 1024, 256
 
 
 def _lib() -> ctypes.CDLL:
@@ -137,3 +150,166 @@ def fee_fsm(sig_rows, noise, q_init, thresholds, tick_times, s):
     _raise_on(err, 'fee_fsm')
     launches['fee_fsm'] += 1
     return integrals, ticks, n_adc, reset_start, latch_end
+
+
+def _cuda(t: torch.Tensor, kernel: str) -> torch.device:
+    if t.device.type != 'cuda':
+        raise ValueError(f'{kernel} kernel needs CUDA tensors, got {t.device}')
+    return t.device
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def probe_window(slab, row: int, q0: int, n_q: int) -> torch.Tensor:
+    """Launch ``csrc/probe_window.cu``: ``slab[row, q0:q0 + n_q, :]``."""
+    dev = _cuda(slab, 'probe_window')
+    n_rows, n_sub, lanes = slab.shape
+    _check('slab', slab, torch.float32, (n_rows, n_sub, lanes), dev)
+    if not (0 <= row < n_rows and 0 <= q0 and n_q > 0 and q0 + n_q <= n_sub):
+        raise ValueError(f'window row {row}, rows [{q0}, {q0 + n_q}) outside '
+                         f'the slab {tuple(slab.shape)}')
+    out = torch.empty((n_q, lanes), dtype=torch.float32, device=dev)
+    err = _lib().probe_window_launch(slab.data_ptr(), out.data_ptr(), n_sub,
+                                     lanes, row, q0, n_q, _stream(dev))
+    _raise_on(err, 'probe_window')
+    launches['probe_window'] += 1
+    return out
+
+
+def probe_roll(x, shift: int, axis: int) -> torch.Tensor:
+    """Launch ``csrc/probe_window.cu``'s roll: ``torch.roll(x, shift, axis)``."""
+    dev = _cuda(x, 'probe_roll')
+    _check('x', x, torch.float32, tuple(x.shape), dev)
+    axis %= x.dim()
+    n = x.shape[axis]
+    outer, inner = math.prod(x.shape[:axis]), math.prod(x.shape[axis + 1:])
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    err = _lib().probe_roll_launch(x.data_ptr(), out.data_ptr(), outer, n,
+                                   inner, shift % n, _stream(dev))
+    _raise_on(err, 'probe_roll')
+    launches['probe_roll'] += 1
+    return out
+
+
+def probe_async_copy(slab, q_step: int, q_sz: int,
+                     n_windows: int) -> torch.Tensor:
+    """Launch ``csrc/probe_window.cu``'s cp.async copy: window ``b`` is
+    ``slab[:, b * q_step:b * q_step + q_sz, :]``; out (n_windows, n_rows,
+    q_sz, lanes)."""
+    dev = _cuda(slab, 'probe_async_copy')
+    n_rows, n_sub, lanes = slab.shape
+    _check('slab', slab, torch.float32, (n_rows, n_sub, lanes), dev)
+    if lanes % 4 or slab.data_ptr() % 16:
+        raise ValueError('cp.async moves 16-byte words: lanes must be a '
+                         'multiple of 4 and the slab 16-byte aligned')
+    if q_sz <= 0 or (n_windows - 1) * q_step + q_sz > n_sub:
+        raise ValueError(f'{n_windows} windows of {q_sz} rows at step '
+                         f'{q_step} overrun {n_sub} rows')
+    if n_rows * q_sz * lanes * 4 > 227 * 1024:
+        raise ValueError('window larger than a block\'s shared memory')
+    out = torch.empty((n_windows, n_rows, q_sz, lanes), dtype=torch.float32,
+                      device=dev)
+    err = _lib().probe_async_copy_launch(
+        slab.data_ptr(), out.data_ptr(), n_rows, n_sub, lanes, q_step, q_sz,
+        n_windows, _stream(dev))
+    _raise_on(err, 'probe_async_copy')
+    launches['probe_async_copy'] += 1
+    return out
+
+
+def _ptrs(tensors) -> tuple:
+    return tuple(t.data_ptr() for t in tensors or ())
+
+
+def _fee_probe_shapes(sig, noise, noise_shape, kernel):
+    dev = _cuda(sig, kernel)
+    n_scan_p, U = sig.shape
+    if U % PROBE_TILE or n_scan_p % PROBE_CHUNK:
+        raise ValueError(f'{kernel}: U ({U}) must be a multiple of '
+                         f'{PROBE_TILE} and the ticks ({n_scan_p}) of '
+                         f'{PROBE_CHUNK}')
+    _check('sig', sig, torch.float32, (n_scan_p, U), dev)
+    _check('noise', noise, torch.float32, noise_shape(n_scan_p, U), dev)
+    return dev, n_scan_p, U
+
+
+def probe_fee(flags: int, sig, noise, scal, times, thr, q0, *, n_scan: int,
+              max_adc: int):
+    """Launch ``csrc/probe_fee.cu`` (P2).  ``flags`` as
+    ``tools.probe_fee.flags`` gives them; ``scal`` (1, 6), ``times``
+    (1, n_times), ``thr`` and ``q0`` (1, U) are read only with ``consts``.
+
+    Returns (out (1, U), outs (4 (max_adc, U) planes, empty without
+    ``outs``), fstate (8, U), istate (4, U)).
+    """
+    dev, n_scan_p, U = _fee_probe_shapes(
+        sig, noise, lambda n, u: (n, 5, u), 'probe_fee')
+    n_times = times.shape[1]
+    for name, t, shape in (('scal', scal, (1, 6)),
+                           ('times', times, (1, n_times)),
+                           ('thr', thr, (1, U)), ('q0', q0, (1, U))):
+        _check(name, t, torch.float32, shape, dev)
+    f32, i32 = torch.float32, torch.int32
+    out = torch.empty((1, U), dtype=f32, device=dev)
+    planes = tuple(torch.empty((max_adc, U), dtype=dt, device=dev)
+                   for dt in (f32, i32, f32, i32)) if flags & 2 else ()
+    fstate = torch.empty((8, U), dtype=f32, device=dev)
+    istate = torch.empty((4, U), dtype=i32, device=dev)
+    err = _lib().probe_fee_launch(
+        flags, scal.data_ptr(), times.data_ptr(), thr.data_ptr(),
+        q0.data_ptr(), sig.data_ptr(), noise.data_ptr(), out.data_ptr(),
+        *(_ptrs(planes) or (None,) * 4), fstate.data_ptr(),
+        istate.data_ptr(), U, n_scan_p // PROBE_CHUNK, n_scan, n_times,
+        max_adc, _stream(dev))
+    _raise_on(err, f'probe_fee (flags {flags})')
+    launches['probe_fee'] += 1
+    return out, planes, fstate, istate
+
+
+def probe_fee2(flags: int, sig, noise, scal, times, thrq, *, n_scan: int,
+               max_adc: int):
+    """Launch ``csrc/probe_fee.cu``'s P3 kernel.  ``flags`` as
+    ``tools.probe_fee2.flags`` gives them; noise (5, n_scan_p, U).
+
+    Returns (state (U,), outs): ``outs`` has the shapes of the JAX probe's
+    outputs with its (U // 128, 128) lanes merged into U.
+    """
+    dev, n_scan_p, U = _fee_probe_shapes(
+        sig, noise, lambda n, u: (5, n, u), 'probe_fee2')
+    n_times = times.shape[1]
+    for name, t, shape in (('scal', scal, (1, 6)),
+                           ('times', times, (1, n_times)),
+                           ('thrq', thrq, (1, U))):
+        _check(name, t, torch.float32, shape, dev)
+    f32, i32 = torch.float32, torch.int32
+    n_c = n_scan_p // PROBE_CHUNK
+    anyio, vmouts = flags & 2, flags & 4
+    state = torch.empty((U,), dtype=f32, device=dev)
+    planes = unused = None
+    if anyio:
+        unused = tuple(torch.empty(shape, dtype=dt, device=dev)
+                       for shape, dt in (((max_adc, U), f32),
+                                         ((max_adc, U), f32),
+                                         ((max_adc, U), i32),
+                                         ((max_adc, U), i32), ((1, U), i32)))
+        outs = unused
+    elif vmouts:
+        # the planes as one (n_planes, n_c, max_adc, U) block
+        planes = torch.empty((5 if flags & 8 else 1, n_c, max_adc, U),
+                             dtype=f32, device=dev)
+        outs = tuple(planes.unbind(0))
+    else:
+        outs = (state.view(1, U),)
+    err = _lib().probe_fee2_launch(
+        flags, scal.data_ptr(), times.data_ptr(), sig.data_ptr(),
+        noise.data_ptr(), thrq.data_ptr(), thrq.data_ptr(), state.data_ptr(),
+        None if planes is None else planes.data_ptr(),
+        *(_ptrs(unused) or (None,) * 5),
+        U, n_c, n_scan, n_times, max_adc, _stream(dev))
+    _raise_on(err, f'probe_fee2 (flags {flags})')
+    launches['probe_fee2'] += 1
+    return state, outs

@@ -1,8 +1,10 @@
 """Compile ``csrc/*.cu`` into one shared library with nvcc, at first use.
 
-The library has a plain C interface and is loaded with ctypes.  It is
-built into ``larndsim_tpu_torch/build/`` under a name that carries the
-hash of the sources and flags, so an edited source is rebuilt.
+Each source is compiled by its own nvcc process, all started together, and
+the objects are linked into one library with a plain C interface, loaded
+with ctypes.  It is built into ``larndsim_tpu_torch/build/`` under a name
+that carries the hash of the sources and flags, so an edited source is
+rebuilt.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ BUILD_DIR = os.path.join(_PKG, 'build')
 #: rounds on its own as in the JAX reference (threshold crossings and
 #: LUT bin edges depend on it)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-fmad=false', '-Xcompiler', '-fPIC')
 
 _LIB = None
 #: seconds the last build took (0.0 when the library was already built)
@@ -49,6 +51,18 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f'libkernels-{h.hexdigest()[:12]}.so')
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise on the first that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode:
+            raise RuntimeError(f'nvcc failed ({p.returncode}):\n'
+                               f'{" ".join(cmd)}\n{out}{err}')
+
+
 def load() -> ctypes.CDLL:
     """The kernels' library, compiled first if its sources changed."""
     global _LIB, build_seconds
@@ -57,14 +71,21 @@ def load() -> ctypes.CDLL:
     path = library_path()
     if not os.path.isfile(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f'{path}.{os.getpid()}.tmp'
+        tag = f'{os.getpid()}.tmp'
         t0 = time.perf_counter()
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *sources()]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
-        os.replace(tmp, path)
+        nvcc = _nvcc()
+        objs = [os.path.join(BUILD_DIR, f'{os.path.basename(src)}.{tag}.o')
+                for src in sources()]
+        tmp = f'{path}.{tag}'
+        try:
+            _run([[nvcc, *NVCC_FLAGS, '-c', src, '-o', obj]
+                  for src, obj in zip(sources(), objs)])
+            _run([[nvcc, '-shared', '-o', tmp, *objs]])
+            os.replace(tmp, path)
+        finally:
+            for leftover in (*objs, tmp):
+                if os.path.exists(leftover):
+                    os.remove(leftover)
         build_seconds = time.perf_counter() - t0
     _LIB = ctypes.CDLL(path)
     return _LIB

@@ -77,30 +77,40 @@ _HOST_FIELDS = ('x_start', 'y_start', 'x_end', 'y_end', 'z_start', 'z_end',
                 't_end', 't0_start')
 
 
-def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
-                          sim: SimParams, draw: Draw, response: torch.Tensor,
-                          *, pixel_thresholds=None, pixel_gains=None,
-                          mode: int = physics.BIRKS,
-                          already_drifted: bool = False,
-                          step_scale: float = 1.0,
-                          host_segs: np.ndarray | None = None
-                          ) -> ChargeChainResult:
-    """Run the full charge chain on one (padded) segment batch.
+@dataclasses.dataclass
+class BatchStage:
+    """One batch staged for the chain: drifted segments, the host-chosen
+    shapes and the pixel maps (everything before the induced current)."""
+    segs: Segments                # quenched + drifted, padded
+    max_nb: int                   # pixels per segment (bucketed)
+    t_sig: int                    # ticks of each signal window
+    n_steps: int                  # sample-point cap per segment
+    min_step: float               # MC step size [cm]
+    n_unique_cap: int             # unique-pixel axis (bucketed exact count)
+    pixels: torch.Tensor          # (S, max_nb) pixel ids, -1 padded
+    uniq: torch.Tensor            # (n_unique_cap,) unique ids, -1 padded
+    n_unique: torch.Tensor        # () unique count
+    pix_idx: torch.Tensor         # (S, max_nb) row in uniq, -1 padded
+    track_map: torch.Tensor       # (n_unique_cap, max_tracks)
+    slot: torch.Tensor            # (S, max_nb) track slot, -1 if none
+    overflow: torch.Tensor        # (n_unique_cap,) bool
+    px: torch.Tensor              # (S, max_nb) pixel centres [cm]
+    py: torch.Tensor
+    track_starts: torch.Tensor    # (S,) signal window starts [us]
+    thresholds: torch.Tensor | None
+    gains: torch.Tensor | None
+    shift_band: tuple[int, int]
 
-    Args:
-        segs: segment batch (quench/drift applied here unless
-            ``already_drifted``).
-        draw: source of every random draw (see :data:`Draw`);
-            :func:`generator_draw` in production.
-        response: (nx, ny, nt) float32 response LUT on the batch's device.
-        pixel_thresholds, pixel_gains: optional ``utils.pixel_lut.PixelLUT``.
-        step_scale: >1 coarsens the MC sampling (1.0 is the reference's
-            MIN_STEP_SIZE density).
-        host_segs: the batch's drifted rows on the host (with
-            ``already_drifted``), which spares a device read.
-    """
+
+def stage_batch(segs: Segments, det_model: DetectorModel, sim: SimParams, *,
+                pixel_thresholds=None, pixel_gains=None,
+                mode: int = physics.BIRKS, already_drifted: bool = False,
+                step_scale: float = 1.0,
+                host_segs: np.ndarray | None = None) -> BatchStage:
+    """Quench and drift (unless ``already_drifted``), choose the batch's
+    shapes on the host, and build the pixel maps; the arguments are those
+    of :func:`simulate_charge_batch`."""
     det = det_model.params
-    dev = segs.x.device
     if not already_drifted:
         segs = drift(quench(segs, det, mode), det)
 
@@ -168,16 +178,54 @@ def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
     if pixel_gains is not None:
         gains = pixel_gains.lookup(torch.clamp(uniq, min=0))[:, None]
 
-    band = current.host_shift_band(seg_np, det, mc_smear=True)
+    return BatchStage(
+        segs=segs, max_nb=max_nb, t_sig=t_sig,
+        n_steps=n_steps, min_step=min_step, n_unique_cap=n_unique_cap,
+        pixels=pixels, uniq=uniq, n_unique=n_unique, pix_idx=pix_idx,
+        track_map=track_map, slot=slot, overflow=overflow, px=px, py=py,
+        track_starts=track_starts, thresholds=thresholds, gains=gains,
+        shift_band=current.host_shift_band(seg_np, det, mc_smear=True))
+
+
+def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
+                          sim: SimParams, draw: Draw, response: torch.Tensor,
+                          *, pixel_thresholds=None, pixel_gains=None,
+                          mode: int = physics.BIRKS,
+                          already_drifted: bool = False,
+                          step_scale: float = 1.0,
+                          host_segs: np.ndarray | None = None
+                          ) -> ChargeChainResult:
+    """Run the full charge chain on one (padded) segment batch.
+
+    Args:
+        segs: segment batch (quench/drift applied here unless
+            ``already_drifted``).
+        draw: source of every random draw (see :data:`Draw`);
+            :func:`generator_draw` in production.
+        response: (nx, ny, nt) float32 response LUT on the batch's device.
+        pixel_thresholds, pixel_gains: optional ``utils.pixel_lut.PixelLUT``.
+        step_scale: >1 coarsens the MC sampling (1.0 is the reference's
+            MIN_STEP_SIZE density).
+        host_segs: the batch's drifted rows on the host (with
+            ``already_drifted``), which spares a device read.
+    """
+    det = det_model.params
+    dev = segs.x.device
+    st = stage_batch(segs, det_model, sim, pixel_thresholds=pixel_thresholds,
+                     pixel_gains=pixel_gains, mode=mode,
+                     already_drifted=already_drifted, step_scale=step_scale,
+                     host_segs=host_segs)
+    segs, n_unique_cap = st.segs, st.n_unique_cap
     signals = current.current(
-        segs, px, py, pixels >= 0, response, det,
-        draw('smear', (3, segs.size, n_steps)), n_steps=n_steps,
-        t_sig=t_sig, shift_band=band, min_step=min_step)
+        segs, st.px, st.py, st.pixels >= 0, response, det,
+        draw('smear', (3, segs.size, st.n_steps)), n_steps=st.n_steps,
+        t_sig=st.t_sig, shift_band=st.shift_band, min_step=st.min_step)
 
     # --- waveform sum + FEE ---
     pixels_signals = accumulate.sum_pixel_signals(
-        signals, pix_idx, track_starts, n_unique_cap,
+        signals, st.pix_idx, st.track_starts, n_unique_cap,
         n_ticks=det.time_ticks, time_sampling=det.time_sampling)
+    thresholds = st.thresholds
     if thresholds is None:
         thresholds = torch.full((n_unique_cap,),
                                 det.f32('discrimination_threshold'),
@@ -192,9 +240,9 @@ def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
         noise=draw('fee_noise', (n_scan, 5, n_unique_cap)), q_init=q_init)
 
     # one host read: unique count, per-pixel hit counts, track occupancy
-    n_unique_i = int(n_unique)
+    n_unique_i = int(st.n_unique)
     n_u = min(bucket(max(n_unique_i, 1), lo=32), n_unique_cap)
-    t_cnt = (track_map[:n_u] >= 0).sum(dim=1).max()
+    t_cnt = (st.track_map[:n_u] >= 0).sum(dim=1).max()
     sync_h = torch.cat([fee_res.n_adc[:n_u],
                         t_cnt[None].to(fee_res.n_adc.dtype)]).cpu().numpy()
     n_adc_host, t_max = sync_h[:-1], int(sync_h[-1])
@@ -202,9 +250,10 @@ def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
 
     # fractions only for the ADC slots that latched somewhere
     fractions = fee.current_fractions(
-        signals, pix_idx, slot, track_starts, fee_res, det, max_adc=a_full,
-        max_tracks=sim.max_tracks_per_pixel, n_adc_scan=max_hits)
-    adc = fee.digitize(fee_res.integrals, det, gain=gains)
+        signals, st.pix_idx, st.slot, st.track_starts, fee_res, det,
+        max_adc=a_full, max_tracks=sim.max_tracks_per_pixel,
+        n_adc_scan=max_hits)
+    adc = fee.digitize(fee_res.integrals, det, gain=st.gains)
 
     # pull only the hit entries and the occupied track prefix
     K_full = sim.max_tracks_per_pixel
@@ -219,12 +268,12 @@ def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
         return out
 
     return ChargeChainResult(
-        unique_pix=uniq[:n_u].cpu().numpy(),
+        unique_pix=st.uniq[:n_u].cpu().numpy(),
         n_unique=n_unique_i,
         n_adc=n_adc_host,
-        track_pixel_map=_pad_tracks(track_map[:n_u, :t_cap].cpu().numpy(),
-                                    -1),
-        overflow=bool(overflow.any()),
+        track_pixel_map=_pad_tracks(
+            st.track_map[:n_u, :t_cap].cpu().numpy(), -1),
+        overflow=bool(st.overflow.any()),
         segments=segs,
         max_adc_slots=a_full,
         hit_row=u_h.to(torch.int32).cpu().numpy(),

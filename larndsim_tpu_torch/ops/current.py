@@ -241,6 +241,48 @@ def induced_current(xs, ys, shift, phase, pxc, pyc, nstep, tick_lo,
                                    tick_lo, tick_hi, scale, resp, lut)
 
 
+def current_inputs(segs: Segments, pix_x, pix_y, pix_valid, response,
+                   det: DetectorParams, smear: torch.Tensor | None, *,
+                   n_steps: int, t_sig: int, shift_band: tuple[int, int],
+                   min_step: float = 0.001) -> tuple:
+    """The arguments of :func:`induced_current` for a batch; the arguments
+    are those of :func:`current`."""
+    nx_r, ny_r, nt_r = response.shape
+    dt = float(det.time_sampling)
+    resp_dt = det.f32('response_sampling')
+    ratio = int(round(dt / resp_dt))
+    if ratio < 1 or abs(ratio * resp_dt - dt) >= 1e-6:
+        raise ValueError('response sampling must divide the readout sampling')
+
+    xs, ys, shift, phase, charge, nstep = prepare_points(
+        segs, det, smear, n_steps=n_steps, ratio=ratio, min_step=min_step)
+    # the static shift band of current_pallas (K0 = round_up(shift_hi,
+    # 128), span a multiple of 128): shifts outside it are clipped as there
+    shift_lo, shift_hi = shift_band
+    K0 = _round_up(shift_hi, 128)
+    span = _round_up(max(K0 - shift_lo, 1), 128)
+    shift = torch.clamp(shift, K0 - span, K0).to(torch.int32)
+
+    live = (torch.arange(n_steps, device=xs.device)[None, :]
+            < nstep[:, None])
+    tick_hi = torch.where(live, shift, 0).amax(dim=1).to(torch.int32)
+    t_start = signal_start_times(segs, det)
+    ticks = t_start[:, None] + (torch.arange(t_sig, device=xs.device)
+                                * torch.tensor(dt, dtype=torch.float32,
+                                               device=xs.device))
+    mask = ticks >= 0
+    tick_lo = (~mask).sum(dim=1).to(torch.int32)
+    scale = charge[:, None] * mask.float()
+
+    pxc = torch.where(pix_valid, pix_x, FAR).float()
+    pyc = torch.where(pix_valid, pix_y, FAR).float()
+    lut = LutGeometry(det.f32('response_bin_size'), nx_r, ny_r, ratio)
+    resp = phase_split_response(response, ratio)
+    return (xs.contiguous(), ys.contiguous(), shift, phase, pxc.contiguous(),
+            pyc.contiguous(), nstep, tick_lo, tick_hi, scale.contiguous(),
+            resp, lut)
+
+
 def current(segs: Segments, pix_x, pix_y, pix_valid, response,
             det: DetectorParams, smear: torch.Tensor | None, *,
             n_steps: int, t_sig: int, shift_band: tuple[int, int],
@@ -261,38 +303,6 @@ def current(segs: Segments, pix_x, pix_y, pix_valid, response,
     Returns:
         (S, P, t_sig) float32 induced current.
     """
-    nx_r, ny_r, nt_r = response.shape
-    dt = float(det.time_sampling)
-    resp_dt = det.f32('response_sampling')
-    ratio = int(round(dt / resp_dt))
-    if ratio < 1 or abs(ratio * resp_dt - dt) >= 1e-6:
-        raise ValueError('response sampling must divide the readout sampling')
-
-    xs, ys, shift, phase, charge, nstep = prepare_points(
-        segs, det, smear, n_steps=n_steps, ratio=ratio, min_step=min_step)
-    # the static shift band of current_pallas (K0 = round_up(shift_hi,
-    # 128), span a multiple of 128): shifts outside it are clipped as there
-    shift_lo, shift_hi = shift_band
-    K0 = _round_up(shift_hi, 128)
-    span = _round_up(max(K0 - shift_lo, 1), 128)
-    shift = torch.clamp(shift, K0 - span, K0).to(torch.int32)
-
-    ntp = -(-nt_r // ratio)
-    live = (torch.arange(n_steps, device=xs.device)[None, :]
-            < nstep[:, None])
-    tick_hi = torch.where(live, shift, 0).amax(dim=1).to(torch.int32)
-    t_start = signal_start_times(segs, det)
-    ticks = t_start[:, None] + (torch.arange(t_sig, device=xs.device)
-                                * torch.tensor(dt, dtype=torch.float32,
-                                               device=xs.device))
-    mask = ticks >= 0
-    tick_lo = (~mask).sum(dim=1).to(torch.int32)
-    scale = charge[:, None] * mask.float()
-
-    pxc = torch.where(pix_valid, pix_x, FAR).float()
-    pyc = torch.where(pix_valid, pix_y, FAR).float()
-    lut = LutGeometry(det.f32('response_bin_size'), nx_r, ny_r, ratio)
-    resp = phase_split_response(response, ratio)
-    return induced_current(xs.contiguous(), ys.contiguous(), shift, phase,
-                           pxc.contiguous(), pyc.contiguous(), nstep,
-                           tick_lo, tick_hi, scale.contiguous(), resp, lut)
+    return induced_current(*current_inputs(
+        segs, pix_x, pix_y, pix_valid, response, det, smear, n_steps=n_steps,
+        t_sig=t_sig, shift_band=shift_band, min_step=min_step))

@@ -146,14 +146,16 @@ def fee_fsm(sig_rows, noise, q_init, thresholds, tick_times,
     return binding.fee_fsm(sig_rows, noise, q_init, thresholds, tick_times, s)
 
 
-def tick_times(det: DetectorParams, device='cpu') -> torch.Tensor:
+def tick_times(det: DetectorParams, device=None) -> torch.Tensor:
     """``jnp.linspace(0, time_interval[1], time_ticks + 1)`` with the
-    float32 rounding XLA gives it (i * f32(stop * f32(1/n)), last = stop)."""
+    float32 rounding XLA gives it (i * f32(stop * f32(1/n)), last = stop),
+    on ``device`` (the detector's own by default)."""
     n = det.time_ticks
     stop = np.float32(det.time_interval[1])
     c = np.float32(stop * (np.float32(1) / np.float32(n)))
     out = np.concatenate([np.arange(n, dtype=np.float32) * c, [stop]])
-    return torch.from_numpy(out.astype(np.float32)).to(device)
+    return torch.from_numpy(out.astype(np.float32)).to(
+        det.device if device is None else device)
 
 
 def get_adc_values(pixels_signals: torch.Tensor, tick_times: torch.Tensor,

@@ -132,13 +132,23 @@ class DetectorParams:
         return dataclasses.replace(self, host=host, **changes)
 
 
-def from_numpy(leaves: dict, statics: dict, device='cpu') -> DetectorParams:
+def _device(device) -> torch.device:
+    """The leaves' device; the card unless the caller names another."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device for the detector parameters '
+                           "(pass device='cpu' for the CPU)")
+    return device
+
+
+def from_numpy(leaves: dict, statics: dict, device='cuda') -> DetectorParams:
     """Build the port's params from numpy leaves and static fields.
 
     ``leaves`` maps every name of :data:`LEAVES` to an array (as taken
     from the JAX ``DetectorParams``); ``statics`` maps the names of
     :data:`STATICS`.  The host copies are the float32 leaf values.
     """
+    device = _device(device)
     tens = {k: torch.tensor(np.asarray(leaves[k], np.float32),
                             device=device) for k in LEAVES}
     host = {k: float(np.asarray(leaves[k], np.float32))
@@ -185,9 +195,10 @@ _DEFAULTS = dict(
 
 
 def load_detector(detprop_file: str, pixel_file: str | list[str],
-                  i_module: int = -1, device='cpu') -> DetectorModel:
+                  i_module: int = -1, device='cuda') -> DetectorModel:
     """Build a :class:`DetectorModel` from detector-properties and
     pixel-layout YAMLs, with every leaf on ``device``."""
+    device = _device(device)
     with open(detprop_file) as df:
         detprop = yaml.load(df, Loader=_YamlLoader)
 

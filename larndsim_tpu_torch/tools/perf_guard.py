@@ -1,0 +1,429 @@
+"""Per-op device-time guard of the charge chain's hot ops, on the card.
+
+Counterpart of ``tools/perf_guard.py``.  Stages the JAX guard's 2x2
+workload (4 events x 24 tracks x 42 segments of 0.4 cm, dEdx 8, seed 2,
+padded to 4096 segments) on the port's generated Module-0-shaped detector,
+exactly as ``models.charge.simulate_charge_batch`` stages a batch (the 2x2
+YAMLs are not in the repository; the output says so), then times with CUDA
+events the ops the JAX guard times:
+
+  induced_current      the induced-current kernel (K1) alone
+  sum_pixel_signals    the per-pixel waveform sum
+  fee_fsm              the FEE FSM kernel (K2) alone
+  get_adc_values       the FSM as the chain calls it, noise draws included
+  current_fractions_4  current fractions over 4 ADC slots
+  digitize             charge -> ADC counts
+
+For each op: the bytes it must move (each input read once, each output
+written once) and the operations it does on these inputs, counted from this
+run's shapes and data; the bound on this card (the larger of bytes / 3.35
+TB/s and float32 operations / 33.5e12 per second, from an H100 SXM's
+published peaks); which of the two sets it; and the share of the bound
+reached.  K1 and K2
+also get their launches per batch and the time of one PyTorch call that
+computes the same function, where one exists.
+
+    python -m larndsim_tpu_torch.tools.perf_guard [--log PATH]
+
+Prints one JSON line naming the card; appends it to PATH (default
+``larndsim_tpu_torch/build/perf_guard.jsonl``, git-ignored) and warns when
+an op is slower than 1.5x the median of its last three runs at the same
+shapes on the same card.  Needs a CUDA device: without one it raises.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from typing import NamedTuple
+
+import torch
+
+from ..kernels.build import BUILD_DIR
+
+#: an H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+#: the operations counted here are single float32 adds, multiplies,
+#: compares and selects (the kernels are built with -fmad=false); each
+#: takes the issue slot of a fused multiply-add, which the FLOP peak counts
+#: as two, so they run at most at half of it
+F32_OPS_PER_S = F32_FLOP_PER_S / 2
+#: timed calls of each op, after one warm-up call
+REPS = 3
+REGRESSION_FACTOR = 1.5
+LOG_PATH = os.path.join(BUILD_DIR, 'perf_guard.jsonl')
+#: the JAX guard's 2x2 workload (tools/perf_guard.py: build_workload)
+WORKLOAD = dict(n_events=4, tracks_per_event=24, segments_per_track=42,
+                segment_length=0.4, dEdx=8.0, seed=2)
+PAD_N = 4096
+#: the shapes the JAX guard logged on the TPU (PERF_LOG.jsonl rows 16, 17,
+#: 24, 25; ND-LAr: max_nb 18)
+LOGGED_SHAPES = dict(pad_n=4096, n_steps=512, t_sig=2048, n_unique_cap=16384,
+                     max_nb=15, max_adc=30, max_tracks=50)
+N_ADC_SCAN = 4
+#: float32 operations per (tick, pixel) of the FSM body (ops/fee.py step():
+#: integrator 2, charge 2, sum 1, ADC 2, latch test 3, fire test 5)
+FSM_OPS = 15
+#: per (slot, segment, pixel, tick) of current_fractions: window tests 3,
+#: exponent 3, weight 3, product, select, sum
+FRACTION_OPS = 12
+#: per value of digitize: gain, offsets, clamp, scale, divide, round, clamp
+DIGITIZE_OPS = 8
+#: per live (segment, pixel, step) of K1: the response row of the point
+ROW_OPS = 10
+#: the PyTorch call that computes each kernel's function, or why none does
+LIBRARY = dict(
+    induced_current='none: a data-dependent gather-accumulate (each '
+    '(segment, pixel, step) picks its own response row and shift); no one '
+    'PyTorch call computes it',
+    fee_fsm='none: a sequential per-pixel state machine with data-dependent '
+    'writes; no one PyTorch call computes it')
+
+
+class Timing(NamedTuple):
+    min_ms: float
+    mean_ms: float
+
+
+def timed(fn, *args, reps: int = REPS, **kw) -> Timing:
+    """Device time of ``fn(*args, **kw)`` on the current stream: one warm-up
+    call, then CUDA events around each of ``reps`` calls, each followed by
+    ``torch.cuda.synchronize()``; minimum and mean in ms."""
+    fn(*args, **kw)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return Timing(min(times), sum(times) / len(times))
+
+
+def card() -> dict:
+    """The card's name as PyTorch and nvidia-smi give it, with its power
+    limit."""
+    try:
+        smi = subprocess.run(
+            ['nvidia-smi', '--query-gpu=name,power.limit',
+             '--format=csv,noheader'], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        smi = 'nvidia-smi unavailable: power limit not read'
+    return dict(name=torch.cuda.get_device_name(0), smi=smi)
+
+
+def card_name() -> str:
+    c = card()
+    return c['smi'] if c['smi'].startswith(c['name']) else \
+        f'{c["name"]} ({c["smi"]})'
+
+
+def bound(n_bytes: float, n_ops: float, ms: float | None = None) -> dict:
+    """The least time of the work on this card, what sets it, and the
+    share of it reached in ``ms``."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = n_ops / F32_OPS_PER_S * 1e3
+    rec = dict(bytes=int(n_bytes), ops=int(n_ops),
+               bound_ms=max(b_ms, o_ms),
+               bound_by='bytes' if b_ms >= o_ms else 'operations')
+    if ms:
+        rec['share'] = rec['bound_ms'] / ms
+    return rec
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k1_costs(args) -> dict:
+    """Bytes and operations of the induced current on these inputs: every
+    input and the (S, P, t_sig) output once; one add per response value
+    summed (live step, in-range pixel, tick in [tick_lo, t_sig) that the
+    shifted row covers), one multiply per output tick from tick_lo on, and
+    the row lookup of each live (segment, pixel, step)."""
+    from ..ops import current
+    xs, ys, shift, phase, pxc, pyc, nstep, tick_lo, tick_hi, scale, resp, \
+        lut = args
+    S, n_steps = xs.shape
+    P = pxc.shape[1]
+    t_sig = scale.shape[1]
+    ntp = resp.shape[1]
+    live = (torch.arange(n_steps, device=xs.device)[None, :]
+            < nstep[:, None].long())                               # (S, n)
+    rows = current.row_table(xs, ys, phase, pxc, pyc, lut)          # (S,P,n)
+    pix_live = (rows != lut.zero_row).sum(dim=1)                    # (S, n)
+    sh = shift.long()
+    n_t = (torch.clamp(sh + ntp, max=t_sig)
+           - torch.maximum(sh, tick_lo[:, None].long())).clamp(min=0)
+    adds = int((n_t * pix_live * live).sum())
+    valid_pix = (pxc.abs() < current.FAR / 10).sum(dim=1)           # (S,)
+    muls = int((valid_pix * (t_sig - tick_lo.long()).clamp(min=0)).sum())
+    lookups = int(((rows != lut.zero_row) & live[:, None, :]).sum())
+    return dict(bytes=nbytes(xs, ys, shift, phase, pxc, pyc, nstep, tick_lo,
+                             tick_hi, scale, resp) + S * P * t_sig * 4,
+                ops=adds + muls + ROW_OPS * lookups)
+
+
+def sum_costs(signals, pix_idx, track_starts, n_unique_cap: int,
+              n_ticks: int, time_sampling: float) -> dict:
+    """The (S, P, T) signals, the maps and the (U, n_ticks) output once;
+    one add per valid entry's tick that lands inside [0, n_ticks)."""
+    S, P, T = signals.shape
+    start = torch.round(track_starts.double() / time_sampling).long()
+    inside = (torch.clamp(start + T, max=n_ticks)
+              - torch.clamp(start, min=0)).clamp(min=0)             # (S,)
+    adds = int(((pix_idx >= 0).sum(dim=1) * inside).sum())
+    return dict(bytes=nbytes(signals, pix_idx, track_starts)
+                + n_unique_cap * n_ticks * 4, ops=adds)
+
+
+def fsm_costs(n_scan: int, n_pix: int, max_adc: int, n_times: int, *,
+              drawn: bool) -> dict:
+    """K2 alone: signal rows, noise, q_init, thresholds and tick times in,
+    the five outputs out.  ``drawn`` (get_adc_values): the (U, T) waveforms
+    in, the noise made inside (its bytes and its generator's operations
+    are not counted, so the bound is a lower bound)."""
+    out = n_pix * max_adc * 4 * 4 + n_pix * 4
+    if drawn:
+        n_in = n_pix * (n_times - 1) * 4 + n_pix * 4 + n_times * 4
+    else:
+        n_in = (n_scan * 6 * n_pix + 2 * n_pix + n_times) * 4
+    return dict(bytes=n_in + out, ops=FSM_OPS * n_scan * n_pix)
+
+
+def fraction_costs(signals, pix_idx, slot, track_starts, n_pix: int,
+                   max_adc: int, max_tracks: int, n_adc_scan: int) -> dict:
+    """Signals and maps in, the ADC windows of the scanned slots in, the
+    (U, max_adc, max_tracks) fractions out; FRACTION_OPS per scanned
+    (slot, valid entry, tick)."""
+    S, P, T = signals.shape
+    ok = int(((pix_idx >= 0) & (slot >= 0)).sum())
+    return dict(bytes=nbytes(signals, pix_idx, slot, track_starts)
+                + 2 * n_pix * n_adc_scan * 4 + n_pix * max_adc
+                * max_tracks * 4,
+                ops=FRACTION_OPS * n_adc_scan * ok * T)
+
+
+def build_workload(device, directory: str, *, workload: dict = WORKLOAD,
+                   pad_n: int = PAD_N, geometry: dict | None = None,
+                   seed: int = 3) -> dict:
+    """Stage the guard's batch on ``device``: a Module-0-shaped tree
+    (``geometry``: keyword arguments of ``write_module0``, the published
+    widths by default) in ``directory``, the input ``workload`` padded to
+    ``pad_n`` segments, staged by ``models.charge.stage_batch``, and the
+    induced current's arguments with a smear drawn from ``seed``."""
+    from ..assets.geometry import write_module0
+    from ..assets.make_input import write_input
+    from ..assets.response import make_response
+    from ..io.edep import load_edep
+    from ..models.charge import generator_draw, stage_batch
+    from ..ops import current
+    from ..ops.drift import select_active_volume
+    from ..params import load_detector, load_sim
+    from ..segments import from_structured
+
+    paths = write_module0(os.path.join(directory, 'module0'),
+                          **(geometry or {}))
+    dm = load_detector(paths['detector_properties'], paths['pixel_layout'],
+                       device=device)
+    sim = load_sim(paths['simulation_properties'])
+    det = dm.params
+    inp = os.path.join(directory, 'guard_in.h5')
+    write_input(inp, dm.tpc_borders, **workload)
+    tracks = load_edep(inp, event_separator=sim.event_separator,
+                       is_spill_sim=sim.is_spill_sim,
+                       spill_period=sim.spill_period,
+                       max_events_per_file=sim.max_events_per_file).tracks
+    tracks = tracks[select_active_volume(tracks, dm.tpc_borders)]
+    segs = from_structured(tracks, pad_to=pad_n, device=device)
+    stage = stage_batch(segs, dm, sim)
+    n_t = int(round(det.f32('time_window') / det.f32('response_sampling')))
+    response = torch.from_numpy(make_response(
+        n_xy=45, n_t=n_t, bin_size=det.f32('response_bin_size'),
+        sampling=det.f32('response_sampling'),
+        pixel_pitch=det.f32('pixel_pitch'))).to(device)
+    gen = torch.Generator(device).manual_seed(seed)
+    k1_args = current.current_inputs(
+        stage.segs, stage.px, stage.py, stage.pixels >= 0, response, det,
+        generator_draw(gen, device)('smear', (3, pad_n, stage.n_steps)),
+        n_steps=stage.n_steps, t_sig=stage.t_sig,
+        shift_band=stage.shift_band, min_step=stage.min_step)
+    shapes = dict(pad_n=pad_n, n_steps=stage.n_steps, t_sig=stage.t_sig,
+                  n_unique_cap=stage.n_unique_cap, max_nb=stage.max_nb,
+                  max_adc=sim.max_adc_values,
+                  max_tracks=sim.max_tracks_per_pixel)
+    return dict(det_model=dm, det=det, sim=sim, segs=segs, stage=stage,
+                response=response, k1_args=k1_args, generator=gen,
+                shapes=shapes, n_segments=len(tracks))
+
+
+def op_calls(w: dict) -> dict:
+    """Each guarded op as (function, args, kwargs), with its inputs made by
+    running the ops before it once."""
+    from ..ops import accumulate, current, fee
+    det, sim, st = w['det'], w['sim'], w['stage']
+    gen = w['generator']
+    dev = det.device
+    U, m = st.n_unique_cap, sim.max_adc_values
+    signals = current.induced_current(*w['k1_args'])
+    sum_kw = dict(n_ticks=det.time_ticks, time_sampling=det.time_sampling)
+    pixels_signals = accumulate.sum_pixel_signals(
+        signals, st.pix_idx, st.track_starts, U, **sum_kw)
+    n_scan = det.time_ticks + det.integrate_ticks + det.busy_ticks + 4
+    s = fee.fsm_scalars(det, max_adc=m)
+    thresholds = torch.full((U,), det.f32('discrimination_threshold'),
+                            device=dev)
+    times = fee.tick_times(det)
+    sig_rows = torch.zeros((n_scan, U), device=dev)
+    sig_rows[:det.time_ticks] = pixels_signals.t()
+    noise = torch.randn((n_scan, 5, U), generator=gen, device=dev)
+    q_init = torch.randn((U,), generator=gen, device=dev) * s.sigma_reset
+    fsm_args = (sig_rows, noise, q_init, thresholds, times, s)
+    fee_res = fee.FeeResult(*fee.fee_fsm(*fsm_args))
+    return dict(
+        induced_current=(current.induced_current, w['k1_args'], {}),
+        sum_pixel_signals=(accumulate.sum_pixel_signals,
+                           (signals, st.pix_idx, st.track_starts, U),
+                           sum_kw),
+        fee_fsm=(fee.fee_fsm, fsm_args, {}),
+        get_adc_values=(fee.get_adc_values,
+                        (pixels_signals, times, thresholds, det),
+                        dict(max_adc=m, n_scan=n_scan, generator=gen)),
+        current_fractions_4=(fee.current_fractions,
+                             (signals, st.pix_idx, st.slot,
+                              st.track_starts, fee_res, det),
+                             dict(max_adc=m,
+                                  max_tracks=sim.max_tracks_per_pixel,
+                                  n_adc_scan=N_ADC_SCAN)),
+        digitize=(fee.digitize, (fee_res.integrals, det), {}))
+
+
+def op_costs(w: dict, calls: dict) -> dict:
+    """Bytes and operations of each guarded op on this run's inputs."""
+    det, sim, st = w['det'], w['sim'], w['stage']
+    U, m = st.n_unique_cap, sim.max_adc_values
+    signals = calls['sum_pixel_signals'][1][0]
+    sig_rows = calls['fee_fsm'][1][0]
+    n_scan, n_times = sig_rows.shape[0], calls['fee_fsm'][1][4].shape[0]
+    return dict(
+        induced_current=k1_costs(w['k1_args']),
+        sum_pixel_signals=sum_costs(signals, st.pix_idx, st.track_starts, U,
+                                    det.time_ticks, det.time_sampling),
+        fee_fsm=fsm_costs(n_scan, U, m, n_times, drawn=False),
+        get_adc_values=fsm_costs(n_scan, U, m, n_times, drawn=True),
+        current_fractions_4=fraction_costs(
+            signals, st.pix_idx, st.slot, st.track_starts, U, m,
+            sim.max_tracks_per_pixel, N_ADC_SCAN),
+        digitize=dict(bytes=2 * U * m * 4, ops=DIGITIZE_OPS * U * m))
+
+
+def launches_per_batch(w: dict) -> dict:
+    """Kernel launches of one ``simulate_charge_batch`` on the guard's
+    batch (counters reset before it, read after it)."""
+    from ..kernels import binding
+    from ..models.charge import generator_draw, simulate_charge_batch
+    dev = w['det'].device
+    binding.reset_launches()
+    simulate_charge_batch(w['segs'], w['det_model'], w['sim'],
+                          generator_draw(w['generator'], dev), w['response'])
+    torch.cuda.synchronize()
+    return dict(binding.launches)
+
+
+def regressions(entry: dict, log_path: str) -> list[str]:
+    """Ops slower than REGRESSION_FACTOR x the median of their last three
+    logged runs at the same shapes on the same card."""
+    prior: dict[str, list] = {}
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            for line in f:
+                try:
+                    e = json.loads(line)
+                except json.JSONDecodeError:
+                    continue
+                if (e.get('shapes') == entry['shapes']
+                        and e.get('card') == entry['card']):
+                    for k, v in e.get('ops_ms', {}).items():
+                        prior.setdefault(k, []).append(v['min_ms'])
+    warnings = []
+    for k, v in entry['ops_ms'].items():
+        hist = prior.get(k, [])[-3:]
+        if hist:
+            ref_ms = sorted(hist)[len(hist) // 2]
+            if v['min_ms'] > ref_ms * REGRESSION_FACTOR:
+                warnings.append(f'{k} regressed: {v["min_ms"]:.3f} ms vs '
+                                f'median {ref_ms:.3f} ms of the last '
+                                f'{len(hist)} runs')
+    return warnings
+
+
+def _git_rev() -> str:
+    try:
+        return subprocess.run(
+            ['git', 'rev-parse', '--short', 'HEAD'], capture_output=True,
+            text=True, timeout=30,
+            cwd=os.path.dirname(BUILD_DIR)).stdout.strip() or 'unknown'
+    except (OSError, subprocess.SubprocessError):
+        return 'unknown'
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--log', default=LOG_PATH,
+                    help='JSON-lines log to append to and compare with')
+    opts = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError('perf_guard times the card: no CUDA device')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda')
+    with tempfile.TemporaryDirectory() as tmp:
+        w = build_workload(dev, tmp)
+    launches = launches_per_batch(w)
+    calls = op_calls(w)
+    costs = op_costs(w, calls)
+    ops_ms = {}
+    for name, (fn, args, kw) in calls.items():
+        t = timed(fn, *args, **kw)
+        ops_ms[name] = dict(min_ms=t.min_ms, mean_ms=t.mean_ms)
+    roofline = {name: bound(c['bytes'], c['ops'], ops_ms[name]['min_ms'])
+                for name, c in costs.items()}
+    c = card()
+    entry = dict(
+        ts=round(time.time(), 1), rev=_git_rev(), card=c['name'],
+        smi=c['smi'],
+        workload=dict(WORKLOAD, pad_n=PAD_N, segments=w['n_segments'],
+                      detector='Module-0-shaped, generated (the 2x2 YAMLs '
+                      'of the JAX guard are not in the repository)'),
+        shapes=w['shapes'], logged_shapes=LOGGED_SHAPES, ops_ms=ops_ms,
+        roofline=roofline,
+        kernels={name: dict(launches_per_batch=launches[name],
+                            library_ms=None, library=LIBRARY[name])
+                 for name in ('induced_current', 'fee_fsm')})
+    warnings = regressions(entry, opts.log)
+    entry['status'] = 'regressed' if warnings else 'ok'
+    for msg in warnings:
+        print(f'WARN: {msg}', file=sys.stderr)
+    for name, r in roofline.items():
+        print(f'guard {name:>20}: {ops_ms[name]["min_ms"]:9.3f} ms min '
+              f'({ops_ms[name]["mean_ms"]:.3f} mean), bound '
+              f'{r["bound_ms"]:.4f} ms by {r["bound_by"]}, share '
+              f'{r["share"]:.4f}  [{c["smi"]}]', flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(opts.log)), exist_ok=True)
+    with open(opts.log, 'a') as f:
+        f.write(json.dumps(entry) + '\n')
+    print(json.dumps(entry), flush=True)
+    return entry
+
+
+if __name__ == '__main__':
+    main()
+    sys.exit(0)

@@ -127,7 +127,8 @@ def test_port_runs_without_jax_or_h5py(tmp_path):
         f'det, lay, simp, d = {paths["detector_properties"]!r}, '
         f'{paths["pixel_layout"]!r}, {paths["simulation_properties"]!r}, '
         f'{str(tmp_path)!r}\n'
-        'write_input(d + "/in.h5", load_detector(det, lay).tpc_borders,\n'
+        'write_input(d + "/in.h5",\n'
+        '            load_detector(det, lay, device="cpu").tpc_borders,\n'
         '            n_events=1, tracks_per_event=2, segments_per_track=4,\n'
         '            dEdx=8.0, seed=2)\n'
         'run_simulation(d + "/in.h5", d + "/out.h5",\n'

@@ -7,7 +7,10 @@ an NVIDIA Hopper card (JAX need not be installed there) run
 
 Tolerances: induced current atol 2e-5 x peak; FSM integers exactly equal,
 floats rtol 1e-5 / atol 1e-2; the CLI's data packets on the card agree
-with its CPU run (plain versions) for >= 99% of packets.
+with its CPU run (plain versions) for >= 99% of packets; the card probes
+P1-P3 (``larndsim_tpu_torch/tools``) equal their plain versions bit for
+bit (P1 also the numpy values of the JAX probe), at a small shape and at
+the probe shapes.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from larndsim_tpu_torch.ops.drift import drift
 from larndsim_tpu_torch.ops.quench import quench
 from larndsim_tpu_torch.params import physics
 from larndsim_tpu_torch.segments import from_structured
+from larndsim_tpu_torch.tools import probe_fee, probe_fee2, probe_folded
 
 import torch_port_assets as tpa
 
@@ -146,3 +150,59 @@ def test_cli_on_card_matches_cpu(cuda, tmp_path):
     n = max(sum(on_card.values()), sum(on_cpu.values()))
     assert n > 0
     assert sum((on_card & on_cpu).values()) >= 0.99 * n
+
+
+@pytest.mark.parametrize('case', probe_folded.CASES)
+def test_probe_folded_case(cuda, case):
+    kernel = probe_folded.KERNEL[case]
+    before = binding.launches[kernel]
+    probe_folded.run_case(case, cuda)
+    assert binding.launches[kernel] == before + 1
+
+
+#: (U, n_scan_p, n_scan): a small shape and the probe shapes
+PROBE_SHAPES = [(1024, 512, 400), (probe_fee.U, probe_fee.N_SCAN_P,
+                                   probe_fee.N_SCAN)]
+
+
+def _assert_same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, tuple):
+            _assert_same(g, w)
+        else:
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g, w), float((g.float() - w.float()).abs().max())
+
+
+@pytest.mark.parametrize('shape', PROBE_SHAPES, ids=['small', 'probe'])
+@pytest.mark.parametrize('variant', probe_fee.VARIANTS)
+def test_probe_fee_variant(cuda, variant, shape):
+    U, n_scan_p, n_scan = shape
+    inp = probe_fee.make_inputs(U, n_scan_p, cuda)
+    args = (inp['sig'], inp['noise'], inp['scal'], inp['times'], inp['thr'],
+            inp['q0'])
+    before = binding.launches['probe_fee']
+    got = probe_fee.probe_fee(variant, *args, n_scan=n_scan)
+    torch.cuda.synchronize()
+    assert binding.launches['probe_fee'] == before + 1
+    _assert_same(got, probe_fee.probe_fee_plain(variant, *args,
+                                                n_scan=n_scan))
+
+
+@pytest.mark.parametrize('shape', PROBE_SHAPES, ids=['small', 'probe'])
+@pytest.mark.parametrize('variant', probe_fee2.VARIANTS)
+def test_probe_fee2_variant(cuda, variant, shape):
+    U, n_scan_p, n_scan = shape
+    inp = probe_fee2.make_inputs(U, n_scan_p, cuda)
+    args = (inp['sig'], inp['noise'], inp['scal'], inp['times'], inp['thrq'])
+    before = binding.launches['probe_fee2']
+    got = probe_fee2.probe_fee2(variant, *args, n_scan=n_scan)
+    torch.cuda.synchronize()
+    assert binding.launches['probe_fee2'] == before + 1
+    want = probe_fee2.probe_fee2_plain(variant, *args, n_scan=n_scan)
+    assert torch.equal(got.state, want.state)
+    assert [(o.shape, o.dtype) for o in got.outs] == \
+        [(o.shape, o.dtype) for o in want.outs]
+    if 'anyio' not in variant:  # the anyio outputs are never written
+        _assert_same(got.outs, want.outs)

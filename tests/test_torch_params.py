@@ -8,6 +8,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from larndsim_tpu import segments as jseg
 from larndsim_tpu.assets import response as jresp
@@ -95,3 +96,20 @@ def test_response_equal(n_t, sampling):
     np.testing.assert_array_equal(b, a)
     assert tresp.load_response('__missing__.npy', n_xy=4, n_t=8).shape \
         == (4, 4, 8)
+
+
+def test_detector_defaults_to_the_card(tmp_path, monkeypatch):
+    """A call that names no device builds on the card: without one it
+    raises rather than building CPU tensors; the tick-time map follows the
+    detector's own device."""
+    from larndsim_tpu_torch.ops.fee import tick_times
+    from larndsim_tpu_torch.params import from_numpy, load_detector
+    paths = tpa.write_tree(tmp_path)
+    det = tpa.load_port(paths, device='cpu').params
+    assert tick_times(det).device.type == 'cpu'
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        load_detector(paths['detector_properties'], paths['pixel_layout'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        from_numpy({k: getattr(det, k).numpy() for k in LEAVES},
+                   {k: getattr(det, k) for k in STATICS})

@@ -1,0 +1,139 @@
+"""The per-op guard (``larndsim_tpu_torch.tools.perf_guard``) on the CPU:
+its staging at a tiny input, its byte and operation counts against hand
+counts, its regression check on a temporary log, and its refusal to run
+without a card.  Its times exist only on the card."""
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from larndsim_tpu_torch.ops import current
+from larndsim_tpu_torch.tools import perf_guard as pg
+
+import torch_port_assets as tpa
+
+TINY = dict(n_events=1, tracks_per_event=3, segments_per_track=6,
+            segment_length=0.4, dEdx=8.0, seed=2)
+
+
+@pytest.fixture(scope='module')
+def workload(tmp_path_factory):
+    return pg.build_workload('cpu', str(tmp_path_factory.mktemp('guard')),
+                             workload=TINY, pad_n=32, geometry=tpa.SMALL)
+
+
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+def test_staging_gives_the_logged_keys(workload):
+    shapes = workload['shapes']
+    assert set(shapes) == set(pg.LOGGED_SHAPES)
+    assert shapes['pad_n'] == 32 and 0 < workload['n_segments'] <= 32
+    assert _pow2(shapes['n_steps']) and shapes['n_steps'] >= 8
+    assert _pow2(shapes['t_sig']) and shapes['t_sig'] >= 64
+    assert _pow2(shapes['n_unique_cap']) and shapes['n_unique_cap'] >= 32
+    assert _pow2(shapes['max_nb']) and shapes['max_nb'] >= 16
+    assert (shapes['max_adc'], shapes['max_tracks']) == (30, 50)
+    xs, scale = workload['k1_args'][0], workload['k1_args'][9]
+    assert tuple(xs.shape) == (32, shapes['n_steps'])
+    assert tuple(scale.shape) == (32, shapes['t_sig'])
+
+
+def test_every_op_runs_and_has_a_bound(workload):
+    calls = pg.op_calls(workload)
+    costs = pg.op_costs(workload, calls)
+    assert set(calls) == set(costs) == {
+        'induced_current', 'sum_pixel_signals', 'fee_fsm', 'get_adc_values',
+        'current_fractions_4', 'digitize'}
+    for name, (fn, args, kw) in calls.items():
+        fn(*args, **kw)
+        assert costs[name]['bytes'] > 0 and costs[name]['ops'] > 0, name
+    signals = calls['sum_pixel_signals'][1][0]
+    S, P, T = signals.shape
+    assert costs['induced_current']['bytes'] > S * P * T * 4
+    assert costs['induced_current']['ops'] > 0
+
+
+def test_k1_count_matches_a_hand_count():
+    """One segment, one pixel at the sample points' position, two live
+    steps of shift 0 and 3, tick_lo 1, t_sig 8, a 10-tick response: step 0
+    covers ticks 1..7 (7 adds), step 1 ticks 3..7 (5 adds); 7 multiplies
+    (ticks 1..7); 2 row lookups."""
+    lut = current.LutGeometry(0.04434, 45, 45, 1)
+    f32, i32 = torch.float32, torch.int32
+    args = (torch.zeros((1, 2), dtype=f32), torch.zeros((1, 2), dtype=f32),
+            torch.tensor([[0, 3]], dtype=i32), torch.zeros((1, 2), dtype=i32),
+            torch.zeros((1, 1), dtype=f32), torch.zeros((1, 1), dtype=f32),
+            torch.tensor([2], dtype=i32), torch.tensor([1], dtype=i32),
+            torch.tensor([3], dtype=i32), torch.ones((1, 8), dtype=f32),
+            torch.zeros((lut.zero_row + 1, 10), dtype=f32), lut)
+    c = pg.k1_costs(args)
+    assert c['ops'] == 7 + 5 + 7 + pg.ROW_OPS * 2
+    in_bytes = 4 * (2 + 2 + 2 + 2 + 1 + 1 + 1 + 1 + 1 + 8
+                    + (lut.zero_row + 1) * 10)
+    assert c['bytes'] == in_bytes + 8 * 4
+
+
+def test_other_counts_match_hand_counts():
+    # two segments of three pixels (one padding), windows at ticks 2 and
+    # -1 of 4 ticks each, 5 output ticks: 2 x 3 + 2 x 3 adds
+    signals = torch.zeros((2, 3, 4))
+    pix_idx = torch.tensor([[0, 1, -1], [1, 2, -1]], dtype=torch.int32)
+    starts = torch.tensor([0.2, -0.1])
+    c = pg.sum_costs(signals, pix_idx, starts, 8, 5, 0.1)
+    assert c['ops'] == 2 * 3 + 2 * 3
+    assert c['bytes'] == (24 + 6 + 2) * 4 + 8 * 5 * 4
+    c = pg.fsm_costs(100, 64, 30, 11, drawn=False)
+    assert c['ops'] == pg.FSM_OPS * 100 * 64
+    assert c['bytes'] == (100 * 6 * 64 + 2 * 64 + 11) * 4 + 64 * 121 * 4
+    c = pg.fsm_costs(100, 64, 30, 11, drawn=True)
+    assert c['bytes'] == (64 * 10 + 64 + 11) * 4 + 64 * 121 * 4
+    slot = torch.tensor([[0, -1, -1], [0, 0, -1]], dtype=torch.int32)
+    c = pg.fraction_costs(signals, pix_idx, slot, starts, 8, 30, 50, 4)
+    assert c['ops'] == pg.FRACTION_OPS * 4 * 3 * 4
+
+
+def test_bound_takes_the_larger_time():
+    b = pg.bound(pg.HBM_BYTES_PER_S / 1e3, 0, 2.0)
+    assert (b['bound_ms'], b['bound_by'], b['share']) == (1.0, 'bytes', 0.5)
+    b = pg.bound(1, 2 * pg.F32_OPS_PER_S / 1e3)
+    assert (b['bound_ms'], b['bound_by']) == (2.0, 'operations')
+    assert 'share' not in b
+
+
+def test_regression_check_on_a_temporary_log(tmp_path):
+    log = tmp_path / 'guard.jsonl'
+    shapes = dict(pg.LOGGED_SHAPES)
+
+    def entry(ms, card='NVIDIA H100 80GB HBM3', sh=shapes):
+        return dict(card=card, shapes=sh,
+                    ops_ms={'fee_fsm': dict(min_ms=ms, mean_ms=ms)})
+
+    with open(log, 'w') as f:
+        for ms in (1.0, 2.0, 1.5):
+            f.write(json.dumps(entry(ms)) + '\n')
+        f.write('not json\n')
+        f.write(json.dumps(entry(0.1, card='another card')) + '\n')
+    assert pg.regressions(entry(2.2), str(log)) == []    # median 1.5 x 1.5
+    warn = pg.regressions(entry(2.3), str(log))
+    assert len(warn) == 1 and 'fee_fsm regressed' in warn[0]
+    assert pg.regressions(entry(9.0, card='a third card'), str(log)) == []
+    assert pg.regressions(entry(9.0, sh=dict(shapes, t_sig=4096)),
+                          str(log)) == []
+    assert pg.regressions(entry(9.0), str(tmp_path / 'absent.jsonl')) == []
+
+
+def test_timing_needs_no_card_to_be_imported_but_main_needs_one(
+        monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        pg.main(['--log', str(tmp_path / 'guard.jsonl')])
+    assert not (tmp_path / 'guard.jsonl').exists()
+    assert pg.LOG_PATH.endswith('larndsim_tpu_torch/build/perf_guard.jsonl')
+    assert np.isclose(pg.HBM_BYTES_PER_S, 3.35e12)
+    # single float32 operations issue at half the FMA-counted FLOP peak
+    assert np.isclose(pg.F32_OPS_PER_S, 33.5e12)
