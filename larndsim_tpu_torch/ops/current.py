@@ -17,6 +17,14 @@ outside ``[0, ntp)`` and the trailing zero row contributing nothing, and
 points, rows and shifts; :func:`induced_current` evaluates the sum, on a
 CUDA tensor with the kernel ``csrc/induced_current.cu`` and on a CPU
 tensor with :func:`current_plain`.
+
+The kernel takes one (segment, pixel) pair per block: it tables each
+step's row once, gives the pair's distinct rows (about 40 at production
+shapes) slots in shared memory, copies each slot's columns of one tick
+tile there, and then adds one shared value per (step, tick) in ascending
+step order.  The plain version adds the same values in the same order
+(reads outside the response, zero-filled in the kernel, add exact zeros),
+so the two agree bit for bit.
 """
 from __future__ import annotations
 
