@@ -21,15 +21,30 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    the synthetic 45x45x1891 response and 8 spills of 16 tracks x 42
    segments, with every launch counter set to 0 before and read after;
    the plain versions are forbidden during it;
-7. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
+7. light: the charge+light warm-up (the slice's input on the same
+   detector with the light keys of one 2x2 module: 96 channels, beam
+   trigger, 16 us window, LUT smearing; ``max_light_truth_ids`` 0) keeps
+   its first light batch, which is run again on the card (twice) and on
+   the CPU with the same draws, made on the CPU from one seed: LUT
+   smearing on, and off with contributor truth on (``tools.light_check``:
+   waveforms within one quantum, 64 ADC, >= 99.9% of samples equal; truth
+   records equal; two card runs identical);
+8. charge+light slice: the same run timed, launch counters set to 0
+   before and read after, plain kernel versions forbidden: the light
+   datasets' shapes, data packets equal to the charge-only slice's, wall,
+   segments/s, the light stage's stream span per batch (CUDA events
+   around ``simulate_light_batch``: host gaps between its launches
+   included, so not busy device time) and peak device memory;
+9. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
    (``probe_folded``): cases a-g, each in its own process, each OK and
    importing nothing of JAX; each of its three kernels against its plain
    version.  P2 / P3 (``probe_fee`` / ``probe_fee2``): every variant timed
    at the probe shapes beside the FSM kernel (the entry points, launch
    counters set to 0 before and read after), then every variant equal to
    its plain version at the same shapes on a random signal;
-8. guard: ``tools.perf_guard`` times the chain's hot ops at production
-   shapes, with each one's bound on this card and the share reached.
+10. guard: ``tools.perf_guard`` times the chain's hot ops (charge and
+   light) at production shapes, with each one's bound on this card and
+   the share reached.
 By the end neither JAX nor the JAX package ``larndsim_tpu`` may have been
 imported.
 
@@ -65,6 +80,8 @@ P23_SOURCE = 'larndsim_tpu_torch/csrc/probe_fee.cu'
 P1_KERNELS = dict(probe_window=('tools/probe_folded.py:55, :92', 'a'),
                   probe_roll=('tools/probe_folded.py:74, :138', 'c'),
                   probe_async_copy=('tools/probe_folded.py:115', 'g'))
+#: truth contributors per channel in the light phase's truth check
+LIGHT_TRUTH_IDS = 64
 
 
 def log(phase: str, msg: str) -> None:
@@ -345,10 +362,55 @@ def guard_phase() -> dict:
         launches
     for name, r in entry['roofline'].items():
         assert np.isfinite(entry['ops_ms'][name]['min_ms']), name
+        shapes = entry['light_shapes' if name.startswith('light_')
+                       else 'shapes']
         log('guard', f'{name}: {entry["ops_ms"][name]["min_ms"]:.3f} ms, '
             f'bound {r["bound_ms"]:.4f} ms by {r["bound_by"]}, share '
-            f'{r["share"]:.4f} (shapes {entry["shapes"]})')
+            f'{r["share"]:.4f} (shapes {shapes})')
     return entry
+
+
+def light_phase(seen: list) -> None:
+    """The first light batch of the charge+light warm-up, run again on the
+    card twice and on the CPU with the same CPU-made draws."""
+    from larndsim_tpu_torch.tools import light_check
+    assert len(seen) == 1, 'the warm-up ran no light batch'
+    args, kw = seen[0]
+    for route, truth in (('smearing', 0),
+                         ('contributor truth', LIGHT_TRUTH_IDS)):
+        opts = dict(smearing=not truth, truth_ids=truth)
+        card = light_check.rerun(args, kw, 'cuda', 5, **opts)
+        again = light_check.rerun(args, kw, 'cuda', 5, **opts)
+        cpu = light_check.rerun(args, kw, 'cpu', 5, **opts)
+        assert light_check.identical(card, again), \
+            f'light {route}: two card runs differ'
+        rec = light_check.compare(card, cpu, args[1])
+        assert rec['peak'] > 0, f'light {route}: an empty waveform'
+        assert (rec['records'] > 0) == bool(truth), rec
+        log('light', f'{route}: one beam batch (S={args[0].size}, '
+            f'C={card.waveforms.shape[1]}, n_ticks={card.n_ticks}) -> '
+            f'{card.waveforms.shape}; card vs CPU, same draws: max |err| '
+            f'{rec["max_abs_err"]:.1f} ADC (peak {rec["peak"]:.1f}, '
+            f'tolerance one quantum 64), {100 * rec["equal_share"]:.3f}% '
+            f'of samples equal (>= 99.9%), {rec["records"]} truth records '
+            'equal (pe_current rtol 1e-4); two card runs identical')
+
+
+def light_checks(out: str, n_seg: int) -> str:
+    """The light datasets of the charge+light slice: one waveform row and
+    one trigger per spill, the incidence of every segment."""
+    from larndsim_tpu_torch.io.h5 import File
+    n_spills = SPILLS['n_events']
+    with File(out, 'r') as f:
+        wv = np.array(f['light_wvfm'])
+        trig = f['light_trig'].shape
+        dat = f['light_dat/light_dat_allmodules'].shape
+    assert wv.shape == (n_spills, 96, 256), wv.shape
+    assert trig == (n_spills,), trig
+    assert dat == (n_seg, 96), dat
+    assert np.isfinite(wv).all() and (wv != 0).any(), 'light_wvfm'
+    return (f'light_wvfm {wv.shape}, light_trig {trig}, '
+            f'light_dat/light_dat_allmodules {dat}')
 
 
 def slice_checks(out: str) -> int:
@@ -387,8 +449,10 @@ def main(argv=None) -> int:
     from larndsim_tpu_torch.assets.make_input import write_input
     from larndsim_tpu_torch.cli import simulate_pixels as cli
     from larndsim_tpu_torch.kernels import binding, build
+    from larndsim_tpu_torch.models import light as light_model
     from larndsim_tpu_torch.ops import current, fee
     from larndsim_tpu_torch.params import load_detector
+    from larndsim_tpu_torch.tools import light_check
 
     t0 = time.perf_counter()
     build.load()
@@ -450,27 +514,79 @@ def main(argv=None) -> int:
                 raise AssertionError(f'{name} ran on the main path')
             return plain
 
-        plains = (current.current_plain, fee.fee_fsm_plain)
-        current.current_plain = forbidden('current_plain')
-        fee.fee_fsm_plain = forbidden('fee_fsm_plain')
+        def main_path(out, run_kw):
+            """One timed slice run: launch counters set to 0 before, read
+            after; the plain kernel versions forbidden."""
+            plains = (current.current_plain, fee.fee_fsm_plain)
+            current.current_plain = forbidden('current_plain')
+            fee.fee_fsm_plain = forbidden('fee_fsm_plain')
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                binding.reset_launches()
+                t0 = time.perf_counter()
+                cli.run_simulation(inp, out, **run_kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(binding.launches)
+            finally:
+                current.current_plain, fee.fee_fsm_plain = plains
+            assert launches['induced_current'] > 0, launches
+            assert launches['fee_fsm'] > 0, launches
+            return wall, launches, torch.cuda.max_memory_allocated() / 2 ** 30
+
         out = os.path.join(tmp, 'slice.h5')
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            binding.reset_launches()
-            t0 = time.perf_counter()
-            cli.run_simulation(inp, out, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = dict(binding.launches)
-        finally:
-            current.current_plain, fee.fee_fsm_plain = plains
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        assert launches['induced_current'] > 0, launches
-        assert launches['fee_fsm'] > 0, launches
+        wall, launches, peak_gib = main_path(out, kw)
         n_data = slice_checks(out)
         log('slice', f'wall {wall:.3f} s, {n_seg / wall:.1f} segments/s, '
             f'{n_data} data packets, launches {launches}, peak device '
             f'memory {peak_gib:.2f} GiB')
+
+        # ---- charge + light ----
+        paths_l = write_module0(os.path.join(tmp, 'module0_light'),
+                                light=True)
+        kw_l = dict(kw, detector_properties=paths_l['detector_properties'])
+        t0 = time.perf_counter()
+        with light_check.first_batch() as seen:
+            cli.run_simulation(inp, os.path.join(tmp, 'warm_light.h5'),
+                               **kw_l)
+        torch.cuda.synchronize()
+        log('warm-up', f'charge+light run {time.perf_counter() - t0:.2f} s '
+            '(first call: light LUT, FFT plans)')
+        light_phase(seen)
+
+        batches = []
+        orig_light = light_model.simulate_light_batch
+
+        def timed_light(*args, **kwargs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res = orig_light(*args, **kwargs)
+            ev[1].record()
+            batches.append((kwargs.get('i_subbatch', 0), ev))
+            return res
+        out_l = os.path.join(tmp, 'slice_light.h5')
+        light_model.simulate_light_batch = timed_light
+        try:
+            wall_l, launches_l, peak_l = main_path(out_l, kw_l)
+        finally:
+            light_model.simulate_light_batch = orig_light
+        shapes = light_checks(out_l, n_seg)
+        n_data_l = slice_checks(out_l)
+        assert data_packets(out_l) == data_packets(out), \
+            (n_data_l, n_data)
+        trig_ms = [a.elapsed_time(b) for i_sub, (a, b) in batches
+                   if i_sub == 0]
+        rest_ms = [a.elapsed_time(b) for i_sub, (a, b) in batches
+                   if i_sub != 0]
+        log('slice', f'charge+light: {shapes}; {n_data_l} data packets, '
+            f'equal to the charge-only slice\'s; wall {wall_l:.3f} s, '
+            f'{n_seg / wall_l:.1f} segments/s; light stage stream span '
+            f'per batch (CUDA events) {np.mean(trig_ms):.3f} ms per '
+            f'triggering batch (min '
+            f'{min(trig_ms):.3f}, max {max(trig_ms):.3f}, '
+            f'{len(trig_ms)} batches), {np.mean(rest_ms):.3f} ms per later '
+            f'batch ({len(rest_ms)}); launches {launches_l}, peak device '
+            f'memory {peak_l:.2f} GiB')
 
         if opts.profile:
             profile_slice(inp, os.path.join(tmp, 'profiled.h5'), kw,
@@ -494,9 +610,11 @@ def main(argv=None) -> int:
     kernels = [
         dict(name='induced_current', route='cuda', source=K1_SOURCE,
              replaces=K1_REPLACES, launches=launches['induced_current'],
+             launches_charge_light=launches_l['induced_current'],
              **k1, **at_production('induced_current')),
         dict(name='fee_fsm', route='cuda', source=K2_SOURCE,
-             replaces=K2_REPLACES, launches=launches['fee_fsm'], **k2,
+             replaces=K2_REPLACES, launches=launches['fee_fsm'],
+             launches_charge_light=launches_l['fee_fsm'], **k2,
              **at_production('fee_fsm')),
     ] + probes
     print(json.dumps({'kernels': kernels}))

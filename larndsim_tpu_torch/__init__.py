@@ -1,4 +1,4 @@
-"""larndsim_tpu_torch: the charge chain of larndsim_tpu in PyTorch.
+"""larndsim_tpu_torch: the charge and light chains of larndsim_tpu in PyTorch.
 
 Port of the JAX package ``larndsim_tpu`` to PyTorch with hand-written CUDA
 kernels for NVIDIA Hopper (``csrc/``).  The package imports torch and

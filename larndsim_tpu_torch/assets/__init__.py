@@ -1,1 +1,2 @@
-"""Synthetic assets: response LUT and Module-0-shaped geometry."""
+"""Synthetic assets: response LUT, light LUT and noise, Module-0-shaped
+geometry."""

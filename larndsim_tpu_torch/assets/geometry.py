@@ -9,6 +9,10 @@ window with 190 us time padding and a 189.1 us induction window.  The
 readout mapping (chip ids, channels, io channels) is synthetic but
 complete: every pixel maps to one (io_group, io_channel, chip, channel).
 Smaller arguments give the small trees the CPU tests use.
+
+Asked for (``light=``), the detector properties also carry the light keys
+of one DUNE 2x2 module (:func:`light_properties`): 96 optical channels, 48
+per TPC, the beam trigger and a 16 us window with LUT smearing.
 """
 from __future__ import annotations
 
@@ -68,13 +72,41 @@ def pixel_layout(tiles=(2, 4), pixels_per_tile: int = 70,
                 tile_positions=tile_positions)
 
 
+def light_properties(n_op_channel: int = 96, light_window=(0.0, 16.0),
+                     enable_lut_smearing: bool = True,
+                     light_trig_mode: int = 1) -> dict:
+    """Light keys of one 2x2 module (the keys params/light.py reads).
+
+    96 channels (module0.yaml; 2x2.yaml has 384 over 4 modules), the
+    first half on TPC 0 and the second on TPC 1; the beam trigger (mode 1)
+    with a [0, 16] us window (2x2.yaml) and LUT smearing (2x2 production).
+    The per-group thresholds are read by the threshold trigger only (mode
+    0): 6 channels a group, -2000 ADC each.  Keys not written stay at the
+    loader defaults.
+    """
+    half = n_op_channel // 2
+    return dict(
+        n_op_channel=n_op_channel,
+        tpc_to_op_channel=[list(range(half)),
+                           list(range(half, n_op_channel))],
+        light_trig_mode=light_trig_mode,
+        light_window=[float(light_window[0]), float(light_window[1])],
+        enable_lut_smearing=bool(enable_lut_smearing),
+        op_channel_per_det=6,
+        light_trig_threshold=[-2000.0] * (n_op_channel // 6),
+    )
+
+
 def detector_properties(tiles=(2, 4), drift_length: float = 30.27,
                         time_interval=(0.0, 200.0),
                         time_padding: float = 190.0,
-                        time_window: float = 189.1, **overrides) -> dict:
+                        time_window: float = 189.1, light=False,
+                        **overrides) -> dict:
     """Detector-properties YAML content (the keys params/detector.py
-    reads); keys not given stay at the loader defaults.  ``overrides``
-    adds or replaces keys (e.g. ``long_diff=0``)."""
+    reads); keys not given stay at the loader defaults.  ``light`` True
+    adds the light keys of :func:`light_properties`, a dict adds them with
+    those arguments; ``overrides`` adds or replaces keys (e.g.
+    ``long_diff=0``)."""
     ntx, nty = tiles
     tile_map = [[[1 + tpc * ntx * nty + ix * nty + iy for iy in range(nty)]
                  for ix in range(ntx)] for tpc in range(2)]
@@ -88,6 +120,9 @@ def detector_properties(tiles=(2, 4), drift_length: float = 30.27,
         time_padding=float(time_padding),
         time_window=float(time_window),
     )
+    if light:
+        props.update(light_properties(**(light if isinstance(light, dict)
+                                         else {})))
     props.update(overrides)
     return props
 
@@ -105,9 +140,10 @@ def write_module0(directory: str, *, tiles=(2, 4), pixels_per_tile: int = 70,
                   chip_pixels: int = 7, pitch_mm: float = 4.434,
                   drift_length: float = 30.27, time_interval=(0.0, 200.0),
                   time_padding: float = 190.0, time_window: float = 189.1,
-                  detector_overrides: dict | None = None,
+                  light=False, detector_overrides: dict | None = None,
                   sim_overrides: dict | None = None) -> dict:
-    """Write the three YAMLs into ``directory``.
+    """Write the three YAMLs into ``directory``; ``light`` as for
+    :func:`detector_properties` (off by default).
 
     Returns a dict of paths: ``detector_properties``, ``pixel_layout``,
     ``simulation_properties``.
@@ -118,7 +154,7 @@ def write_module0(directory: str, *, tiles=(2, 4), pixels_per_tile: int = 70,
     docs = dict(
         detector_properties=detector_properties(
             tiles, drift_length, time_interval, time_padding, time_window,
-            **(detector_overrides or {})),
+            light, **(detector_overrides or {})),
         pixel_layout=pixel_layout(tiles, pixels_per_tile, chip_pixels,
                                   pitch_mm, anode_z_mm),
         simulation_properties=simulation_properties(**(sim_overrides or {})),

@@ -1,10 +1,14 @@
-"""Charge-only simulation entry point: edep-sim HDF5 in -> LArPix packets out.
+"""Simulation entry point: edep-sim HDF5 in -> LArPix packets + light
+waveforms out.
 
-Counterpart of ``larndsim_tpu.cli.simulate_pixels.run_simulation`` with
-light off, one module (no module-to-module variation), one device and one
-event per batch.  Flag names match the JAX CLI for every flag supported
-here, plus ``--device``.  Random draws come from a ``torch.Generator`` per
-batch, seeded from (rand_seed, event, batch number); event times come from
+Counterpart of ``larndsim_tpu.cli.simulate_pixels.run_simulation`` for one
+module (no module-to-module variation), one device and one event per
+batch; the light chain runs in beam-trigger mode (mode 1).  Flag names
+match the JAX CLI for every flag supported here, plus ``--device``.  The
+charge chain's draws come from a ``torch.Generator`` per batch, seeded from
+(rand_seed, event, batch number); the light chain's from a generator of
+their own per (event, sub-batch) (:func:`light_draw`), so switching light
+on moves no charge draw.  Event times come from
 ``np.random.default_rng(rand_seed)`` as in the JAX CLI, so the packet
 timestamps match it.
 
@@ -22,16 +26,19 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ..assets.light_lut import load_light_lut, make_light_noise
 from ..assets.response import load_response
 from ..config import get_config
 from ..io import edep, export
 from ..io.edep import swap_coordinates
 from ..io.h5 import File
+from ..models import light as light_model
 from ..models.charge import bucket, generator_draw, simulate_charge_batch
+from ..ops import light as light_ops
 from ..ops.drift import drift, select_active_volume
 from ..ops.quench import quench
-from ..params import get_module_ids, load_detector, load_sim, physics
-from ..params.detector import light_trig_mode
+from ..params import (get_module_ids, load_detector, load_light, load_sim,
+                      physics)
 from ..segments import from_structured, to_structured
 from ..utils.batching import TPCBatcher
 from ..utils.pixel_lut import PixelLUT
@@ -64,6 +71,17 @@ def batch_generator(rand_seed: int, i_mod: int, event: int, seq: int,
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def light_draw(rand_seed: int, i_mod: int, event: int, i_subbatch: int,
+               device) -> light_ops.LightDraw:
+    """Draws of one light batch, from a generator seeded from its identity
+    in a stream of its own (apart from :func:`batch_generator`'s)."""
+    seed = np.random.SeedSequence(
+        [rand_seed, max(i_mod, 0), int(event), i_subbatch],
+        spawn_key=(1,)).generate_state(1)[0]
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return light_model.generator_draw(gen, device)
+
+
 def run_simulation(input_filename: str,
                    output_filename: str,
                    config: str = 'module0',
@@ -72,6 +90,8 @@ def run_simulation(input_filename: str,
                    simulation_properties: str | None = None,
                    response_file=None,
                    light_simulated: bool | None = None,
+                   light_lut_filename=None,
+                   light_det_noise_filename: str | None = None,
                    bad_channels: str | None = None,
                    n_events: int | None = None,
                    pixel_thresholds_file=None,
@@ -79,14 +99,15 @@ def run_simulation(input_filename: str,
                    rand_seed: int | None = None,
                    step_scale: float = 1.0,
                    device: str = 'cuda'):
-    """Simulate the charge readout of a pixelated LArTPC.
+    """Simulate the charge and light readout of a pixelated LArTPC.
 
-    ``step_scale`` coarsens the MC charge-sampling density (1.0 is the
-    reference MIN_STEP_SIZE density); ``device`` is where the chain runs
-    ('cuda' raises when no card is present).
+    ``light_simulated`` None follows the configuration and the detector
+    YAML (no light keys: no light); ``step_scale`` coarsens the MC
+    charge-sampling density (1.0 is the reference MIN_STEP_SIZE density);
+    ``device`` is where the chains run ('cuda' raises when no card is
+    present).  Light runs in beam-trigger mode only: the threshold trigger
+    (mode 0) and MC truth with LUT smearing raise NotImplementedError.
     """
-    if light_simulated:
-        raise NotImplementedError('the light simulation is not ported yet')
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('device cuda requested but no CUDA device is '
@@ -110,9 +131,21 @@ def run_simulation(input_filename: str,
         pixel_gains_file = cfg.get('PIXEL_GAINS_FILE')
     pixel_thresholds_file = _single(pixel_thresholds_file, 'threshold')
     pixel_gains_file = _single(pixel_gains_file, 'gain')
+    if light_simulated is None:
+        light_simulated = cfg.get('LIGHT_SIMULATED', True)
+    light_lut_filename = _single(light_lut_filename or cfg.get('LIGHT_LUT'),
+                                 'light LUT')
+    if light_det_noise_filename is None:
+        light_det_noise_filename = cfg.get('LIGHT_DET_NOISE')
     get_module_ids(detector_properties)  # validates module_to_tpcs
 
     sim = load_sim(simulation_properties)
+    light_loaded = load_light(detector_properties, asset_root=os.path.dirname(
+        os.path.dirname(detector_properties)), device=device)
+    light = light_loaded.replace(light_simulated=bool(light_simulated)
+                                 and light_loaded.light_simulated)
+    if light.light_simulated:
+        light_model.check_supported(light, sim)
     t_sim0 = time.time()
     if rand_seed is None:
         rand_seed = int(time.time())
@@ -130,7 +163,7 @@ def run_simulation(input_filename: str,
     det_model = load_detector(detector_properties, pixel_layout,
                               device=device)
     det = det_model.params
-    trig_mode = light_trig_mode(detector_properties)
+    trig_mode = light.light_trig_mode
 
     num_evids = int(tracks[sim.event_separator].max()
                     % sim.max_events_per_file) + 1
@@ -191,6 +224,34 @@ def run_simulation(input_filename: str,
     tracks_mod = to_structured(segs_all, dtype=all_mod_tracks.dtype)
     print(f'Quenching and drifting: {time.time() - t0:.2f} s')
 
+    # ---- light incidence over the module (cli:398-441) ----
+    if light.light_simulated:
+        t0 = time.time()
+        n_light_channel = light.n_op_channel
+        lut = light_ops.LightLUT.from_structured(load_light_lut(
+            light_lut_filename, n_det_tpc=max(n_light_channel // 2, 1)),
+            device)
+        if light_det_noise_filename and \
+                os.path.isfile(light_det_noise_filename):
+            light_noise = np.load(light_det_noise_filename)
+        else:
+            light_noise = make_light_noise(light.n_op_channel)
+        light_noise = torch.as_tensor(light_noise, dtype=torch.float32,
+                                      device=device)
+        light_inc, light_t0, light_vox = light_ops.calculate_light_incidence(
+            segs_all, det, light, lut.vis, lut.t0, n_channels=n_light_channel)
+        # per-segment light summary for the output file (cli:758-760)
+        valid = segs_all.valid.cpu().numpy()
+        light_dat = np.zeros((int(valid.sum()), n_light_channel),
+                             dtype=[('segment_id', 'u4'),
+                                    ('n_photons_det', 'f4'),
+                                    ('t0_det', 'f4')])
+        light_dat['segment_id'] = segment_ids[:, None]
+        light_dat['n_photons_det'] = light_inc.cpu().numpy()[valid]
+        light_dat['t0_det'] = light_t0.cpu().numpy()[valid]
+        op_channel_sim = light.tpc_to_op_channel.cpu().numpy().ravel()
+        print(f'Light incidence: {time.time() - t0:.2f} s')
+
     # ---- batching loop ----
     # the output lives in memory and is written once, at the end
     out = File(output_filename, 'w')
@@ -198,32 +259,97 @@ def run_simulation(input_filename: str,
     clock_period = det.clock_reset_period * det.clock_cycle
     sync_start = (event_times[0] // clock_period * clock_period
                   + clock_period)
+    light_done_events: set = set()
+    i_light_trig = 0  # global light-trigger counter for truth records
+
+    def _host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
 
     def flush_results():
+        """Write the accumulated rows (cli:639-724): packets, and the light
+        waveforms; without charge rows, the light rows alone."""
         nonlocal results_acc
-        if not results_acc.get('event_pix'):
+        light_only = not results_acc.get('event_pix')
+        if light_only and not results_acc.get('light_event_id'):
             results_acc = defaultdict(list)
             return
-        res = {k: np.concatenate([np.asarray(x) for x in v], axis=0)
+        res = {k: np.concatenate([_host(x) for x in v], axis=0)
                for k, v in results_acc.items() if len(v)}
-        uniq_events = np.unique(res['event_pix'])
-        uniq_event_times = event_times[uniq_events
-                                       % sim.max_events_per_file]
-        export.export_to_hdf5(
-            res['event_pix'], res['hit_row'], res['hit_adc'],
-            res['hit_ticks'], res['hit_frac'], res['unique_pix'],
-            res['track_pixel_map'], res['traj_pixel_map'],
-            out, uniq_event_times, det_model, trig_mode, sim,
-            light_trigger_times=np.zeros_like(uniq_event_times),
-            light_trigger_event_id=uniq_events,
-            light_trigger_modules=np.ones(len(uniq_events)),
-            bad_channels=bad_channels, i_mod=i_mod)
+        has_light = len(res.get('light_event_id', []))
+        if not light_only:
+            uniq_events = np.unique(res['event_pix'])
+            uniq_event_times = event_times[uniq_events
+                                           % sim.max_events_per_file]
+            if has_light:
+                # beam mode: the trigger type stands in for the module
+                light_trig_modules = res['trigger_type']
+                light_trigger_times = (res['light_start_time']
+                                       + res['light_trigger_idx']
+                                       * light.light_tick_size)
+                light_trigger_event_ids = res['light_event_id']
+            else:
+                light_trig_modules = np.ones(len(uniq_events))
+                light_trigger_times = np.zeros_like(uniq_event_times)
+                light_trigger_event_ids = uniq_events
+            export.export_to_hdf5(
+                res['event_pix'], res['hit_row'], res['hit_adc'],
+                res['hit_ticks'], res['hit_frac'], res['unique_pix'],
+                res['track_pixel_map'], res['traj_pixel_map'],
+                out, uniq_event_times, det_model, trig_mode, sim,
+                light_trigger_times=light_trigger_times,
+                light_trigger_event_id=light_trigger_event_ids,
+                light_trigger_modules=light_trig_modules,
+                bad_channels=bad_channels, i_mod=i_mod)
+        if has_light:
+            export.export_light_wvfm_to_hdf5(
+                res['light_event_id'], res['light_waveforms'], out, sim,
+                light, i_mod=i_mod)
         results_acc = defaultdict(list)
+
+    def accumulate_light(ievd_l, lres):
+        """One light batch's rows (cli:761-799); its truth records are
+        written at once."""
+        nonlocal i_light_trig
+        ntrig = lres.trigger_idx.shape[0]
+        if not ntrig:
+            return
+        results_acc['light_event_id'].append(np.full(ntrig, ievd_l))
+        results_acc['light_start_time'].append(np.full(ntrig,
+                                                       lres.start_time))
+        results_acc['light_trigger_idx'].append(lres.trigger_idx)
+        results_acc['trigger_type'].append(lres.trigger_type)
+        results_acc['light_op_channel_idx'].append(lres.op_channel_idx)
+        results_acc['light_waveforms'].append(lres.waveforms)
+        if lres.truth_sparse is not None:
+            export.export_light_truth_to_hdf5(
+                out, export.truth_sparse_to_records(
+                    lres.truth_sparse, int(ievd_l), i_light_trig))
+        i_light_trig += ntrig
+
+    def process_light(ievd, sel, segs):
+        """The light batch of these segments: only an event's first batch
+        triggers (i_subbatch 0, cli:1047-1051)."""
+        i_sub = 0 if ievd not in light_done_events else 1
+        light_done_events.add(ievd)
+        pad, n = segs.size, len(sel)
+        rows = torch.from_numpy(sel).to(device)
+        inc = light_inc.new_zeros((pad, light_inc.shape[1]))
+        inc[:n] = light_inc[rows]
+        vox = light_vox.new_zeros((pad, 3))
+        vox[:n] = light_vox[rows]
+        lres = light_model.simulate_light_batch(
+            segs, light, sim, inc, vox, lut, light_noise,
+            light_draw(rand_seed, i_mod, ievd, i_sub, device),
+            i_subbatch=i_sub)
+        accumulate_light(ievd, lres)
 
     def process(ievd, sel, seq):
         selected = tracks_mod[sel]
         segs = from_structured(selected, pad_to=bucket(len(sel), lo=32),
                                device=device)
+        if light.light_simulated:
+            process_light(ievd, sel, segs)
         gen = batch_generator(rand_seed, i_mod, ievd, seq, device)
         res = simulate_charge_batch(
             segs, det_model, sim, generator_draw(gen, device), response,
@@ -280,6 +406,20 @@ def run_simulation(input_filename: str,
                     trig_mode, sim, i_mod)
         idx = np.nonzero(batch_mask)[0]
         if len(idx) == 0:
+            if light.light_simulated:
+                # an empty batch still gets its event a zero waveform row,
+                # float64 (cli:1103-1132)
+                results_acc['light_event_id'].append(np.full(1, ievd))
+                results_acc['light_start_time'].append(np.zeros(1))
+                results_acc['light_trigger_idx'].append(np.zeros(1, int))
+                results_acc['trigger_type'].append(
+                    np.full(1, light.light_trig_mode))
+                results_acc['light_op_channel_idx'].append(
+                    op_channel_sim[None, :])
+                results_acc['light_waveforms'].append(
+                    np.zeros((1, len(op_channel_sim),
+                              light_model.digit_samples(light))))
+                flush_results()
             continue
         if len(idx) > sim.batch_size:
             warnings.warn('Entered sub-batch loop; consider increasing '
@@ -299,9 +439,23 @@ def run_simulation(input_filename: str,
             if fld in segments_to_files.dtype.names:
                 segments_to_files[fld] = (segments_to_files[fld]
                                           + local_spill * sim.spill_period)
+    if light.light_simulated:
+        # one beam trigger row per event (cli:1264-1275)
+        light_event_id = (np.unique(local_spill) if sim.is_spill_sim
+                          else (vertices['event_id'] if vertices is not None
+                                else np.unique(
+                                    segments_to_files[sim.event_separator])))
+        light_event_times = (light_event_id * sim.spill_period
+                             if sim.is_spill_sim else event_times)
+        export.export_light_trig_to_hdf5(
+            light_event_id, np.zeros(len(light_event_id)),
+            np.zeros(len(light_event_id), int), op_channel_sim, out,
+            light_event_times, det_model, light)
     swap_coordinates(segments_to_files)
     out.create_dataset(sim.tracks_dset_name, data=segments_to_files)
     out[sim.tracks_dset_name].attrs['zbeam'] = True
+    if light.light_simulated:
+        out.create_dataset('light_dat/light_dat_allmodules', data=light_dat)
     for name, data in (('trajectories', inp.trajectories),
                        ('vertices', vertices), ('mc_hdr', mc_hdr),
                        ('mc_stack', mc_stack)):

@@ -1,11 +1,14 @@
-"""HDF5 export of the charge readout: LArPix packets + MC-truth association.
+"""HDF5 export: LArPix packets + MC-truth association, light triggers,
+waveforms and light truth.
 
-Counterpart of the charge part of ``larndsim_tpu.io.export`` (reference
-fee.export_to_hdf5 fee.py:84-359, export_sync/timestamp_trigger
-fee.py:361-497): the packet stream is assembled from dense index arrays in
-numpy and written through ``io.larpix_packets`` into an open ``io.h5.File``
-(the caller opens the output once and closes it at the end of the run).  The light
-parameters these writers read reduce to the light-trigger mode.
+Counterpart of ``larndsim_tpu.io.export`` (reference fee.export_to_hdf5
+fee.py:84-359, export_sync/timestamp_trigger fee.py:361-497, and the light
+writers of light_sim.py:663-745): the packet stream is assembled from dense
+index arrays in numpy and written through ``io.larpix_packets`` into an
+open ``io.h5.File`` (the caller opens the output once and closes it at the
+end of the run).  The light parameters the packet writers read reduce to
+the light-trigger mode.  Every dataset is contiguous and uncompressed (the
+reference's own layout for the light truth, light_sim.py:710).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import yaml
 
 from .. import units
 from ..params.detector import DetectorModel
+from ..params.light import LightParams
 from ..params.sim import SimParams
 from . import larpix_packets as lp
 
@@ -460,3 +464,76 @@ def export_timestamp_trigger_to_hdf5(f, event_start_times,
     a['segment_ids'] = -1
     a['file_traj_ids'] = -1
     _append_dataset(f, 'mc_packets_assn', a)
+
+
+# --------------------------------------------------------------------------
+# light export
+# --------------------------------------------------------------------------
+
+def export_light_trig_to_hdf5(event_id, start_times, trigger_idx,
+                              op_channel_idx, f, event_times,
+                              det_model: DetectorModel, light: LightParams):
+    """light_trig dataset (light_sim.export_light_trig_to_hdf5, :715-745)."""
+    event_id = np.asarray(event_id)
+    if event_id.shape[0] == 0:
+        return
+    det = det_model.params
+    uniq, inv = np.unique(event_id, return_inverse=True)
+    ev_start = np.asarray(event_times)[inv]
+    ev_sync = (ev_start / det.clock_cycle).astype(np.int64) \
+        % det.clock_reset_period
+
+    op_channel_idx = np.atleast_2d(np.asarray(op_channel_idx))
+    trig = np.empty(len(event_id), dtype=np.dtype(
+        [('op_channel', 'i4', (op_channel_idx.shape[-1],)),
+         ('ts_s', 'f8'), ('ts_sync', 'u8')]))
+    trig['op_channel'] = op_channel_idx
+    trig['ts_s'] = ((np.asarray(start_times) + np.asarray(trigger_idx)
+                     * light.light_tick_size + ev_start)
+                    * units.mus / units.s)
+    trig['ts_sync'] = (((np.asarray(start_times) + np.asarray(trigger_idx)
+                         * light.light_tick_size) / det.clock_cycle
+                        + ev_sync).astype(np.int64) % det.clock_reset_period)
+    _append_dataset(f, 'light_trig', trig)
+
+
+TRUTH_DTYPE = np.dtype([('trigger_id', 'i4'), ('op_channel_id', 'i4'),
+                        ('tick', 'i4'), ('event_id', 'i4'),
+                        ('segment_id', 'i8'), ('pe_current', 'f8')])
+
+
+def truth_sparse_to_records(sparse: dict, event_id: int,
+                            i_trig: int) -> np.ndarray:
+    """Assemble light_wvfm_mc_assn records from zero-suppressed truth."""
+    n = len(sparse['trig'])
+    out = np.empty(n, dtype=TRUTH_DTYPE)
+    out['trigger_id'] = i_trig + sparse['trig']
+    out['op_channel_id'] = sparse['op_channel']
+    out['tick'] = sparse['tick']
+    out['event_id'] = event_id
+    out['segment_id'] = sparse['segment_id']
+    out['pe_current'] = sparse['pe_current']
+    return out
+
+
+def export_light_truth_to_hdf5(f, truth_data: np.ndarray):
+    """Append light_wvfm_mc_assn records (uncompressed, as the reference
+    creates the dataset, light_sim.py:710)."""
+    _append_dataset(f, 'light_wvfm_mc_assn', truth_data)
+
+
+def export_light_wvfm_to_hdf5(event_id, waveforms, f, sim: SimParams,
+                              light: LightParams, i_mod: int = -1):
+    """light_wvfm dataset (light_sim.export_light_wvfm_to_hdf5, :663-713);
+    appended rows take the dtype of the first ones."""
+    event_id = np.asarray(event_id)
+    if event_id.shape[0] == 0:
+        return
+    if sim.mod2mod_variation and light.light_trig_mode == 1:
+        if i_mod < 1:
+            raise ValueError('mod2mod variation active but module id '
+                             'not provided')
+        name = f'light_wvfm/light_wvfm_mod{i_mod - 1}'
+    else:
+        name = 'light_wvfm'
+    _append_dataset(f, name, np.asarray(waveforms))

@@ -1,6 +1,7 @@
 """Float32 arithmetic that rounds as the JAX package's does."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -13,3 +14,12 @@ def div(x: torch.Tensor, v: float) -> torch.Tensor:
     division true on every device.
     """
     return x / torch.tensor(v, dtype=torch.float32, device=x.device)
+
+
+def div_const(x: torch.Tensor, v: float) -> torch.Tensor:
+    """``x / v`` for a constant ``v`` as the JAX package's jitted ops
+    compute it: XLA folds the division by a constant into a multiplication
+    by its float32 reciprocal, ``float32(1) / float32(v)``."""
+    with np.errstate(divide='ignore'):
+        inv = np.float32(1.0) / np.float32(v)
+    return x * torch.tensor(inv, dtype=torch.float32, device=x.device)

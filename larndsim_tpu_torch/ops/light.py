@@ -1,0 +1,504 @@
+"""Light readout: LUT visibility, waveform synthesis and digitization.
+
+Counterpart of the beam-trigger part of ``larndsim_tpu.ops.light``
+(reference lightLUT.py and light_sim.py).  Plain PyTorch on every device;
+the JAX module has no Pallas kernel.
+
+* Photon arrival series are sums over (segment, channel[, profile bin]);
+  they are added in a fixed order (:func:`ordered_sum`), the order of the
+  JAX op's sequential scatter, so the sums are the same bits on every run
+  and every device (float atomics would add in no fixed order, and the
+  Poisson draw downstream turns a last-bit difference into another count).
+* The causal scintillation and SiPM convolutions are FFT convolutions at
+  the JAX op's power-of-two length (``torch.fft``: cuFFT on the card,
+  pocketfft on the CPU), with taps evaluated in float64 and transforms in
+  float64, so that both devices give the same rates to the draws
+  (:func:`causal_convolve`); the noise is synthesized in float64 for the
+  same reason.
+* Random draws are explicit: a :class:`LightDraw` supplies the Poisson
+  counts, the normals and the noise phases.
+* The JAX ops run jitted, where XLA turns a division by a constant (a
+  tick size, a window length) into a multiplication by the constant's
+  float32 reciprocal; ``ops.f32.div_const`` does the same on every device,
+  so each photon lands on the same tick as in the JAX package.  A
+  division by a tensor leaf stays a true division.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..params.detector import DEFAULT_PLANE_INDEX, DetectorParams, card_or
+from ..params.light import LightParams
+from ..segments import Segments
+from . import f32
+
+
+@dataclasses.dataclass(frozen=True)
+class LightDraw:
+    """The light chain's random draws, each taken once per batch, in this
+    order: ``poisson(rate)`` counts at the (C, n_ticks) rates, then
+    ``normal(shape)`` standard normals of that shape, then
+    ``uniform(shape)`` noise phases on [0, 1) of shape (C, n_freq)."""
+    poisson: Callable[[torch.Tensor], torch.Tensor]
+    normal: Callable[[tuple], torch.Tensor]
+    uniform: Callable[[tuple], torch.Tensor]
+
+
+# --------------------------------------------------------------------------
+# Light LUT container
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LightLUT:
+    """Tensors unpacked from a light lookup table, on one device.
+
+    The on-disk format is a structured array 'arr' of shape
+    (nx, ny, nz, ndet_tpc) with fields vis / t0 / t0_avg / time_dist
+    (cli/simulate_pixels.py:768-787).
+    """
+    vis: torch.Tensor         # (nx, ny, nz, ndet_tpc)
+    t0: torch.Tensor          # (nx, ny, nz, ndet_tpc) earliest arrival [ns]
+    t0_avg: torch.Tensor      # (nx, ny, nz, ndet_tpc) mean arrival [ns]
+    time_dist: torch.Tensor   # (nx, ny, nz, ndet_tpc, nprof)
+
+    @classmethod
+    def from_structured(cls, arr: np.ndarray, device='cuda') -> 'LightLUT':
+        """The LUT on ``device`` (the card unless the caller names
+        another), with zero-visibility voxels clipped to the minimum
+        positive visibility (cli/simulate_pixels.py:780-782)."""
+        device = card_or(device, 'the light LUT')
+        vis = np.array(arr['vis'], np.float32)
+        mask = vis > 0
+        if mask.any():
+            vis[~mask] = vis[mask].min()
+        names = arr.dtype.names
+        t0 = np.array(arr['t0'], np.float32) if 't0' in names else \
+            np.zeros(vis.shape, np.float32)
+        t0_avg = np.array(arr['t0_avg'], np.float32) if 't0_avg' in names \
+            else np.zeros(vis.shape, np.float32)
+        tdist = (np.array(arr['time_dist'], np.float32)
+                 if 'time_dist' in names
+                 else np.ones(vis.shape + (1,), np.float32))
+        put = lambda a: torch.from_numpy(a).to(device)
+        return cls(put(vis), put(t0), put(t0_avg), put(tdist))
+
+
+# --------------------------------------------------------------------------
+# Visibility lookup (lightLUT.py)
+# --------------------------------------------------------------------------
+
+def get_voxel(segs: Segments, det: DetectorParams, vox_div) -> torch.Tensor:
+    """LUT voxel indices per segment (lightLUT.get_voxel, :15-63):
+    fractional position in the (tolerance-padded) TPC volume, with x
+    mirrored in odd TPCs to preserve left/right-ness.  (S, 3) int64."""
+    plane = torch.clamp(segs.pixel_plane, 0, det.n_tpcs - 1).long()
+    b = det.tpc_borders[plane]                       # (S, 3, 2)
+    is_even = b[:, 2, 1] > b[:, 2, 0]
+    pad = 2e-2
+    x_min, x_max = b[:, 0, 0] - pad, b[:, 0, 1] + pad
+    y_min, y_max = b[:, 1, 0] - pad, b[:, 1, 1] + pad
+    z_min, z_max = b[:, 2, 0] - pad, b[:, 2, 1] + pad
+
+    i_even = (segs.x - x_min) / (x_max - x_min) * vox_div[0]
+    i_odd = (x_max - segs.x) / (x_max - x_min) * vox_div[0]
+    i = torch.where(is_even, i_even, i_odd).to(torch.int32)
+    j = ((y_max - segs.y) / (y_max - y_min) * vox_div[1]).to(torch.int32)
+    k = ((segs.z - z_min) / (z_max - z_min) * vox_div[2]).to(torch.int32)
+    i = torch.clamp(i, 0, vox_div[0] - 1)
+    j = torch.clamp(j, 0, vox_div[1] - 1)
+    k = torch.clamp(k, 0, vox_div[2] - 1)
+    return torch.stack([i, j, k], dim=-1).long()
+
+
+def _at_voxels(table: torch.Tensor, vox: torch.Tensor,
+               lut_idx: torch.Tensor) -> torch.Tensor:
+    """``table[vox..., lut_idx]`` for voxels (..., 3) against channel rows
+    (C,) broadcast over the voxels' leading axes."""
+    v = vox.unsqueeze(-2)                            # (..., 1, 3)
+    return table[v[..., 0], v[..., 1], v[..., 2], lut_idx]
+
+
+def calculate_light_incidence(segs: Segments, det: DetectorParams,
+                              light: LightParams, lut_vis: torch.Tensor,
+                              lut_t0: torch.Tensor, *, n_channels: int):
+    """Photons incident on each optical channel (lightLUT.py:65-136).
+
+    Returns:
+        (n_photons_det (S, n_channels) f32, t0_det (S, n_channels) f32 [us],
+        voxel (S, 3) int64)
+    """
+    vox = get_voxel(segs, det, lut_vis.shape[:3])
+    itpc = segs.pixel_plane
+    in_tpc = (itpc != DEFAULT_PLANE_INDEX) & segs.valid
+
+    op_abs = torch.arange(n_channels, device=lut_vis.device)
+    lut_idx = op_abs % lut_vis.shape[3]
+
+    vis = _at_voxels(lut_vis, vox, lut_idx)          # (S, C)
+    t1 = _at_voxels(lut_t0, vox, lut_idx)
+    eff = light.op_channel_efficiency[op_abs]
+    same_tpc = light.op_channel_to_tpc[op_abs][None, :] == itpc[:, None]
+
+    n_det = torch.where(in_tpc[:, None] & same_tpc,
+                        eff[None, :] * vis * segs.n_photons[:, None], 0.0)
+    # t0 in us: lut t0 [ns] + segment t0 [us] (lightLUT.py:135)
+    t0_det = torch.where(in_tpc[:, None], t1 * 1e-3 + segs.t0[:, None], 0.0)
+    return n_det.float(), t0_det.float(), vox
+
+
+# --------------------------------------------------------------------------
+# Waveform synthesis (light_sim.py)
+# --------------------------------------------------------------------------
+
+def get_nticks(light: LightParams) -> tuple[int, float]:
+    """(n_ticks, start_time) of the beam trigger's window
+    (light_sim.get_nticks, :24-41; the threshold mode's sizing by the
+    arrival times is not ported).  Host-side."""
+    return int((light.light_window[1] + light.light_window[0])
+               / light.light_tick_size), 0.0
+
+
+def ordered_sum(keys: torch.Tensor, values: torch.Tensor,
+                n_out: int) -> torch.Tensor:
+    """Rows of ``values`` (M, W) summed by key into (n_out, W).
+
+    ``out[k]`` adds every row ``i`` with ``keys[i] == k`` one after
+    another, in ascending ``i`` -- the order of the JAX package's
+    sequential scatter-add -- so the result is the same bits on every run
+    and every device.  Rows whose key is ``n_out`` or more are dropped.
+    """
+    order = torch.sort(keys, stable=True).indices
+    sk = keys[order]
+    bounds = torch.searchsorted(sk, torch.arange(n_out + 1,
+                                                 device=keys.device))
+    # n_out segments, then one sink segment for the dropped rows
+    lengths = torch.diff(bounds, append=bounds.new_full((1,), keys.numel()))
+    out = torch.segment_reduce(values[order], 'sum', lengths=lengths,
+                               axis=0, unsafe=True)
+    return out[:n_out]
+
+
+def sum_light_signals(segs: Segments, voxels, n_photons_det, op_channel,
+                      lut_time_dist, lut_t0_avg, start_time: float,
+                      light: LightParams, *, n_ticks: int,
+                      lut_smearing: bool) -> torch.Tensor:
+    """Photon arrival time series per channel (light_sim.py:58-129).
+
+    Args:
+        voxels: (S, 3) LUT voxel per segment.
+        n_photons_det: (S, C) photons on each simulated channel.
+        op_channel: (C,) absolute channel index of each output row.
+        lut_time_dist: (nx, ny, nz, ndet_tpc, nprof) normalized profiles.
+        lut_t0_avg: (nx, ny, nz, ndet_tpc) mean arrival delay [ns].
+        start_time: window start [us].
+
+    Returns:
+        (C, n_ticks) photons/us.
+    """
+    S, C = n_photons_det.shape
+    dev = n_photons_det.device
+    tick = light.light_tick_size
+    lut_idx = (op_channel % lut_time_dist.shape[3]).long()
+    track_time = segs.t0                                       # (S,)
+    if S == 0:
+        return torch.zeros((C, n_ticks), dtype=torch.float32, device=dev)
+    if lut_smearing:
+        nprof = lut_time_dist.shape[4]
+        prof = _at_voxels(lut_time_dist, voxels, lut_idx)      # (S, C, nprof)
+        # profile bin j arrives at track_time + j * 1 ns (light_sim.py:101:
+        # assumes 1 ns profile bins); the tick of (segment, bin) is the same
+        # for every channel
+        j_arr = torch.arange(nprof, dtype=torch.float32, device=dev) * 1e-3
+        t_arr = track_time[:, None] + j_arr[None, :]           # (S, nprof)
+        tick_f = f32.div_const(t_arr - start_time, tick)
+        itick = torch.ceil(tick_f).to(torch.int32) - 1
+        # strict (start_tick_time, end_tick_time) interval as in the
+        # reference
+        ok = (tick_f > itick) & (itick >= 0) & (itick < n_ticks)
+        photons = f32.div_const(n_photons_det[:, :, None] * prof, tick)
+        rows = photons.transpose(1, 2).reshape(S * nprof, C)   # (s, j) major
+        keys = torch.where(ok, itick, n_ticks).reshape(-1).long()
+        return ordered_sum(keys, rows, n_ticks).t().contiguous()
+    t0_avg = _at_voxels(lut_t0_avg, voxels, lut_idx)           # (S, C)
+    t_arr = track_time[:, None] + t0_avg * 1e-3                # ns -> us
+    tick_f = f32.div_const(t_arr - start_time, tick)
+    itick = torch.ceil(tick_f).to(torch.int32) - 1
+    ok = (tick_f > itick) & (itick >= 0) & (itick < n_ticks)
+    photons = f32.div_const(n_photons_det, tick)
+    rows = torch.arange(C, device=dev)[None, :] * n_ticks
+    keys = torch.where(ok, rows + itick, C * n_ticks).reshape(-1)
+    out = ordered_sum(keys, photons.reshape(S * C, 1), C * n_ticks)
+    return out.view(C, n_ticks)
+
+
+def light_truth_points(segs: Segments, voxels, n_photons_det, op_channel,
+                       lut_t0_avg, start_time: float, light: LightParams, *,
+                       k_truth: int):
+    """Top-K truth contributors as (segment id, photons/us, arrival tick).
+
+    Without LUT smearing each contributor's photon series is a single
+    delta, so the whole truth chain (two linear convolutions + digitizer
+    interpolation) collapses to a lookup of the combined kernel (done on
+    the host by ``models.light``).  Contributors are ranked by a stable
+    sort, so ties between equal photon counts pick the same segments as
+    the JAX package.  Returns (ids (C,K), amp (C,K), itick (C,K)).
+    """
+    S, C = n_photons_det.shape
+    k_truth = min(k_truth, S)
+    tick = light.light_tick_size
+    # 0 - n, not -n: zeros sort as +0.0 on every device
+    order = torch.argsort(0.0 - n_photons_det, dim=0,
+                          stable=True)[:k_truth]               # (K, C)
+    contrib = torch.gather(n_photons_det, 0, order)
+    has = contrib > 0
+    ids = torch.where(has, segs.segment_id[order], -1).t()     # (C, K)
+
+    lut_idx = (op_channel % lut_t0_avg.shape[3]).long()
+    vox = voxels[order]                                        # (K, C, 3)
+    t0_avg = lut_t0_avg[vox[..., 0], vox[..., 1], vox[..., 2],
+                        lut_idx[None, :]]                      # (K, C)
+    t_arr = segs.t0[order] + t0_avg * 1e-3
+    tick_f = f32.div_const(t_arr - start_time, tick)
+    itick = torch.ceil(tick_f).to(torch.int32) - 1             # (K, C)
+    amp = torch.where(has & (tick_f > itick), f32.div_const(contrib, tick),
+                      0.0)
+    return ids, amp.t().float(), itick.t()
+
+
+def scintillation_kernel(light: LightParams, conv_ticks: int) -> torch.Tensor:
+    """Two-exponential emission-time kernel (light_sim.py:132-145), float32.
+
+    conv_ticks + 1 taps: the reference convolution loop spans
+    ``range(itick - conv_ticks, itick + 1)`` -- t-j in [0, conv_ticks]
+    INCLUSIVE (light_sim.py:164).  The taps are evaluated in float64 from
+    the float32 leaves and rounded to float32, so every device gets the
+    same taps (float32 ``exp`` rounds differently on the card and on the
+    CPU; each is within a few ulp of the JAX op's)."""
+    k = torch.arange(conv_ticks + 1, dtype=torch.float64, device=light.device)
+    tick = light.light_tick_size
+    singlet = light.singlet_fraction.double()
+    tau_s, tau_t = light.tau_s.double(), light.tau_t.double()
+    p1 = (singlet * torch.exp(-k * tick / tau_s)
+          * (1 - torch.exp(-tick / tau_s)))
+    p3 = ((1 - singlet) * torch.exp(-k * tick / tau_t)
+          * (1 - torch.exp(-tick / tau_t)))
+    return (p1 + p3).float()
+
+
+def sipm_kernel(light: LightParams, conv_ticks: int) -> torch.Tensor:
+    """SiPM impulse response kernel (light_sim.py:274-300), float32,
+    evaluated in float64 as the scintillation kernel.
+
+    conv_ticks + 1 taps, matching the reference loop's inclusive bound
+    (light_sim.py:318)."""
+    k = torch.arange(conv_ticks + 1, dtype=torch.float64, device=light.device)
+    tick = light.light_tick_size
+    if light.sipm_response_model == 0:
+        t = k * tick
+        rt = light.light_response_time.double()
+        op = light.light_oscillation_period.double()
+        imp = torch.exp(-t / rt) * torch.sin(t / op)
+        imp = imp / (op * rt * rt) * (op * op + rt * rt)
+        return (imp * tick).float()
+    # measured impulse, linearly interpolated to the light tick grid
+    idx = k * tick / light.impulse_tick_size
+    i0 = torch.floor(idx).long()
+    frac = idx - i0
+    arr = light.impulse_model.double()
+    n = arr.shape[0]
+    at = lambda i: torch.where((i >= 0) & (i < n),
+                               arr[torch.clamp(i, 0, n - 1)], 0.0)
+    v0, v1 = at(i0), at(i0 + 1)
+    imp = torch.where(i0 > n - 2, 0.0, v0 + (v1 - v0) * frac)
+    return (imp / (light.impulse_tick_size / light.light_tick_size)).float()
+
+
+def causal_convolve(signal: torch.Tensor,
+                    kernel: torch.Tensor) -> torch.Tensor:
+    """FFT causal convolution along the last axis, output truncated to the
+    signal length; the FFT length is the JAX op's power of two.
+
+    The transforms run in float64 and the result is rounded to the
+    signal's dtype.  A float32 transform is off by ~1e-6 of the peak, and
+    cuFFT and pocketfft are off differently; the Poisson and Gaussian
+    draws downstream turn such a difference into another count at many
+    ticks.  In float64 the card and the CPU give the same float32 rates
+    but at rounding ties (and stay within the JAX package's float32 FFT
+    tolerance, rtol 2e-4).
+    """
+    n = signal.shape[-1]
+    k = kernel.shape[-1]
+    fft_len = int(2 ** np.ceil(np.log2(max(n + k - 1, 1))))
+    ker_f = torch.fft.rfft(kernel.double(), n=fft_len)
+    sig_f = torch.fft.rfft(signal.double(), n=fft_len, dim=-1)
+    out = torch.fft.irfft(sig_f * ker_f, n=fft_len, dim=-1)[..., :n]
+    return out.to(signal.dtype)
+
+
+def calc_scintillation_effect(light_sample_inc, light: LightParams, *,
+                              conv_ticks: int) -> torch.Tensor:
+    """LAr scintillation time smearing (light_sim.py:148-168)."""
+    return causal_convolve(light_sample_inc,
+                           scintillation_kernel(light, conv_ticks))
+
+
+def calc_stat_fluctuations(light_sample_inc, draw: LightDraw,
+                           light: LightParams) -> torch.Tensor:
+    """Poisson PE fluctuations per tick (light_sim.py:186-238): exact
+    Poisson below mean 30, truncated gaussian above.  Both draws cover
+    every tick, as in the JAX op."""
+    tick = light.light_tick_size
+    mean = light_sample_inc * tick
+    small = draw.poisson(torch.clamp(mean, min=1e-30)).to(torch.float32)
+    big = torch.clamp(torch.floor(
+        draw.normal(tuple(mean.shape)) * torch.sqrt(torch.clamp(mean, min=0))
+        + mean), min=0.0)
+    n = torch.where(mean < 30, small, big)
+    return torch.where(mean > 0, f32.div_const(n, tick), 0.0)
+
+
+def calc_light_detector_response(light_sample_inc, gains,
+                                 light: LightParams, *,
+                                 conv_ticks: int) -> torch.Tensor:
+    """SiPM response convolution x per-channel gain (light_sim.py:303-336)."""
+    resp = causal_convolve(light_sample_inc, sipm_kernel(light, conv_ticks))
+    return gains[:, None] * resp
+
+
+# --------------------------------------------------------------------------
+# Noise, digitizer
+# --------------------------------------------------------------------------
+
+def rfftfreq(n: int, d: float, device) -> torch.Tensor:
+    """Sample frequencies of an rfft of length ``n`` (jnp.fft.rfftfreq's
+    float32 arithmetic: k / (d * n), a constant divisor under jit)."""
+    k = torch.arange(n // 2 + 1, dtype=torch.float32, device=device)
+    return f32.div_const(k, d * n)
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean`` of a 1-D float32 tensor under jit: the sum times the
+    float32 reciprocal of the count (NaN when empty).  The sum is taken in
+    float64, where these sums are exact, so no device's order of addition
+    shows."""
+    return f32.div_const(x.double().sum().float(), x.numel())
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor,
+           left: float, right: float) -> torch.Tensor:
+    """``jnp.interp(x, xp, row, left, right)`` for every row of ``fp``
+    (..., len(xp)), with the JAX function's arithmetic (the bracketing
+    knot by a right-sided search, equal at the knots)."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, len(xp) - 1)
+    df = fp[..., i] - fp[..., i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    dx0 = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))
+    f = torch.where(dx0, fp[..., i - 1],
+                    fp[..., i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], left, f)
+    return torch.where(x > xp[-1], right, f)
+
+
+def noise_spectrum(n: int, light_det_noise: torch.Tensor,
+                   light: LightParams) -> torch.Tensor:
+    """The measured amplitude spectra (C, n_bins) resampled onto the rfft
+    bins of ``n`` simulation ticks and scaled, float32 (C, n // 2 + 1)
+    (light_sim.py:339-366)."""
+    dev = light_det_noise.device
+    noise_freq = rfftfreq((light_det_noise.shape[-1] - 1) * 2,
+                          light.light_det_noise_sample_spacing, dev)
+    desired_freq = rfftfreq(n, light.light_tick_size, dev)
+    bin_size = _mean(torch.diff(desired_freq))
+    spectrum = interp(desired_freq, noise_freq, light_det_noise, 0.0, 0.0)
+    return spectrum * f32.div_const(
+        torch.sqrt(_mean(torch.diff(noise_freq)) / bin_size)
+        * light.light_digit_sample_spacing, light.light_tick_size)
+
+
+def noise_from_spectrum(spectrum: torch.Tensor, phase: torch.Tensor,
+                        n: int, light: LightParams) -> torch.Tensor:
+    """Noise of ``n`` ticks from amplitudes and phases (C, n_freq): inverse
+    FFT, rounded to whole quanta, zero-padded to ``n`` (light_sim.py:
+    367-377); in the inputs' dtype, returned as float32."""
+    noise_f = torch.complex(spectrum * torch.cos(phase),
+                            spectrum * torch.sin(phase))
+    quant = 2 ** (16 - light.light_nbit)
+    if n < 2:
+        noise = torch.round(noise_f.real) * quant
+    else:
+        noise = torch.round(torch.fft.irfft(noise_f, dim=-1)) * quant
+    noise = noise.float()
+    if noise.shape[1] < n:
+        noise = torch.nn.functional.pad(noise, (0, n - noise.shape[1]))
+    return noise[:, :n]
+
+
+def gen_light_detector_noise(shape, light_det_noise: torch.Tensor,
+                             draw: LightDraw,
+                             light: LightParams) -> torch.Tensor:
+    """Frequency-domain noise synthesis (light_sim.py:339-377): resample the
+    measured amplitude spectrum onto the simulation tick grid, randomize
+    phases, inverse FFT.
+
+    Args:
+        shape: (C, n) of the noise.
+        light_det_noise: (C, n_bins) float32 amplitude spectra.
+    """
+    if shape[0] == 0:
+        return torch.zeros(shape, dtype=torch.float32,
+                           device=light_det_noise.device)
+    spectrum = noise_spectrum(shape[1], light_det_noise, light)
+    phase = (2 * math.pi) * draw.uniform(tuple(spectrum.shape))
+    # phases and the inverse transform in float64 (as in causal_convolve):
+    # the rounding to whole quanta then gives the same noise on every
+    # device but at ties
+    return noise_from_spectrum(spectrum.double(), phase.double(), shape[1],
+                               light)
+
+
+def digitize_signal(signal: torch.Tensor, padded_trigger_idx: torch.Tensor,
+                    light: LightParams, *, digit_samples: int,
+                    ref_exact: bool = False) -> torch.Tensor:
+    """Interpolate to the ADC sample grid (light_sim.digitize_signal,
+    :480-543) and truncate to the digitizer bit depth.
+
+    Args:
+        signal: (C, n_padded_ticks) waveform including front padding of
+            ceil(trig_window[0]/tick).
+        padded_trigger_idx: (ntrig,) int trigger tick in the padded signal.
+        ref_exact: reproduce the reference's *active* code line, which
+            ignores `trigger_idx` (light_sim.py:498: every trigger samples
+            from padded tick 0); the two agree for a trigger at tick 0
+            (beam mode).
+
+    Returns:
+        (ntrig, C, digit_samples).
+    """
+    dev = signal.device
+    f = light.light_digit_sample_spacing / light.light_tick_size
+    pre = int(np.ceil(light.light_trig_window[0] / light.light_tick_size))
+    s = torch.arange(digit_samples, dtype=torch.float32, device=dev) * f
+    trig = padded_trigger_idx.to(torch.int32)
+    if ref_exact:
+        sample_tick = s[None, :].expand(trig.shape[0], digit_samples)
+    else:
+        sample_tick = (trig[:, None] - pre).to(torch.float32) + s[None, :]
+    i0 = torch.floor(sample_tick).to(torch.int32)                # (ntrig, M)
+    frac = sample_tick - i0
+    n = signal.shape[-1]
+    ok0 = (i0 >= 0) & (i0 <= n - 1)
+    ok1 = (i0 + 1 >= 0) & (i0 + 1 <= n - 1)
+    at = lambda i: signal[:, torch.clamp(i, 0, n - 1).long()].transpose(0, 1)
+    v0 = torch.where(ok0[:, None, :], at(i0), 0.0)               # (ntrig,C,M)
+    v1 = torch.where(ok1[:, None, :], at(i0 + 1), 0.0)
+    # linear interp with reference edge handling (light_sim.interp :241-271)
+    out = torch.where((i0 > n - 2)[:, None, :], 0.0,
+                      v0 + (v1 - v0) * frac[:, None, :])
+    quant = 2 ** (16 - light.light_nbit)
+    return torch.round(f32.div_const(out, quant)) * quant

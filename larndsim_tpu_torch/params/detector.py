@@ -132,11 +132,12 @@ class DetectorParams:
         return dataclasses.replace(self, host=host, **changes)
 
 
-def _device(device) -> torch.device:
-    """The leaves' device; the card unless the caller names another."""
+def card_or(device, what: str = 'the detector parameters') -> torch.device:
+    """``device`` as a torch device: the card unless the caller names
+    another; raises when it names the card and there is none."""
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('no CUDA device for the detector parameters '
+        raise RuntimeError(f'no CUDA device for {what} '
                            "(pass device='cpu' for the CPU)")
     return device
 
@@ -148,7 +149,7 @@ def from_numpy(leaves: dict, statics: dict, device='cuda') -> DetectorParams:
     from the JAX ``DetectorParams``); ``statics`` maps the names of
     :data:`STATICS`.  The host copies are the float32 leaf values.
     """
-    device = _device(device)
+    device = card_or(device)
     tens = {k: torch.tensor(np.asarray(leaves[k], np.float32),
                             device=device) for k in LEAVES}
     host = {k: float(np.asarray(leaves[k], np.float32))
@@ -198,7 +199,7 @@ def load_detector(detprop_file: str, pixel_file: str | list[str],
                   i_module: int = -1, device='cuda') -> DetectorModel:
     """Build a :class:`DetectorModel` from detector-properties and
     pixel-layout YAMLs, with every leaf on ``device``."""
-    device = _device(device)
+    device = card_or(device)
     with open(detprop_file) as df:
         detprop = yaml.load(df, Loader=_YamlLoader)
 
@@ -287,11 +288,3 @@ def load_detector(detprop_file: str, pixel_file: str | list[str],
         mod_ids=list(module_to_tpcs.keys()),
         tpc_borders=tpc_borders,
     )
-
-
-def light_trig_mode(detprop_file: str) -> int:
-    """The light-trigger mode the packet exporter needs
-    (``light_trig_mode``, default 0, as params/light.load_light reads it)."""
-    with open(detprop_file) as df:
-        detprop = yaml.load(df, Loader=_YamlLoader)
-    return int(detprop.get('light_trig_mode', 0))

@@ -11,6 +11,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .params.detector import card_or
+
 FLOAT_FIELDS = (
     'x_start', 'y_start', 'z_start', 'x_end', 'y_end', 'z_end',
     'x', 'y', 'z', 'dx', 'dE', 'dEdx',
@@ -43,13 +45,15 @@ class Segments:
 
 
 def from_structured(tracks: np.ndarray, pad_to: int | None = None,
-                    device='cpu') -> Segments:
-    """Structured edep-sim array -> :class:`Segments` on ``device``.
+                    device='cuda') -> Segments:
+    """Structured edep-sim array -> :class:`Segments` on ``device`` (the
+    card unless the caller names another; raises without one).
 
     Args:
         tracks: structured array with (a superset of) the segment fields.
         pad_to: optional row count; extra rows are zero/invalid.
     """
+    device = card_or(device, 'the segments')
     n = tracks.shape[0]
     m = pad_to if pad_to is not None else n
     if m < n:

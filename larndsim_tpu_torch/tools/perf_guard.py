@@ -14,14 +14,31 @@ events the ops the JAX guard times:
   current_fractions_4  current fractions over 4 ADC slots
   digitize             charge -> ADC counts
 
+and, on the same batch with the light keys of one 2x2 module (96
+channels, 16 us beam window: 16384 ticks, FFTs of 32768; the synthetic
+(14, 26, 8) x 48 LUT of 100 profile bins), the light chain's ops:
+
+  light_sum_t0avg      photon series, one arrival tick per (segment, channel)
+  light_sum_smearing   photon series, 100 profile bins per (segment, channel)
+  light_scintillation  the scintillation convolution (FFT)
+  light_stat           the Poisson / Gaussian PE statistics, draws included
+  light_sipm           the SiPM response convolution (FFT) x gains
+  light_noise          the noise synthesis (inverse FFT), draws included
+  light_digitize       the beam trigger's 256 ADC samples per channel
+
+and, beside the port's float64 transforms, the same convolutions and noise
+in float32, the JAX ops' arithmetic (``light_scintillation_f32``,
+``light_sipm_f32``, ``light_noise_f32``; not on the port's path: they
+give the cost of its float64 choice).
+
 For each op: the bytes it must move (each input read once, each output
 written once) and the operations it does on these inputs, counted from this
 run's shapes and data; the bound on this card (the larger of bytes / 3.35
 TB/s and float32 operations / 33.5e12 per second, from an H100 SXM's
 published peaks); which of the two sets it; and the share of the bound
-reached.  K1 and K2
-also get their launches per batch and the time of one PyTorch call that
-computes the same function, where one exists.
+reached (the light ops: bytes only).  K1 and K2 also get their launches
+per batch and the time of one PyTorch call that computes the same
+function, where one exists.
 
     python -m larndsim_tpu_torch.tools.perf_guard [--log PATH]
 
@@ -230,7 +247,7 @@ def build_workload(device, directory: str, *, workload: dict = WORKLOAD,
     from ..params import load_detector, load_sim
     from ..segments import from_structured
 
-    paths = write_module0(os.path.join(directory, 'module0'),
+    paths = write_module0(os.path.join(directory, 'module0'), light=True,
                           **(geometry or {}))
     dm = load_detector(paths['detector_properties'], paths['pixel_layout'],
                        device=device)
@@ -262,7 +279,130 @@ def build_workload(device, directory: str, *, workload: dict = WORKLOAD,
                   max_tracks=sim.max_tracks_per_pixel)
     return dict(det_model=dm, det=det, sim=sim, segs=segs, stage=stage,
                 response=response, k1_args=k1_args, generator=gen,
-                shapes=shapes, n_segments=len(tracks))
+                shapes=shapes, n_segments=len(tracks), paths=paths)
+
+
+def build_light_workload(w: dict) -> dict:
+    """The light chain's inputs for the guard's batch: the tree's light
+    params, the synthetic LUT, the staged segments' incidence, and the
+    window and shapes ``models.light.simulate_light_batch`` chooses."""
+    import math
+    from ..assets.light_lut import load_light_lut, make_light_noise
+    from ..models import light as light_model
+    from ..ops import light as light_ops
+    from ..params import load_light
+    dev = w['det'].device
+    light = load_light(w['paths']['detector_properties'], device=dev)
+    lut = light_ops.LightLUT.from_structured(
+        load_light_lut(None, n_det_tpc=light.n_op_channel // 2), dev)
+    segs = w['stage'].segs
+    n_det, _, vox = light_ops.calculate_light_incidence(
+        segs, w['det'], light, lut.vis, lut.t0,
+        n_channels=light.n_op_channel)
+    n_ticks, conv_ticks = light_model.window(
+        light, light_ops.get_nticks(light)[0])
+    C = light.n_op_channel
+    shapes = dict(pad_n=segs.size, n_op_channel=C, n_ticks=n_ticks,
+                  conv_ticks=conv_ticks,
+                  fft_len=1 << math.ceil(math.log2(n_ticks + conv_ticks)),
+                  nprof=lut.time_dist.shape[4],
+                  pad_front=int(math.ceil(light.light_trig_window[0]
+                                          / light.light_tick_size)),
+                  digit_samples=light_model.digit_samples(light))
+    noise = torch.tensor(make_light_noise(C), dtype=torch.float32,
+                         device=dev)
+    return dict(light=light, lut=lut, segs=segs, n_det=n_det, vox=vox,
+                op_channel=torch.arange(C, device=dev), noise=noise,
+                shapes=shapes, generator=w['generator'])
+
+
+def causal_convolve_f32(signal: torch.Tensor,
+                        kernel: torch.Tensor) -> torch.Tensor:
+    """``ops.light.causal_convolve`` with float32 transforms."""
+    import math
+    n = signal.shape[-1]
+    fft_len = 1 << math.ceil(math.log2(n + kernel.shape[-1] - 1))
+    return torch.fft.irfft(torch.fft.rfft(signal, n=fft_len)
+                           * torch.fft.rfft(kernel, n=fft_len),
+                           n=fft_len)[..., :n]
+
+
+def light_noise_f32(shape, light_det_noise, draw, light) -> torch.Tensor:
+    """``ops.light.gen_light_detector_noise`` with the phases and the
+    inverse transform in float32."""
+    import math
+    from ..ops import light as lo
+    spectrum = lo.noise_spectrum(shape[1], light_det_noise, light)
+    phase = (2 * math.pi) * draw.uniform(tuple(spectrum.shape))
+    return lo.noise_from_spectrum(spectrum, phase, shape[1], light)
+
+
+def light_op_calls(lw: dict) -> dict:
+    """Each light op as (function, args, kwargs), with its inputs made by
+    running the ops before it once (LUT smearing on)."""
+    from ..models.light import generator_draw
+    from ..ops import light as lo
+    light, lut, sh = lw['light'], lw['lut'], lw['shapes']
+    dev = lw['n_det'].device
+    draw = generator_draw(lw['generator'], dev)
+    conv = dict(conv_ticks=sh['conv_ticks'])
+    sum_args = (lw['segs'], lw['vox'], lw['n_det'], lw['op_channel'],
+                lut.time_dist, lut.t0_avg, 0.0, light)
+    inc = lo.sum_light_signals(*sum_args, n_ticks=sh['n_ticks'],
+                               lut_smearing=True)
+    scint = lo.calc_scintillation_effect(inc, light, **conv)
+    disc = lo.calc_stat_fluctuations(scint, draw, light)
+    gains = light.light_gain[lw['op_channel']]
+    resp = lo.calc_light_detector_response(disc, gains, light, **conv)
+    signal = torch.nn.functional.pad(resp, (sh['pad_front'], 0))
+    trig = torch.tensor([sh['pad_front']], device=dev)
+    ctk = sh['conv_ticks']
+    return dict(
+        light_sum_t0avg=(lo.sum_light_signals, sum_args,
+                         dict(n_ticks=sh['n_ticks'], lut_smearing=False)),
+        light_sum_smearing=(lo.sum_light_signals, sum_args,
+                            dict(n_ticks=sh['n_ticks'], lut_smearing=True)),
+        light_scintillation=(lo.calc_scintillation_effect, (inc, light),
+                             conv),
+        light_stat=(lo.calc_stat_fluctuations, (scint, draw, light), {}),
+        light_sipm=(lo.calc_light_detector_response, (disc, gains, light),
+                    conv),
+        light_noise=(lo.gen_light_detector_noise,
+                     (tuple(signal.shape), lw['noise'], draw, light), {}),
+        light_digitize=(lo.digitize_signal, (signal, trig, light),
+                        dict(digit_samples=sh['digit_samples'])),
+        light_scintillation_f32=(
+            lambda x: causal_convolve_f32(
+                x, lo.scintillation_kernel(light, ctk)), (inc,), {}),
+        light_sipm_f32=(
+            lambda x: gains[:, None] * causal_convolve_f32(
+                x, lo.sipm_kernel(light, ctk)), (disc,), {}),
+        light_noise_f32=(light_noise_f32,
+                         (tuple(signal.shape), lw['noise'], draw, light), {}))
+
+
+def light_op_costs(lw: dict) -> dict:
+    """Bytes each light op must move: its inputs read once (of the LUT, the
+    entries the batch gathers; of the signal, the samples the digitizer
+    interpolates) and its output written once.  The draws are made inside
+    the ops and not counted, so those bounds are lower bounds."""
+    sh = lw['shapes']
+    S, C, T = sh['pad_n'], sh['n_op_channel'], sh['n_ticks']
+    series = C * T * 4
+    segs_in = S * 4 + S * 3 * 8 + S * C * 4 + C * 8    # t0, voxels, photons
+    costs = dict(
+        light_sum_t0avg=dict(bytes=segs_in + S * C * 4 + series, ops=0),
+        light_sum_smearing=dict(bytes=segs_in + S * C * sh['nprof'] * 4
+                                + series, ops=0),
+        light_scintillation=dict(bytes=2 * series, ops=0),
+        light_stat=dict(bytes=2 * series, ops=0),
+        light_sipm=dict(bytes=2 * series + C * 4, ops=0),
+        light_noise=dict(bytes=nbytes(lw['noise'])
+                         + C * (T + sh['pad_front']) * 4, ops=0),
+        light_digitize=dict(bytes=3 * C * sh['digit_samples'] * 4, ops=0))
+    for name in ('light_scintillation', 'light_sipm', 'light_noise'):
+        costs[name + '_f32'] = costs[name]
+    return costs
 
 
 def op_calls(w: dict) -> dict:
@@ -387,9 +527,12 @@ def main(argv=None) -> dict:
     dev = torch.device('cuda')
     with tempfile.TemporaryDirectory() as tmp:
         w = build_workload(dev, tmp)
+        lw = build_light_workload(w)
     launches = launches_per_batch(w)
     calls = op_calls(w)
     costs = op_costs(w, calls)
+    calls.update(light_op_calls(lw))
+    costs.update(light_op_costs(lw))
     ops_ms = {}
     for name, (fn, args, kw) in calls.items():
         t = timed(fn, *args, **kw)
@@ -403,7 +546,8 @@ def main(argv=None) -> dict:
         workload=dict(WORKLOAD, pad_n=PAD_N, segments=w['n_segments'],
                       detector='Module-0-shaped, generated (the 2x2 YAMLs '
                       'of the JAX guard are not in the repository)'),
-        shapes=w['shapes'], logged_shapes=LOGGED_SHAPES, ops_ms=ops_ms,
+        shapes=w['shapes'], light_shapes=lw['shapes'],
+        logged_shapes=LOGGED_SHAPES, ops_ms=ops_ms,
         roofline=roofline,
         kernels={name: dict(launches_per_batch=launches[name],
                             library_ms=None, library=LIBRARY[name])

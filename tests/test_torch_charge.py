@@ -73,7 +73,7 @@ def test_simulate_charge_batch(tree, seed, step_scale, with_luts):
         jax.numpy.asarray(response), step_scale=step_scale,
         backend='pallas', **luts.get('j', {}))
     got = tcharge.simulate_charge_batch(
-        tseg.from_structured(tracks, pad_to=32), tm, ts_sim, jax_draw(key),
+        tseg.from_structured(tracks, pad_to=32, device='cpu'), tm, ts_sim, jax_draw(key),
         torch.from_numpy(response), step_scale=step_scale,
         **luts.get('t', {}))
 

@@ -96,19 +96,30 @@ def test_clis_agree(tmp_path, monkeypatch):
         assert ((adc >= 0) & (adc <= 255)).all()
 
 
-def test_cli_refuses_what_it_does_not_run(tmp_path):
+@pytest.mark.parametrize('what', ['mode0', 'smearing_truth'])
+def test_cli_refuses_what_it_does_not_run(tmp_path, what):
+    """The threshold light trigger (mode 0) and MC truth with LUT smearing
+    are refused before the input is read."""
+    paths = tpa.write_tree(
+        tmp_path / 'tree', light=dict(light_trig_mode=0) if what == 'mode0'
+        else True, sim_overrides=dict(max_light_truth_ids=3))
     inp = tmp_path / 'in.h5'
     inp.write_bytes(b'')
     with pytest.raises(NotImplementedError):
-        tcli.run_simulation(str(inp), str(tmp_path / 'o.h5'),
-                            light_simulated=True, device='cpu')
+        tcli.run_simulation(
+            str(inp), str(tmp_path / 'o.h5'),
+            detector_properties=paths['detector_properties'],
+            pixel_layout=paths['pixel_layout'],
+            simulation_properties=paths['simulation_properties'],
+            light_simulated=True, device='cpu')
 
 
 def test_port_runs_without_jax_or_h5py(tmp_path):
-    """The port imports no JAX, and runs end to end where neither JAX, the
-    JAX package nor h5py can be imported (as on a machine that has only
-    PyTorch)."""
-    paths = tpa.write_tree(tmp_path / 'tree')
+    """The port imports no JAX, and runs end to end, light on, where
+    neither JAX, the JAX package nor h5py can be imported (as on a machine
+    that has only PyTorch)."""
+    paths = tpa.write_tree(tmp_path / 'tree', light=dict(
+        n_op_channel=12, light_window=(0.0, 2.0)))
     code = (
         'import importlib, pkgutil, sys\n'
         'class Block:\n'
@@ -138,6 +149,8 @@ def test_port_runs_without_jax_or_h5py(tmp_path):
         '               step_scale=4.0, device="cpu")\n'
         'with File(d + "/out.h5") as f:\n'
         '    assert len(f["packets"]) == len(f["mc_packets_assn"]) > 0\n'
+        '    assert f["light_wvfm"].shape[1:] == (12, 256)\n'
+        '    assert len(f["light_trig"]) == 1\n'
         'bad = [m for m in ("jax", "flax", "jaxlib", "h5py", "larndsim_tpu")\n'
         '       if m in sys.modules]\n'
         'assert not bad, bad\n'
@@ -147,4 +160,5 @@ def test_port_runs_without_jax_or_h5py(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and 'ok' in proc.stdout, proc.stderr
     with h5py.File(str(tmp_path / 'out.h5'), 'r') as f:
-        assert {'packets', 'mc_packets_assn', 'segments'} <= set(f.keys())
+        assert {'packets', 'mc_packets_assn', 'segments', 'light_wvfm',
+                'light_trig', 'light_dat'} <= set(f.keys())

@@ -13,7 +13,12 @@ version's; the CLI's data packets on the card agree with its CPU run (plain
 versions) for >= 99% of packets; the card probes P1-P3
 (``larndsim_tpu_torch/tools``) equal their plain versions bit for bit (P1
 also the numpy values of the JAX probe), at a small shape and at the probe
-shapes.
+shapes.  The light chain (plain PyTorch on both devices): the ordered
+photon sum gives the CPU's bits; a light batch at the slice's widths (96
+channels, 16 us), run on the card and on the CPU with the same draws,
+agrees at ``tools.light_check``'s tolerances (waveforms within one
+quantum, >= 99.9% of samples equal; truth records equal), and two card
+runs are identical.
 """
 from __future__ import annotations
 
@@ -321,3 +326,59 @@ def test_probe_fee2_variant(cuda, variant, shape):
         [(o.shape, o.dtype) for o in want.outs]
     if 'anyio' not in variant:  # the anyio outputs are never written
         _assert_same(got.outs, want.outs)
+
+
+def test_ordered_sum_on_card_is_the_cpu_sum(cuda):
+    """Rows added in index order on both devices: the same bits, even where
+    the order changes the rounding."""
+    from larndsim_tpu_torch.ops.light import ordered_sum
+    gen = torch.Generator().manual_seed(4)
+    keys = torch.randint(0, 5000, (200_000,), generator=gen)
+    keys[::7] = 6000                                  # dropped rows
+    vals = torch.randn((200_000, 96), generator=gen) * torch.exp(
+        torch.randn((200_000, 1), generator=gen) * 8)
+    want = ordered_sum(keys, vals, 5000)
+    got = ordered_sum(keys.to(cuda), vals.to(cuda), 5000)
+    again = ordered_sum(keys.to(cuda), vals.to(cuda), 5000)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.fixture(scope='module')
+def light_batch(cuda, tmp_path_factory):
+    """The first triggering light batch of a CLI run on the card: the small
+    tree with one 2x2 module's light keys (96 channels, beam trigger,
+    16 us)."""
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    from larndsim_tpu_torch.tools import light_check
+    tmp = tmp_path_factory.mktemp('light')
+    paths = tpa.write_tree(tmp / 'tree', light=True)
+    inp = str(tmp / 'in.h5')
+    write_input(inp, tpa.load_port(paths).tpc_borders, n_events=2,
+                tracks_per_event=3, segments_per_track=6, segment_length=0.4,
+                dEdx=8.0, seed=7)
+    with light_check.first_batch() as seen:
+        run_simulation(inp, str(tmp / 'out.h5'),
+                       detector_properties=paths['detector_properties'],
+                       pixel_layout=paths['pixel_layout'],
+                       simulation_properties=paths['simulation_properties'],
+                       response_file=str(tmp / 'r.npy'), rand_seed=7,
+                       step_scale=2.0, device='cuda')
+    assert len(seen) == 1
+    return seen[0]
+
+
+@pytest.mark.parametrize('route', ['smearing', 'contributor_truth'])
+def test_light_batch_on_card_matches_cpu(light_batch, route):
+    from larndsim_tpu_torch.tools import light_check
+    args, kw = light_batch
+    smear = route == 'smearing'
+    opts = dict(smearing=smear, truth_ids=0 if smear else 16)
+    card = light_check.rerun(args, kw, 'cuda', 5, **opts)
+    again = light_check.rerun(args, kw, 'cuda', 5, **opts)
+    cpu = light_check.rerun(args, kw, 'cpu', 5, **opts)
+    assert card.waveforms.shape == (1, 96, 256)
+    assert light_check.identical(card, again)
+    rec = light_check.compare(card, cpu, args[1])
+    assert rec['peak'] > 64
+    assert (rec['records'] > 0) == (not smear)

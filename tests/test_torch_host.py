@@ -1,8 +1,9 @@
 """Port parity: the host modules the port carries copies of.
 
-``units``, ``config``, ``geometry.tiles`` and the batch planner are numpy
-code of the JAX package; the port keeps its own copies so that it runs
-without that package.  Each copy is held equal to its original.
+``units``, ``config``, ``geometry.tiles``, the batch planner and the
+synthetic light assets are numpy code of the JAX package; the port keeps
+its own copies so that it runs without that package.  Each copy is held
+equal to its original.
 """
 from __future__ import annotations
 
@@ -14,10 +15,12 @@ import yaml
 
 from larndsim_tpu import config as jconfig
 from larndsim_tpu import units as junits
+from larndsim_tpu.assets import light_lut as jlight_lut
 from larndsim_tpu.geometry import tiles as jtiles
 from larndsim_tpu.utils.batching_native import FastTPCBatcher
 from larndsim_tpu_torch import config as tconfig
 from larndsim_tpu_torch import units as tunits
+from larndsim_tpu_torch.assets import light_lut as tlight_lut
 from larndsim_tpu_torch.geometry import tiles as ttiles
 from larndsim_tpu_torch.utils.batching import TPCBatcher
 
@@ -79,3 +82,26 @@ def test_batcher_equal(tmp_path, tpc_batch_size):
     for (ev_a, mask_a), (ev_b, mask_b) in zip(want, got):
         assert ev_a == ev_b
         np.testing.assert_array_equal(mask_b, mask_a)
+
+
+@pytest.mark.parametrize('kw', [
+    dict(vox_div=(4, 5, 3), n_det_tpc=6, n_prof=20),
+    dict(vox_div=(14, 26, 8), n_det_tpc=48)], ids=['small', 'module0'])
+def test_light_lut_equal(tmp_path, kw):
+    want = jlight_lut.make_light_lut(**kw)
+    got = tlight_lut.make_light_lut(**kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    for name in want.dtype.names:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    # a file on disk is read as it is; an absent one gives the synthetic LUT
+    path = str(tmp_path / 'lut.npz')
+    np.savez(path, arr=want[:2])
+    np.testing.assert_array_equal(tlight_lut.load_light_lut(path, **kw),
+                                  jlight_lut.load_light_lut(path, **kw))
+    absent = str(tmp_path / 'absent.npz')
+    assert tlight_lut.load_light_lut(absent, **kw).shape == want.shape
+    np.testing.assert_array_equal(tlight_lut.make_light_noise(96),
+                                  jlight_lut.make_light_noise(96))
+    np.testing.assert_array_equal(
+        tlight_lut.make_light_noise(12, n_bins=40, amplitude=2.0, seed=3),
+        jlight_lut.make_light_noise(12, n_bins=40, amplitude=2.0, seed=3))

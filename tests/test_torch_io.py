@@ -203,3 +203,52 @@ def test_cli_files_equal_through_either_writer(tmp_path):
             if isinstance(lite[name], h5.Dataset):
                 np.testing.assert_array_equal(np.array(f[name]),
                                               lite[name].data, err_msg=name)
+
+
+def test_light_exports_equal_and_read_in_h5py(tmp_path):
+    """The light writers against the JAX package's (light_trig with its
+    (96,) op_channel member array, waveforms appended over two flushes,
+    truth records): h5py reads the port's file back equal."""
+    from larndsim_tpu.io import export as jexport
+    from larndsim_tpu.params import load_light as jload_light
+    from larndsim_tpu.params import load_sim as jload_sim
+    from larndsim_tpu_torch.io import export as texport
+    from larndsim_tpu_torch.params import load_light, load_sim
+    paths = tpa.write_tree(tmp_path / 'tree', light=True)
+    jdm, tdm = tpa.load_jax(paths), tpa.load_port(paths)
+    jl = jload_light(paths['detector_properties'])
+    tl = load_light(paths['detector_properties'], device='cpu')
+    js = jload_sim(paths['simulation_properties'])
+    ts = load_sim(paths['simulation_properties'])
+    rng = np.random.default_rng(5)
+    ev = np.array([0, 1, 3])
+    times = np.array([0.0, 1.2e6, 3.6e6])
+    op = np.arange(96)
+    wv = [rng.normal(size=(2, 96, 256)).astype('f4'), np.zeros((1, 96, 256))]
+    sparse = dict(trig=np.array([0, 0, 1], np.int32),
+                  op_channel=np.array([3, 50, 95], np.int32),
+                  tick=np.array([100, 101, 7], np.int32),
+                  segment_id=np.array([11, 12, 40]), pe_current=rng.random(3))
+    out_j, out_t = str(tmp_path / 'jax.h5'), str(tmp_path / 'torch.h5')
+    jexport.export_light_trig_to_hdf5(ev, np.zeros(3), np.zeros(3, int), op,
+                                      out_j, times, jdm, jl)
+    for rows, w in zip((ev[:2], ev[2:]), wv):
+        jexport.export_light_wvfm_to_hdf5(rows, w, out_j, js, jl)
+    jexport.export_light_truth_to_hdf5(
+        out_j, jexport.truth_sparse_to_records(sparse, 3, 5),
+        compression='none')
+    with h5.File(out_t, 'w') as f:
+        texport.export_light_trig_to_hdf5(ev, np.zeros(3), np.zeros(3, int),
+                                          op, f, times, tdm, tl)
+        for rows, w in zip((ev[:2], ev[2:]), wv):
+            texport.export_light_wvfm_to_hdf5(rows, w, f, ts, tl)
+        texport.export_light_truth_to_hdf5(
+            f, texport.truth_sparse_to_records(sparse, 3, 5))
+    with h5py.File(out_j, 'r') as fj, h5py.File(out_t, 'r') as ft:
+        for name in ('light_trig', 'light_wvfm', 'light_wvfm_mc_assn'):
+            want, got = np.array(fj[name]), np.array(ft[name])
+            assert got.dtype == want.dtype and got.shape == want.shape, name
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        assert ft['light_trig'].dtype['op_channel'].shape == (96,)
+        np.testing.assert_array_equal(ft['light_trig']['op_channel'][2], op)
+        assert ft['light_wvfm'].dtype == np.float32

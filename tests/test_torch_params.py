@@ -78,7 +78,7 @@ def test_sim_params_equal(tree):
 def test_segments_round_trip(tree, pad_to):
     tracks = tpa.detector_tracks(tpa.load_jax(tree).tpc_borders, seed=11)
     js = jseg.from_structured(tracks, pad_to=pad_to)
-    ts = tseg.from_structured(tracks, pad_to=pad_to)
+    ts = tseg.from_structured(tracks, pad_to=pad_to, device='cpu')
     names = [f.name for f in dataclasses.fields(tseg.Segments)]
     assert ts.size == js.size
     tpa.assert_same_leaves(js, ts, names)

@@ -137,3 +137,38 @@ def test_timing_needs_no_card_to_be_imported_but_main_needs_one(
     assert np.isclose(pg.HBM_BYTES_PER_S, 3.35e12)
     # single float32 operations issue at half the FMA-counted FLOP peak
     assert np.isclose(pg.F32_OPS_PER_S, 33.5e12)
+
+
+def test_light_ops_run_and_have_a_bound(workload):
+    """The light ops on the guard's batch (tiny here): each runs, has its
+    byte count, and the shapes are the chain's (96 channels, 16 us)."""
+    lw = pg.build_light_workload(workload)
+    assert lw['shapes'] == dict(pad_n=32, n_op_channel=96, n_ticks=16384,
+                                conv_ticks=16000, fft_len=32768, nprof=100,
+                                pad_front=900, digit_samples=256)
+    calls, costs = pg.light_op_calls(lw), pg.light_op_costs(lw)
+    f64 = ('light_scintillation', 'light_sipm', 'light_noise')
+    assert set(calls) == set(costs) == {
+        'light_sum_t0avg', 'light_sum_smearing', 'light_stat',
+        'light_digitize', *f64, *(n + '_f32' for n in f64)}
+    outs = {}
+    for name, (fn, args, kw) in calls.items():
+        if name.startswith('light_noise'):   # the same phases for both
+            lw['generator'].manual_seed(5)
+        outs[name] = out = fn(*args, **kw)
+        assert torch.isfinite(out).all(), name
+        assert costs[name]['bytes'] > 0 and costs[name]['ops'] == 0, name
+    # the float32 variants: the JAX ops' arithmetic, within the JAX
+    # package's float32 FFT tolerance (tests/test_truth_staging.py:266-269)
+    for name in f64[:2]:
+        want = outs[name]
+        np.testing.assert_allclose(outs[name + '_f32'], want, rtol=2e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+        assert costs[name + '_f32'] == costs[name]
+    d = (outs['light_noise_f32'] - outs['light_noise']).abs()
+    assert d.max() <= 64 and (d == 0).double().mean() >= 0.999
+    series = 96 * 16384 * 4
+    assert costs['light_scintillation']['bytes'] == 2 * series
+    assert costs['light_sum_smearing']['bytes'] == \
+        costs['light_sum_t0avg']['bytes'] + 32 * 96 * 99 * 4
+    assert costs['light_digitize']['bytes'] == 3 * 96 * 256 * 4

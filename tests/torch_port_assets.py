@@ -52,6 +52,18 @@ def port_params(det_jax, device='cpu'):
                       {k: getattr(det_jax, k) for k in STATICS}, device)
 
 
+def port_light(light_jax, device='cpu'):
+    """The port's LightParams carried over from a JAX LightParams."""
+    from larndsim_tpu_torch.params.light import LEAVES, STATICS, from_numpy
+    return from_numpy({k: np.asarray(getattr(light_jax, k)) for k in LEAVES},
+                      {k: getattr(light_jax, k) for k in STATICS}, device)
+
+
+def load_port_sim(paths):
+    from larndsim_tpu_torch.params import load_sim
+    return load_sim(paths['simulation_properties'])
+
+
 def port_segments(segs_jax, device='cpu'):
     """The port's Segments with the JAX batch's values, field by field."""
     import dataclasses
