@@ -26,25 +26,35 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    trigger, 16 us window, LUT smearing; ``max_light_truth_ids`` 0) keeps
    its first light batch, which is run again on the card (twice) and on
    the CPU with the same draws, made on the CPU from one seed: LUT
-   smearing on, and off with contributor truth on (``tools.light_check``:
-   waveforms within one quantum, 64 ADC, >= 99.9% of samples equal; truth
-   records equal; two card runs identical);
+   smearing on; off with contributor truth on; on with the LUT-smearing
+   truth (K 50, threshold 0.1) by its device route and by its host route
+   (``tools.light_check``: waveforms within one quantum, 64 ADC, >= 99.9%
+   of samples equal; contributor truth records equal; smearing truth
+   records beyond 1e-3 of the threshold equal, pe_current at rtol 1e-4;
+   two card runs identical; the two routes agree on the card);
 8. charge+light slice: the same run timed, launch counters set to 0
    before and read after, plain kernel versions forbidden: the light
    datasets' shapes, data packets equal to the charge-only slice's, wall,
    segments/s, the light stage's stream span per batch (CUDA events
    around ``simulate_light_batch``: host gaps between its launches
    included, so not busy device time) and peak device memory;
-9. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
+9. truth slice: the charge+light slice with the JAX bench's "2x2, truth
+   on" (``max_light_truth_ids`` 50, ``mc_truth_threshold`` 0.1), once per
+   truth route, timed as the slice before: packets and ``light_wvfm``
+   equal to the truth-off run's, the two routes' records agree, and each
+   route's wall, records and their MB, light stage span, peak device and
+   host memory, the device route's pulls and the host route's worker
+   seconds;
+10. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
    (``probe_folded``): cases a-g, each in its own process, each OK and
    importing nothing of JAX; each of its three kernels against its plain
    version.  P2 / P3 (``probe_fee`` / ``probe_fee2``): every variant timed
    at the probe shapes beside the FSM kernel (the entry points, launch
    counters set to 0 before and read after), then every variant equal to
    its plain version at the same shapes on a random signal;
-10. guard: ``tools.perf_guard`` times the chain's hot ops (charge and
-   light) at production shapes, with each one's bound on this card and
-   the share reached.
+11. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
+   and the light truth) at production shapes, with each one's bound on
+   this card and the share reached.
 By the end neither JAX nor the JAX package ``larndsim_tpu`` may have been
 imported.
 
@@ -82,6 +92,8 @@ P1_KERNELS = dict(probe_window=('tools/probe_folded.py:55, :92', 'a'),
                   probe_async_copy=('tools/probe_folded.py:115', 'g'))
 #: truth contributors per channel in the light phase's truth check
 LIGHT_TRUTH_IDS = 64
+#: the JAX bench's 2x2 "truth on": contributors per channel, threshold
+SMEAR_TRUTH = dict(max_light_truth_ids=50, mc_truth_threshold=0.1)
 
 
 def log(phase: str, msg: str) -> None:
@@ -362,11 +374,16 @@ def guard_phase() -> dict:
         launches
     for name, r in entry['roofline'].items():
         assert np.isfinite(entry['ops_ms'][name]['min_ms']), name
-        shapes = entry['light_shapes' if name.startswith('light_')
+        shapes = entry['truth_shapes' if name.startswith('light_truth')
+                       else 'light_shapes' if name.startswith('light_')
                        else 'shapes']
         log('guard', f'{name}: {entry["ops_ms"][name]["min_ms"]:.3f} ms, '
             f'bound {r["bound_ms"]:.4f} ms by {r["bound_by"]}, share '
             f'{r["share"]:.4f} (shapes {shapes})')
+    for name, t in entry['host_ms'].items():
+        assert np.isfinite(t['min_ms']), name
+        log('guard', f'{name}: {t["min_ms"]:.3f} ms host wall (no bound; '
+            f'shapes {entry["truth_shapes"]})')
     return entry
 
 
@@ -376,24 +393,129 @@ def light_phase(seen: list) -> None:
     from larndsim_tpu_torch.tools import light_check
     assert len(seen) == 1, 'the warm-up ran no light batch'
     args, kw = seen[0]
-    for route, truth in (('smearing', 0),
-                         ('contributor truth', LIGHT_TRUTH_IDS)):
-        opts = dict(smearing=not truth, truth_ids=truth)
+    thr = SMEAR_TRUTH['mc_truth_threshold']
+    on_card = {}
+    for route, smear, truth, path in (
+            ('smearing', True, 0, None),
+            ('contributor truth', False, LIGHT_TRUTH_IDS, None),
+            ('smearing truth, device', True,
+             SMEAR_TRUTH['max_light_truth_ids'], 'device'),
+            ('smearing truth, host', True,
+             SMEAR_TRUTH['max_light_truth_ids'], 'host')):
+        opts = dict(smearing=smear, truth_ids=truth, truth_path=path,
+                    threshold=thr if path else None)
         card = light_check.rerun(args, kw, 'cuda', 5, **opts)
         again = light_check.rerun(args, kw, 'cuda', 5, **opts)
         cpu = light_check.rerun(args, kw, 'cpu', 5, **opts)
         assert light_check.identical(card, again), \
             f'light {route}: two card runs differ'
-        rec = light_check.compare(card, cpu, args[1])
+        rec = light_check.compare(card, cpu, args[1],
+                                  smeared_at=thr if path else None)
         assert rec['peak'] > 0, f'light {route}: an empty waveform'
         assert (rec['records'] > 0) == bool(truth), rec
+        on_card[path] = card
+        near = (f' ({rec["near"][0]} / {rec["near"][1]} within 1e-3 of '
+                'the threshold, not compared)' if path else '')
         log('light', f'{route}: one beam batch (S={args[0].size}, '
             f'C={card.waveforms.shape[1]}, n_ticks={card.n_ticks}) -> '
             f'{card.waveforms.shape}; card vs CPU, same draws: max |err| '
             f'{rec["max_abs_err"]:.1f} ADC (peak {rec["peak"]:.1f}, '
             f'tolerance one quantum 64), {100 * rec["equal_share"]:.3f}% '
             f'of samples equal (>= 99.9%), {rec["records"]} truth records '
-            'equal (pe_current rtol 1e-4); two card runs identical')
+            f'equal (pe_current rtol 1e-4){near}; two card runs identical')
+    rec = light_check.compare(on_card['device'], on_card['host'], args[1],
+                              smeared_at=thr)
+    log('light', f'smearing truth on the card, device route vs host route: '
+        f'{rec["records"]} records agree ({rec["near"][0]} / '
+        f'{rec["near"][1]} within 1e-3 of the threshold), waveforms max '
+        f'|err| {rec["max_abs_err"]:.1f} ADC')
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident set so far (Linux: ru_maxrss in
+    KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def truth_phase(tmp: str, out_off: str, kw_l: dict, n_seg: int,
+                light_slice, light_model) -> None:
+    """The charge+light slice with the smearing truth on, once per route:
+    physics equal to the truth-off run ``out_off``, the routes' records in
+    agreement."""
+    from larndsim_tpu_torch.assets.geometry import write_module0
+    from larndsim_tpu_torch.io.h5 import File
+    from larndsim_tpu_torch.tools import light_check
+    paths_t = write_module0(os.path.join(tmp, 'module0_truth'), light=True,
+                            sim_overrides=SMEAR_TRUTH)
+    with File(out_off, 'r') as f:
+        wv_off = np.array(f['light_wvfm'])
+    pulls, worker_s = [], []
+    orig_pull = light_model._pull_dense_truth
+    orig_worker = light_model._worker_smeared_truth
+
+    def spy_pull(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig_pull(*args, **kwargs)
+        pulls.append((time.perf_counter() - t0, 12 * len(out['tick'])))
+        return out
+
+    def spy_worker(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig_worker(*args, **kwargs)
+        worker_s.append(time.perf_counter() - t0)
+        return out
+    records = {}
+    for route in ('device', 'host'):
+        out = os.path.join(tmp, f'slice_truth_{route}.h5')
+        run_kw = dict(kw_l, simulation_properties=paths_t[
+            'simulation_properties'], truth_path=route)
+        pulls.clear()
+        worker_s.clear()
+        light_model._pull_dense_truth = spy_pull
+        light_model._worker_smeared_truth = spy_worker
+        rss_before = peak_rss_gib()
+        try:
+            wall, launches, peak, trig_ms, _ = light_slice(out, run_kw)
+        finally:
+            light_model._pull_dense_truth = orig_pull
+            light_model._worker_smeared_truth = orig_worker
+        assert data_packets(out) == data_packets(out_off), \
+            f'truth {route}: packets differ from the truth-off run'
+        with File(out, 'r') as f:
+            assert np.array_equal(np.array(f['light_wvfm']), wv_off), \
+                f'truth {route}: light_wvfm differs from the truth-off run'
+            rec = np.array(f['light_wvfm_mc_assn'])
+        assert len(rec) > 0 and np.isfinite(rec['pe_current']).all()
+        assert (np.abs(rec['pe_current'])
+                > SMEAR_TRUTH['mc_truth_threshold']).all()
+        records[route] = rec
+        # the process's peak: a rise over the route is the route's peak
+        rss = (f'peak host RSS of the process {rss_before:.2f} GiB before '
+               f'the run, {peak_rss_gib():.2f} GiB after')
+        if route == 'device':
+            extra = (f'{len(pulls)} pulls, '
+                     f'{sum(b for _, b in pulls) / 1e6:.3f} MB (indices + '
+                     'values) in '
+                     f'{1e3 * sum(t for t, _ in pulls):.3f} ms in all')
+        else:
+            extra = (f'{len(worker_s)} worker recomputes, '
+                     f'{sum(worker_s):.3f} host s in all')
+        log('truth slice', f'{route} route: wall {wall:.3f} s, '
+            f'{n_seg / wall:.1f} segments/s; {len(rec)} '
+            f'records, {rec.nbytes / 1e6:.3f} MB; light stage stream span '
+            f'{np.mean(trig_ms):.3f} ms per triggering batch (min '
+            f'{min(trig_ms):.3f}, max {max(trig_ms):.3f}, {len(trig_ms)} '
+            f'batches); {extra}; launches {launches}; peak device memory '
+            f'{peak:.2f} GiB, {rss}; packets '
+            'and light_wvfm equal to the truth-off run')
+    cols = ('trigger_id', 'op_channel_id', 'tick', 'event_id', 'segment_id')
+    agree = light_check.records_agree(records['host'], records['device'],
+                                      SMEAR_TRUTH['mc_truth_threshold'],
+                                      keys=cols)
+    log('truth slice', f'device vs host route: {agree["records"]} records '
+        f'agree ({agree["near"][0]} / {agree["near"][1]} within 1e-3 of the '
+        'threshold)')
 
 
 def light_checks(out: str, n_seg: int) -> str:
@@ -554,30 +676,37 @@ def main(argv=None) -> int:
             '(first call: light LUT, FFT plans)')
         light_phase(seen)
 
-        batches = []
-        orig_light = light_model.simulate_light_batch
+        def light_slice(out, run_kw):
+            """main_path with the light stage's CUDA-event span per batch:
+            (wall, launches, peak GiB, triggering spans, later spans)."""
+            batches = []
+            orig_light = light_model.simulate_light_batch
 
-        def timed_light(*args, **kwargs):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            res = orig_light(*args, **kwargs)
-            ev[1].record()
-            batches.append((kwargs.get('i_subbatch', 0), ev))
-            return res
+            def timed_light(*args, **kwargs):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                res = orig_light(*args, **kwargs)
+                ev[1].record()
+                batches.append((kwargs.get('i_subbatch', 0), ev))
+                return res
+            light_model.simulate_light_batch = timed_light
+            try:
+                wall, launches, peak = main_path(out, run_kw)
+            finally:
+                light_model.simulate_light_batch = orig_light
+            trig = [a.elapsed_time(b) for i_sub, (a, b) in batches
+                    if i_sub == 0]
+            rest = [a.elapsed_time(b) for i_sub, (a, b) in batches
+                    if i_sub != 0]
+            return wall, launches, peak, trig, rest
+
         out_l = os.path.join(tmp, 'slice_light.h5')
-        light_model.simulate_light_batch = timed_light
-        try:
-            wall_l, launches_l, peak_l = main_path(out_l, kw_l)
-        finally:
-            light_model.simulate_light_batch = orig_light
+        wall_l, launches_l, peak_l, trig_ms, rest_ms = light_slice(out_l,
+                                                                   kw_l)
         shapes = light_checks(out_l, n_seg)
         n_data_l = slice_checks(out_l)
         assert data_packets(out_l) == data_packets(out), \
             (n_data_l, n_data)
-        trig_ms = [a.elapsed_time(b) for i_sub, (a, b) in batches
-                   if i_sub == 0]
-        rest_ms = [a.elapsed_time(b) for i_sub, (a, b) in batches
-                   if i_sub != 0]
         log('slice', f'charge+light: {shapes}; {n_data_l} data packets, '
             f'equal to the charge-only slice\'s; wall {wall_l:.3f} s, '
             f'{n_seg / wall_l:.1f} segments/s; light stage stream span '
@@ -587,6 +716,8 @@ def main(argv=None) -> int:
             f'{len(trig_ms)} batches), {np.mean(rest_ms):.3f} ms per later '
             f'batch ({len(rest_ms)}); launches {launches_l}, peak device '
             f'memory {peak_l:.2f} GiB')
+
+        truth_phase(tmp, out_l, kw_l, n_seg, light_slice, light_model)
 
         if opts.profile:
             profile_slice(inp, os.path.join(tmp, 'profiled.h5'), kw,

@@ -21,7 +21,8 @@ from __future__ import annotations
 import os
 import time
 import warnings
-from collections import defaultdict
+from collections import defaultdict, deque
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -98,7 +99,9 @@ def run_simulation(input_filename: str,
                    pixel_gains_file=None,
                    rand_seed: int | None = None,
                    step_scale: float = 1.0,
-                   device: str = 'cuda'):
+                   device: str = 'cuda',
+                   truth_path: str = 'device',
+                   truth_workers: int = 1):
     """Simulate the charge and light readout of a pixelated LArTPC.
 
     ``light_simulated`` None follows the configuration and the detector
@@ -106,7 +109,11 @@ def run_simulation(input_filename: str,
     charge-sampling density (1.0 is the reference MIN_STEP_SIZE density);
     ``device`` is where the chains run ('cuda' raises when no card is
     present).  Light runs in beam-trigger mode only: the threshold trigger
-    (mode 0) and MC truth with LUT smearing raise NotImplementedError.
+    (mode 0) raises NotImplementedError.  ``truth_path`` is the route of
+    the light MC truth with LUT smearing ('device': dense truth on the
+    card, kept records pulled; 'host': the card's top-K contributors,
+    records recomputed on ``truth_workers`` worker threads); the records
+    are written in batch order, and a worker's error fails the run.
     """
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
@@ -145,7 +152,7 @@ def run_simulation(input_filename: str,
     light = light_loaded.replace(light_simulated=bool(light_simulated)
                                  and light_loaded.light_simulated)
     if light.light_simulated:
-        light_model.check_supported(light, sim)
+        light_model.check_supported(light, truth_path)
     t_sim0 = time.time()
     if rand_seed is None:
         rand_seed = int(time.time())
@@ -261,6 +268,12 @@ def run_simulation(input_filename: str,
                   + clock_period)
     light_done_events: set = set()
     i_light_trig = 0  # global light-trigger counter for truth records
+    # the host route's workers; records of every route are written in
+    # accumulate order through the FIFO of (future, event, first trigger)
+    truth_executor = ThreadPoolExecutor(max(int(truth_workers), 1)) \
+        if light.light_simulated and truth_path == 'host' \
+        and sim.max_mc_truth_ids > 0 and light.enable_lut_smearing else None
+    pending_truth: deque = deque()
 
     def _host(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) \
@@ -307,10 +320,24 @@ def run_simulation(input_filename: str,
                 light, i_mod=i_mod)
         results_acc = defaultdict(list)
 
+    def drain_truth(block: bool = False):
+        """Write the pending truth records in order, as far as they are
+        done (all of them with ``block``); a worker's error is raised
+        here."""
+        while pending_truth and (block or pending_truth[0][0].done()):
+            fut, ievd_t, trig_t = pending_truth.popleft()
+            truth = fut.result()
+            if isinstance(truth, dict):
+                truth = export.truth_sparse_to_records(truth, ievd_t, trig_t)
+            else:   # a worker's records, trigger ids counted from 0
+                truth['trigger_id'] += trig_t
+            export.export_light_truth_to_hdf5(out, truth)
+
     def accumulate_light(ievd_l, lres):
         """One light batch's rows (cli:761-799); its truth records are
-        written at once."""
+        queued behind those of earlier batches."""
         nonlocal i_light_trig
+        drain_truth()
         ntrig = lres.trigger_idx.shape[0]
         if not ntrig:
             return
@@ -321,10 +348,12 @@ def run_simulation(input_filename: str,
         results_acc['trigger_type'].append(lres.trigger_type)
         results_acc['light_op_channel_idx'].append(lres.op_channel_idx)
         results_acc['light_waveforms'].append(lres.waveforms)
+        fut = lres.truth_future
         if lres.truth_sparse is not None:
-            export.export_light_truth_to_hdf5(
-                out, export.truth_sparse_to_records(
-                    lres.truth_sparse, int(ievd_l), i_light_trig))
+            fut = Future()
+            fut.set_result(lres.truth_sparse)
+        if fut is not None:
+            pending_truth.append((fut, int(ievd_l), i_light_trig))
         i_light_trig += ntrig
 
     def process_light(ievd, sel, segs):
@@ -341,7 +370,8 @@ def run_simulation(input_filename: str,
         lres = light_model.simulate_light_batch(
             segs, light, sim, inc, vox, lut, light_noise,
             light_draw(rand_seed, i_mod, ievd, i_sub, device),
-            i_subbatch=i_sub)
+            i_subbatch=i_sub, truth_path=truth_path,
+            truth_executor=truth_executor, event_id=int(ievd))
         accumulate_light(ievd, lres)
 
     def process(ievd, sel, seq):
@@ -385,6 +415,7 @@ def run_simulation(input_filename: str,
     batcher = TPCBatcher(all_mod_tracks, tracks_mod, sim.event_separator,
                          tpc_batch_size=sim.event_batch_size,
                          tpc_borders=det_model.tpc_borders)
+
     event_id_buffer = -1
     seq = 0
     for ievd, batch_mask in batcher:
@@ -428,6 +459,9 @@ def run_simulation(input_filename: str,
             seq += 1
             process(ievd, idx[i0:i0 + sim.batch_size], seq)
     flush_results()
+    drain_truth(block=True)
+    if truth_executor is not None:
+        truth_executor.shutdown()
 
     # ---------------- truth + final exports ----------------
     segments_to_files = tracks_mod

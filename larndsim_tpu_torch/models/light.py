@@ -4,18 +4,34 @@ Counterpart of the beam-trigger path of ``larndsim_tpu.models.light``: the
 per-batch pipeline the reference runs at cli/simulate_pixels.py:1119-1205
 -- photon time series -> scintillation smear -> Poisson PE statistics ->
 SiPM response -> forced beam trigger -> noise + ADC-rate digitization --
-with the contributor-point MC truth (no LUT smearing) zero-suppressed on
-the host.  The threshold trigger (mode 0) and the LUT-smearing truth are
-refused (:func:`check_supported`).
+and its MC truth:
+
+* without LUT smearing, the contributor points, zero-suppressed on the
+  host (:func:`_host_truth_sparse`);
+* with LUT smearing, each top-K contributor's series pushed through the
+  linear chain as one product with a transfer table (n_ticks x samples,
+  built on the host, :func:`_transfer_table_host`), by one of two routes
+  (``truth_path``): ``'device'`` builds the dense series and the product
+  on the batch's device and pulls the kept records
+  (:func:`_smeared_truth_stage`, :func:`_pull_dense_truth`); ``'host'``
+  pulls the (C, K) contributor metadata and recomputes the records on the
+  host with a windowed GEMM (:func:`_host_smeared_truth_sparse`), on a
+  worker thread when the caller gives an executor.
+
+The threshold trigger (mode 0) is refused (:func:`check_supported`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
+import warnings
 
 import numpy as np
 import torch
 
+from ..io.export import TRUTH_DTYPE
+from ..ops import f32
 from ..ops import light as light_ops
 from ..ops.light import LightDraw
 from ..params.light import LightParams
@@ -25,6 +41,8 @@ from ..segments import Segments
 #: cap on the simulated light ticks of one batch (cli:1125:
 #: min(nticks, 5e4))
 MAX_TICKS = 50_000
+#: the routes of the LUT-smearing truth (module docstring)
+TRUTH_PATHS = ('device', 'host')
 
 
 @dataclasses.dataclass
@@ -38,6 +56,9 @@ class LightBatchResult:
     # MC truth (sim.max_mc_truth_ids > 0), zero-suppressed: (trig,
     # op_channel, tick, segment_id, pe_current) columns
     truth_sparse: dict | None = None
+    # the host route on a worker: a future of TRUTH_DTYPE records
+    # (trigger_id counted from 0 within the batch)
+    truth_future: object | None = None
 
 
 def generator_draw(generator: torch.Generator, device) -> LightDraw:
@@ -68,16 +89,16 @@ def window(light: LightParams, n_ticks: int) -> tuple[int, int]:
     return n_ticks, max(min(conv_ticks, n_ticks), 1)
 
 
-def check_supported(light: LightParams, sim: SimParams) -> None:
-    """Raise for the light routes this port does not run yet."""
+def check_supported(light: LightParams, truth_path: str) -> None:
+    """Raise for the light routes this port does not run yet, and for a
+    truth route that does not exist."""
     if light.light_trig_mode != 1:
         raise NotImplementedError(
             f'light_trig_mode {light.light_trig_mode}: only the beam trigger '
             '(mode 1) is ported')
-    if light.enable_lut_smearing and sim.max_mc_truth_ids > 0:
-        raise NotImplementedError(
-            'MC truth with LUT smearing (max_light_truth_ids > 0 and '
-            'enable_lut_smearing) is not ported')
+    if truth_path not in TRUTH_PATHS:
+        raise ValueError(f'truth_path {truth_path!r}: use one of '
+                         f'{TRUTH_PATHS}')
 
 
 def _signal_stage(segs, voxels, n_det, op_channel, time_dist, t0_avg,
@@ -227,11 +248,464 @@ def _host_truth_sparse(truth_ids, amp, itick, kernel, trigger_idx,
     )
 
 
+# --------------------------------------------------------------------------
+# LUT-smearing truth: the transfer table (host-built, shared by both routes)
+# --------------------------------------------------------------------------
+
+_TRANSFER_CACHE: dict = {}
+_COL_BOUNDS_CACHE: dict = {}
+_DEVICE_TABLES: dict = {}
+
+
+def _kernel_leaf_key(light: LightParams) -> tuple:
+    """Every scalar (and the impulse content) that defines the combined
+    kernel, so two configurations differing in any of them never share a
+    cached table."""
+    hs = light.host
+    imp = hs['impulse_model']
+    return (hs['tau_s'], hs['tau_t'], hs['singlet_fraction'],
+            hs['light_response_time'], hs['light_oscillation_period'],
+            float(light.light_tick_size), float(light.impulse_tick_size),
+            int(light.sipm_response_model), imp.shape[0],
+            hash(np.asarray(imp).tobytes()))
+
+
+def _digit_scalars(light: LightParams) -> tuple:
+    """(tick, samples per tick f, pre-trigger ticks) as host numbers."""
+    tick = float(light.light_tick_size)
+    f = float(light.light_digit_sample_spacing) / tick
+    pre = int(np.ceil(float(light.light_trig_window[0]) / tick))
+    return tick, f, pre
+
+
+def _digit_geometry(light: LightParams, n_ticks: int, digit_samples: int,
+                    pad_front: int, n_padded: int, dtype=np.float32,
+                    offset: int = 0):
+    """Per-sample interpolation geometry of the digitizer for a trigger at
+    flat tick ``offset`` (0: beam): (i0, frac, in0, in1, edge) -- sample s
+    reads ticks i0[s], i0[s]+1 with weight frac[s]; in0 / in1 / edge are
+    the bounds masks of ``ops.light.digitize_signal``.  float32 for the
+    transfer table, float64 for the staged chain (the reference computes
+    the sample tick in double, light_sim.py:499)."""
+    tick, f, pre = _digit_scalars(light)
+    y = (dtype(offset - pre)
+         + np.arange(digit_samples, dtype=dtype) * dtype(f))
+    i0 = np.floor(y).astype(np.int64)
+    frac = (y - i0.astype(dtype)).astype(dtype)
+    in0 = ((i0 >= 0) & (i0 < n_ticks)).astype(dtype)
+    in1 = ((i0 + 1 >= 0) & (i0 + 1 < n_ticks)).astype(dtype)
+    edge = ((i0 + pad_front) <= n_padded - 2).astype(dtype)
+    return i0, frac, in0, in1, edge
+
+
+def _transfer_table_host(light: LightParams, conv_ticks: int, n_ticks: int,
+                         digit_samples: int, pad_front: int,
+                         n_padded: int, offset: int = 0) -> np.ndarray:
+    """Transfer table T (n_ticks, digit_samples) float32 of the linear
+    truth chain for one trigger at flat tick ``offset``: causal convolution
+    with the combined scintillation x SiPM kernel, padding, and the
+    digitizer's interpolation with its edge rules (light_sim.py:170-183,
+    :322-336, :480-543), so ``series (R, n_ticks) @ T`` is each row's
+    digitized truth.  Cached per configuration and offset."""
+    tick, f, pre = _digit_scalars(light)
+    key = (conv_ticks, n_ticks, digit_samples, pad_front, n_padded,
+           tick, f, pre, int(offset), *_kernel_leaf_key(light))
+    hit = _TRANSFER_CACHE.get(key)
+    if hit is not None:
+        return hit
+    kernel = _combined_kernel_host(light, conv_ticks)
+    i0, frac, in0, in1, edge = _digit_geometry(
+        light, n_ticks, digit_samples, pad_front, n_padded,
+        offset=int(offset))
+    LK = kernel.shape[0]
+    # T[j, s] = interp(kernel at i0[s] - j), masked: each column is a
+    # reversed kernel slice, so the columns are sliding windows over a
+    # zero-padded reversed kernel
+    D = np.zeros(2 * n_ticks + LK, np.float32)
+    D[n_ticks:n_ticks + LK] = kernel[::-1]
+    W = np.lib.stride_tricks.sliding_window_view(D, n_ticks)
+    start0 = n_ticks + LK - 1 - i0.astype(np.int64)
+    hi = W.shape[0] - 1
+    V0 = W[np.clip(start0, 0, hi)] * in0[:, None]        # (S, n_ticks)
+    V1 = W[np.clip(start0 - 1, 0, hi)] * in1[:, None]
+    Ts = (V0 + (V1 - V0) * frac[:, None]) * edge[:, None]
+    T = np.ascontiguousarray(Ts.T)                       # (n_ticks, S)
+    if len(_TRANSFER_CACHE) > 16:
+        _TRANSFER_CACHE.clear()
+    _TRANSFER_CACHE[key] = T
+    return T
+
+
+def _transfer_col_bounds(T: np.ndarray) -> tuple:
+    """Per-tick bounds of T's nonzero columns: fc[t] = min over t' >= t of
+    the first nonzero column of row t' (the chain is causal: a photon at
+    tick t reaches no earlier sample), lc[t] = max over t' <= t of the last
+    one (the kernel is finite).  A GEMM block whose rows occupy ticks
+    [t_lo, t_hi) reaches only columns [fc[t_lo], lc[t_hi - 1]]."""
+    hit = _COL_BOUNDS_CACHE.get(id(T))
+    if hit is not None and hit[0] is T:
+        return hit[1], hit[2]
+    nz = T != 0
+    any_row = nz.any(axis=1)
+    first = np.where(any_row, nz.argmax(axis=1), T.shape[1])
+    fc = np.minimum.accumulate(first[::-1])[::-1].astype(np.int32)
+    last = np.where(any_row, T.shape[1] - 1 - nz[:, ::-1].argmax(axis=1), -1)
+    lc = np.maximum.accumulate(last).astype(np.int32)
+    if len(_COL_BOUNDS_CACHE) > 8:
+        _COL_BOUNDS_CACHE.clear()
+    _COL_BOUNDS_CACHE[id(T)] = (T, fc, lc)
+    return fc, lc
+
+
+def _device_table(T: np.ndarray, device) -> torch.Tensor:
+    """``T`` on ``device``, uploaded once per host table."""
+    key = (id(T), str(torch.device(device)))
+    hit = _DEVICE_TABLES.get(key)
+    if hit is not None and hit[0] is T:
+        return hit[1]
+    if len(_DEVICE_TABLES) > 8:
+        _DEVICE_TABLES.clear()
+    table = torch.from_numpy(T).to(device)
+    _DEVICE_TABLES[key] = (T, table)
+    return table
+
+
+# --------------------------------------------------------------------------
+# LUT-smearing truth, device route: dense series, one product, kept records
+# --------------------------------------------------------------------------
+
+def _smeared_truth_stage(segs, voxels, n_det, op_channel, time_dist,
+                         start_time: float, light: LightParams,
+                         table: torch.Tensor, *, n_ticks: int, k_truth: int):
+    """Each contributor's series (C * K, n_ticks) times the transfer table
+    in full float32 (JAX: ``Precision.HIGHEST``): (ids (C, K), truth
+    (1, C, digit_samples, K)) on the batch's device."""
+    ids, series = light_ops.light_truth_series(
+        segs, voxels, n_det, op_channel, time_dist, start_time, light,
+        n_ticks=n_ticks, k_truth=k_truth)
+    C, K = ids.shape
+    tw = f32.matmul(series.view(C * K, n_ticks), table)        # (C*K, S)
+    return ids, tw.view(C, K, 1, -1).permute(2, 0, 3, 1).contiguous()
+
+
+def _empty_truth_sparse() -> dict:
+    return dict(
+        trig=np.empty(0, np.int32), op_channel=np.empty(0, np.int32),
+        tick=np.empty(0, np.int32), segment_id=np.empty(0, np.int64),
+        pe_current=np.empty(0, np.float64))
+
+
+def _pull_dense_truth(ids: torch.Tensor, tw: torch.Tensor, op_channel,
+                      threshold: float) -> dict:
+    """Zero-suppressed records of (ntrig, C, S, K) truth: the slots of a
+    contributor (id >= 0) with |pe| > threshold, found on the device; only
+    their flat indices and values are pulled.  Record order is flat-index
+    ascending: (trigger, channel, tick, contributor)."""
+    ntrig, C, S, K = tw.shape
+    keep = (ids[None, :, None, :] >= 0) & (tw.abs() > threshold)
+    idx = torch.nonzero(keep.view(-1)).squeeze(1)
+    vals = tw.view(-1)[idx]
+    idx_h = idx.cpu().numpy()
+    if not idx_h.size:
+        return _empty_truth_sparse()
+    vals_h = vals.cpu().numpy()
+    ids_h = ids.cpu().numpy()
+    trig, rem = np.divmod(idx_h, C * S * K)
+    chan, rem = np.divmod(rem, S * K)
+    tick, k = np.divmod(rem, K)
+    return dict(trig=trig.astype(np.int32),
+                op_channel=np.asarray(op_channel)[chan].astype(np.int32),
+                tick=tick.astype(np.int32),
+                segment_id=ids_h[chan, k].astype(np.int64),
+                pe_current=vals_h.astype(np.float64))
+
+
+# --------------------------------------------------------------------------
+# LUT-smearing truth, host route: (C, K) metadata -> windowed GEMM on host
+# --------------------------------------------------------------------------
+
+#: per-thread scratch of the host route (workers may run in parallel)
+_SCRATCH_TLS = threading.local()
+
+
+def _scratch2d(name: str, n: int, m: int, dtype) -> np.ndarray:
+    """An (n, m) scratch array of this thread, reused across batches."""
+    d = getattr(_SCRATCH_TLS, 'bufs', None)
+    if d is None:
+        d = _SCRATCH_TLS.bufs = {}
+    buf = d.get(name)
+    if buf is None or buf.dtype != dtype or buf.shape[1] != m \
+            or buf.shape[0] < n:
+        buf = np.empty((max(int(n * 1.25), 1024), m), dtype)
+        d[name] = buf
+    return buf[:n]
+
+
+def _staged_truth_res(ph_rows: np.ndarray, it_rows: np.ndarray,
+                      light: LightParams, threshold: float,
+                      conv_ticks: int, n_ticks: int, digit_samples: int,
+                      pad_front: int, n_padded: int):
+    """The reference's staged truth chain (sim.ref_exact_truth_staging)
+    instead of the linear transfer table: the scintillation stage drops
+    per-(output tick, input tick) increments with ``w*x < threshold`` (no
+    abs, light_sim.py:175), the SiPM stage drops ``|w*x| < threshold``
+    (light_sim.py:327, no gain on truth), and digitization zeroes samples
+    whose left-neighbour tick is below threshold (light_sim.py:528).
+    Kernel support is t-j in [0, conv_ticks] inclusive.  The SiPM stage
+    reads the contributor at the output tick, so output ticks where the
+    scintillation-stage slot is inactive collect nothing (the ``s1 > 0``
+    mask); digitization writes the id before the threshold check, so the
+    returned ``keep`` mask (records kept by slot activity) can hold
+    samples of pe 0.  O(rows * n_ticks * conv_ticks): validation scale.
+    """
+    R, nprof = ph_rows.shape
+    L = conv_ticks + 1
+    w_s, w_r = _stage_kernels_host(light, L)
+    i0, frac, in0, in1, edge = _digit_geometry(
+        light, n_ticks, digit_samples, pad_front, n_padded,
+        dtype=np.float64)
+    i0c = np.clip(i0, 0, n_ticks - 1)
+    i1c = np.clip(i0 + 1, 0, n_ticks - 1)
+    in0b = in0 > 0
+    res = np.empty((R, digit_samples), np.float64)
+    keep = np.empty((R, digit_samples), np.bool_)
+    thr = np.float64(threshold)
+    for r in range(R):
+        p = np.zeros(n_ticks, np.float64)
+        np.add.at(p, it_rows[r], ph_rows[r].astype(np.float64))
+        # stage 1: scintillation with the signed increment cut
+        M = np.outer(p, w_s)                      # (n_ticks, L)
+        M[M < thr] = 0.0
+        s1 = np.zeros(n_ticks + L)
+        for k in range(L):
+            s1[k:k + n_ticks] += M[:, k]
+        s1 = s1[:n_ticks]
+        act1 = s1 > 0
+        # stage 2: SiPM response with the |increment| cut
+        M = np.outer(s1, w_r)
+        M[np.abs(M) < thr] = 0.0
+        cnt2 = np.zeros(n_ticks + L)
+        s2 = np.zeros(n_ticks + L)
+        nz = (M != 0.0).astype(np.float64)
+        for k in range(L):
+            s2[k:k + n_ticks] += M[:, k]
+            cnt2[k:k + n_ticks] += nz[:, k]
+        s2 = s2[:n_ticks] * act1
+        act2 = (cnt2[:n_ticks] > 0) & act1
+        # digitize: linear interpolation, id written before the value gate
+        v0 = s2[i0c] * in0
+        v1 = s2[i1c] * in1 * act2[i1c]
+        val = (v0 + (v1 - v0) * frac) * edge
+        val[np.abs(v0) < thr] = 0.0
+        res[r] = val
+        keep[r] = act2[i0c] & in0b
+    return res, keep
+
+
+def _emit_truth(res, rows, ids, op_channel, C: int, K: int,
+                threshold: float, as_records: bool, digit_samples: int,
+                keep_override=None, event_id: int = 0):
+    """Zero-suppress the (rows, S) truth values of the active contributor
+    rows (``rows`` = c * K + k, ascending) into records (TRUTH_DTYPE,
+    trigger_id 0) or a dict of columns.  Record order is (channel, tick,
+    contributor)."""
+    if as_records:
+        rows_k = (rows % K).astype(np.int32)
+        c_starts = np.searchsorted(rows // K, np.arange(C + 1))
+        if keep_override is not None:
+            keep_all = keep_override                       # (R, S)
+        else:
+            ab = _scratch2d('abs', rows.size, digit_samples, np.float32)
+            keep_all = _scratch2d('keep', rows.size, digit_samples,
+                                  np.bool_)
+            np.absolute(res, out=ab)
+            np.greater(ab, threshold, out=keep_all)
+        # count, then fill one preallocated record array channel by
+        # channel (each channel's transpose stays in cache)
+        cum_rows = np.concatenate(
+            [[0], np.cumsum(keep_all.sum(axis=1, dtype=np.int64))])
+        off_ch = cum_rows[c_starts]                        # (C+1,)
+        out_rec = np.empty(int(off_ch[-1]), TRUTH_DTYPE)
+        for c in range(C):
+            i0, i1 = int(c_starts[c]), int(c_starts[c + 1])
+            o0, o1 = int(off_ch[c]), int(off_ch[c + 1])
+            if o0 == o1:
+                continue
+            sub_t = np.ascontiguousarray(res[i0:i1].T)     # (S, kc)
+            keep_c = np.ascontiguousarray(keep_all[i0:i1].T)
+            s_i, k_i = np.nonzero(keep_c)
+            view = out_rec[o0:o1]
+            view['trigger_id'] = 0
+            view['op_channel_id'] = op_channel[c]
+            view['tick'] = s_i
+            view['event_id'] = event_id
+            view['segment_id'] = ids[c, rows_k[i0:i1][k_i]]
+            view['pe_current'] = sub_t[s_i, k_i]
+        return out_rec
+
+    dense = _scratch2d('dense', C * digit_samples, K,
+                       np.asarray(res).dtype).reshape(C, digit_samples, K)
+    dense.fill(0)
+    dense[rows // K, :, rows % K] = res
+    if keep_override is not None:
+        keep = np.zeros(dense.shape, np.bool_)
+        keep[rows // K, :, rows % K] = keep_override
+    else:
+        keep = np.abs(dense) > threshold
+    c_idx, s_idx, k_idx = np.nonzero(keep)
+    return dict(
+        trig=np.zeros(len(c_idx), np.int32),
+        op_channel=op_channel[c_idx].astype(np.int32),
+        tick=s_idx.astype(np.int32),
+        segment_id=ids[c_idx, k_idx].astype(np.int64),
+        pe_current=dense[keep].astype(np.float64),
+    )
+
+
+def _host_smeared_truth_sparse(ids, contrib, t0_sel, vox,
+                               lut_td_host: np.ndarray, op_channel,
+                               light: LightParams, threshold: float,
+                               conv_ticks: int, n_ticks: int,
+                               digit_samples: int, pad_front: int,
+                               pad_back: int, start_time: float, *,
+                               as_records: bool = False,
+                               staged: bool = False, event_id: int = 0):
+    """LUT-smearing truth of the beam trigger recomputed on the host from
+    the (C, K) contributor metadata of ``ops.light.light_truth_select``:
+    each contributor's profile from the host LUT, placed on ticks as
+    ``ops.light.light_truth_series`` places it (float32, ceil - 1 rule),
+    then the transfer table.
+
+    Each contributor's profile occupies ``nprof`` consecutive ticks, so the
+    rows are bucketed by first tick and each bucket is one dense GEMM of
+    its scattered profiles against a contiguous view of the table, limited
+    to the columns the bucket can reach (:func:`_transfer_col_bounds`).
+    The terms are those of the device route's product; only the grouping
+    of the float32 sums differs.  ``staged`` runs the reference's staged
+    chain instead (:func:`_staged_truth_res`).
+
+    Returns TRUTH_DTYPE records (``as_records``; trigger_id 0) or a dict of
+    (trig, op_channel, tick, segment_id, pe_current) columns.
+    """
+    ids = np.asarray(ids)
+    contrib = np.asarray(contrib).astype(np.float32)
+    t0_sel = np.asarray(t0_sel).astype(np.float32)
+    vox = np.asarray(vox)
+    C, K = ids.shape
+    nprof = lut_td_host.shape[-1]
+    tick32 = np.float32(_digit_scalars(light)[0])
+
+    op_channel = np.asarray(op_channel)
+    lut_idx = op_channel % lut_td_host.shape[3]
+    prof = lut_td_host[vox[..., 0], vox[..., 1], vox[..., 2],
+                       lut_idx[:, None]]                        # (C,K,nprof)
+    j = np.arange(nprof, dtype=np.float32) * np.float32(1e-3)
+    t_arr = t0_sel[..., None] + j
+    tick_f = (t_arr - np.float32(start_time)) / tick32
+    # contributors without photons may carry any t0: move a tick that
+    # would not cast to int32 out of range first (the mask drops it)
+    tick_f = np.where(np.isfinite(tick_f)
+                      & (np.abs(tick_f) < np.float32(2 ** 31 - 128)),
+                      tick_f, np.float32(-2))
+    itick = np.ceil(tick_f).astype(np.int32) - 1
+    ok = ((tick_f > itick) & (itick >= 0) & (itick < n_ticks)
+          & (contrib[..., None] > 0))
+    photons = np.where(ok, contrib[..., None] / tick32 * prof,
+                       np.float32(0))
+
+    rows = np.nonzero(photons.any(axis=-1).reshape(C * K))[0]
+    if rows.size == 0:
+        return np.empty(0, TRUTH_DTYPE) if as_records \
+            else _empty_truth_sparse()
+    it_all = itick.reshape(C * K, nprof)[rows]
+    it_c = np.clip(it_all, 0, n_ticks - 1)
+    ph_all = photons.reshape(C * K, nprof)[rows]
+    n_padded = n_ticks + pad_front + pad_back
+
+    if staged:
+        if rows.size * n_ticks > 5e7:
+            warnings.warn('ref_exact_truth_staging at production scale: '
+                          f'{rows.size} rows x {n_ticks} ticks is a '
+                          'validation-mode cost')
+        res, keep = _staged_truth_res(ph_all, it_c, light, threshold,
+                                      conv_ticks, n_ticks, digit_samples,
+                                      pad_front, n_padded)
+        return _emit_truth(res, rows, ids, op_channel, C, K, threshold,
+                           as_records, digit_samples, keep_override=keep,
+                           event_id=event_id)
+
+    T = _transfer_table_host(light, conv_ticks, n_ticks, digit_samples,
+                             pad_front, n_padded)
+    first_col, last_col = _transfer_col_bounds(T)
+    res = _scratch2d('res', rows.size, digit_samples, np.float32)
+    row_lo = it_c.min(axis=1)
+    row_hi = it_c.max(axis=1)
+    # a block ~2x the profile span wide: each row occupies <= nprof + 1
+    # ticks, so wider blocks only add products with zeros
+    win = max(2 * nprof + 8, 128, nprof + 2)
+    order = np.argsort(row_lo, kind='stable')
+    lo_sorted = row_lo[order]
+    i = 0
+    while i < rows.size:
+        t_lo = int(lo_sorted[i])
+        jend = int(np.searchsorted(lo_sorted, t_lo + win - nprof - 1,
+                                   side='right'))
+        blk = order[i:jend]
+        t_hi = min(int(row_hi[blk].max()) + 1, n_ticks)
+        ph_blk = np.zeros((len(blk), t_hi - t_lo), np.float32)
+        # duplicate (clipped) ticks of a row add, as the series scatter
+        np.add.at(ph_blk, (np.repeat(np.arange(len(blk)), nprof),
+                           (it_c[blk] - t_lo).reshape(-1)),
+                  ph_all[blk].reshape(-1))
+        s0 = int(first_col[t_lo])
+        s1 = int(last_col[t_hi - 1]) + 1
+        if s0 >= s1:
+            res[blk] = 0.0
+        else:
+            res[blk, :s0] = 0.0
+            res[blk, s1:] = 0.0
+            res[blk, s0:s1] = ph_blk @ T[t_lo:t_hi, s0:s1]
+        i = jend
+    return _emit_truth(res, rows, ids, op_channel, C, K, threshold,
+                       as_records, digit_samples, event_id=event_id)
+
+
+def _start_host_copy(tensors) -> 'callable':
+    """Start copies of ``tensors`` into pinned host memory on the current
+    stream, behind the work that makes them; the returned function waits
+    for the copies and gives numpy arrays.  Later work on the stream may
+    reuse the tensors' memory: the copies come first.  CPU tensors pass
+    through."""
+    if tensors[0].device.type != 'cuda':
+        return lambda: [t.numpy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return [h.numpy() for h in host]
+    return wait
+
+
+def _worker_smeared_truth(fetch, *args, **kw):
+    """Truth-worker entry of the host route: waits for the metadata's
+    copies (``fetch``, :func:`_start_host_copy`), then recomputes the
+    records (:func:`_host_smeared_truth_sparse`)."""
+    return _host_smeared_truth_sparse(*fetch(), *args, **kw)
+
+
 def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
                          n_photons_det, voxels, lut: light_ops.LightLUT,
                          light_noise: torch.Tensor, draw: LightDraw,
                          i_subbatch: int = 0,
-                         add_noise: bool = True) -> LightBatchResult:
+                         add_noise: bool = True,
+                         truth_path: str = 'device',
+                         truth_executor=None,
+                         event_id: int = 0) -> LightBatchResult:
     """Run the light chain for one batch, beam trigger (mode 1).
 
     Args:
@@ -244,8 +718,14 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
         i_subbatch: 0 for an event's first batch; only that batch triggers
             (light_sim.py:444-451).
         add_noise: False simulates without the detector noise.
+        truth_path: the route of the LUT-smearing truth, ``'device'`` or
+            ``'host'`` (module docstring).
+        truth_executor: on the host route, an executor whose worker
+            recomputes the records (``truth_future``); None computes them
+            here (``truth_sparse``).
+        event_id: the records' event id on a worker.
     """
-    check_supported(light, sim)
+    check_supported(light, truth_path)
     dev = n_photons_det.device
     # every channel of the module, in the TPCs' order
     op_channel = light.tpc_to_op_channel.cpu().numpy().ravel()
@@ -285,23 +765,54 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
     pad_front = max(pre - int(trigger_idx.min()), 0)
     pad_back = max(post + int(trigger_idx.max()) + pad_front
                    - (n_ticks + pad_front), 0)
-    do_truth = sim.max_mc_truth_ids > 0
+    k_truth = sim.max_mc_truth_ids
+    points = k_truth > 0 and not light.enable_lut_smearing
     wvfms, truth_ids, amp, itick = _beam_digitize_stage(
         response, noise_rows, draw, light, segs, voxels, n_photons_det,
         op_channel_dev, lut.t0_avg, start_time, digit_samples=n_samples,
         pad_front=pad_front, pad_back=pad_back,
-        k_truth=sim.max_mc_truth_ids if do_truth else 0)
+        k_truth=k_truth if points else 0)
 
-    truth_sparse = None
-    if do_truth:
+    truth_sparse = truth_future = None
+    thr = sim.mc_truth_threshold
+    if points:
         # sample the combined kernel at the (C, K) contributor points in
         # numpy; only those small arrays leave the device
         kernel = _combined_kernel_host(light, conv_ticks)
         truth_sparse = _host_truth_sparse(
             truth_ids.cpu().numpy(), amp.cpu().numpy(),
             itick.cpu().numpy(), kernel, trigger_idx, light, n_samples,
-            op_channel, sim.mc_truth_threshold)
+            op_channel, thr)
+    elif k_truth > 0 and truth_path == 'device':
+        if sim.ref_exact_truth_staging:
+            warnings.warn('ref_exact_truth_staging has no effect on the '
+                          "device route; truth_path='host' runs the staged "
+                          'chain')
+        T = _transfer_table_host(light, conv_ticks, n_ticks, n_samples,
+                                 pad_front, n_ticks + pad_front + pad_back)
+        ids, tw = _smeared_truth_stage(
+            segs, voxels, n_photons_det, op_channel_dev, lut.time_dist,
+            start_time, light, _device_table(T, dev), n_ticks=n_ticks,
+            k_truth=k_truth)
+        truth_sparse = _pull_dense_truth(ids, tw, op_channel, thr)
+    elif k_truth > 0:
+        # the device selects the top-K contributors; their (C, K) metadata
+        # is copied now, behind this batch's work, and the records are
+        # recomputed on the host from the host LUT
+        fetch = _start_host_copy(light_ops.light_truth_select(
+            segs, voxels, n_photons_det, k_truth=k_truth))
+        args = (lut.time_dist_host, op_channel, light, thr, conv_ticks,
+                n_ticks, n_samples, pad_front, pad_back, start_time)
+        staged = sim.ref_exact_truth_staging
+        if truth_executor is not None:
+            truth_future = truth_executor.submit(
+                _worker_smeared_truth, fetch, *args, as_records=True,
+                staged=staged, event_id=event_id)
+        else:
+            truth_sparse = _host_smeared_truth_sparse(*fetch(), *args,
+                                                      staged=staged)
     return LightBatchResult(
         trigger_idx=trigger_idx, trigger_type=trig_type,
         op_channel_idx=trig_op, waveforms=wvfms, start_time=start_time,
-        n_ticks=n_ticks, truth_sparse=truth_sparse)
+        n_ticks=n_ticks, truth_sparse=truth_sparse,
+        truth_future=truth_future)

@@ -23,3 +23,23 @@ def div_const(x: torch.Tensor, v: float) -> torch.Tensor:
     with np.errstate(divide='ignore'):
         inv = np.float32(1.0) / np.float32(v)
     return x * torch.tensor(inv, dtype=torch.float32, device=x.device)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full float32 whatever the caller's global setting: the
+    JAX package's ``Precision.HIGHEST``.  On the card, TF32 (10 mantissa
+    bits), which ``torch.backends.cuda.matmul.allow_tf32`` turns on, is
+    turned off for this one call and the caller's setting restored (the
+    flag the rest of the package sets; PyTorch refuses to read the matmul
+    precision once it was set through both this flag and
+    ``torch.set_float32_matmul_precision``).  The CPU computes float32
+    products in float32."""
+    if a.device.type != 'cuda':
+        return a @ b
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        flags.allow_tf32 = prev

@@ -15,6 +15,9 @@ the JAX module has no Pallas kernel.
   float64, so that both devices give the same rates to the draws
   (:func:`causal_convolve`); the noise is synthesized in float64 for the
   same reason.
+* The MC truth with LUT smearing runs each top-K contributor's photon
+  series through the linear chain on its own (:func:`light_truth_series`,
+  or on the host from :func:`light_truth_select`'s metadata).
 * Random draws are explicit: a :class:`LightDraw` supplies the Poisson
   counts, the normals and the noise phases.
 * The JAX ops run jitted, where XLA turns a division by a constant (a
@@ -65,6 +68,9 @@ class LightLUT:
     t0: torch.Tensor          # (nx, ny, nz, ndet_tpc) earliest arrival [ns]
     t0_avg: torch.Tensor      # (nx, ny, nz, ndet_tpc) mean arrival [ns]
     time_dist: torch.Tensor   # (nx, ny, nz, ndet_tpc, nprof)
+    #: host copy of ``time_dist`` (the host truth route's, models.light)
+    time_dist_host: np.ndarray = dataclasses.field(repr=False,
+                                                   compare=False)
 
     @classmethod
     def from_structured(cls, arr: np.ndarray, device='cuda') -> 'LightLUT':
@@ -85,7 +91,8 @@ class LightLUT:
                  if 'time_dist' in names
                  else np.ones(vis.shape + (1,), np.float32))
         put = lambda a: torch.from_numpy(a).to(device)
-        return cls(put(vis), put(t0), put(t0_avg), put(tdist))
+        return cls(put(vis), put(t0), put(t0_avg), put(tdist),
+                   time_dist_host=tdist)
 
 
 # --------------------------------------------------------------------------
@@ -171,15 +178,34 @@ def ordered_sum(keys: torch.Tensor, values: torch.Tensor,
     another, in ascending ``i`` -- the order of the JAX package's
     sequential scatter-add -- so the result is the same bits on every run
     and every device.  Rows whose key is ``n_out`` or more are dropped.
+    Nothing waits for the device.
     """
+    M, W = values.shape
+    dev = values.device
     order = torch.sort(keys, stable=True).indices
     sk = keys[order]
-    bounds = torch.searchsorted(sk, torch.arange(n_out + 1,
-                                                 device=keys.device))
-    # n_out segments, then one sink segment for the dropped rows
-    lengths = torch.diff(bounds, append=bounds.new_full((1,), keys.numel()))
-    out = torch.segment_reduce(values[order], 'sum', lengths=lengths,
-                               axis=0, unsafe=True)
+    if n_out < M:
+        # every key a segment, in key order, then the sink's (the rest)
+        bounds = torch.searchsorted(sk, torch.arange(n_out + 1, device=dev))
+        lengths = torch.diff(bounds, append=bounds.new_full((1,), M))
+        return torch.segment_reduce(values[order], 'sum', lengths=lengths,
+                                    axis=0, unsafe=True)[:n_out]
+    # far more keys than rows (the truth series): one segment per run of
+    # equal sorted keys, M segments, the unused ones empty (they sum to 0
+    # into the sink)
+    out = torch.zeros((n_out + 1, W), dtype=values.dtype, device=dev)
+    if M == 0:
+        return out[:n_out]
+    sk = torch.clamp(sk, max=n_out)                   # n_out: the sink
+    first = torch.ones(M, dtype=torch.bool, device=dev)
+    first[1:] = sk[1:] != sk[:-1]
+    seg = torch.cumsum(first, 0) - 1                  # segment of each row
+    lengths = torch.zeros(M, dtype=torch.long, device=dev).scatter_add_(
+        0, seg, torch.ones_like(seg))
+    seg_key = torch.full((M,), n_out, dtype=torch.long, device=dev).scatter_(
+        0, seg, sk.long())
+    out[seg_key] = torch.segment_reduce(values[order], 'sum',
+                                        lengths=lengths, axis=0, unsafe=True)
     return out[:n_out]
 
 
@@ -236,6 +262,19 @@ def sum_light_signals(segs: Segments, voxels, n_photons_det, op_channel,
     return out.view(C, n_ticks)
 
 
+def _top_contributors(n_photons_det: torch.Tensor, k_truth: int):
+    """The K strongest segments of each channel by detected photons, as
+    (order (K, C) segment rows, contrib (K, C) photons, has (K, C) photons
+    > 0).  A stable sort of ``0 - n`` (zeros sort as +0.0 on every
+    device): ties between equal photon counts pick the same segments as
+    the JAX package's ``argsort(-n)``."""
+    k_truth = min(k_truth, n_photons_det.shape[0])
+    order = torch.argsort(0.0 - n_photons_det, dim=0,
+                          stable=True)[:k_truth]               # (K, C)
+    contrib = torch.gather(n_photons_det, 0, order)
+    return order, contrib, contrib > 0
+
+
 def light_truth_points(segs: Segments, voxels, n_photons_det, op_channel,
                        lut_t0_avg, start_time: float, light: LightParams, *,
                        k_truth: int):
@@ -244,18 +283,11 @@ def light_truth_points(segs: Segments, voxels, n_photons_det, op_channel,
     Without LUT smearing each contributor's photon series is a single
     delta, so the whole truth chain (two linear convolutions + digitizer
     interpolation) collapses to a lookup of the combined kernel (done on
-    the host by ``models.light``).  Contributors are ranked by a stable
-    sort, so ties between equal photon counts pick the same segments as
-    the JAX package.  Returns (ids (C,K), amp (C,K), itick (C,K)).
+    the host by ``models.light``).  Returns (ids (C,K), amp (C,K), itick
+    (C,K)).
     """
-    S, C = n_photons_det.shape
-    k_truth = min(k_truth, S)
     tick = light.light_tick_size
-    # 0 - n, not -n: zeros sort as +0.0 on every device
-    order = torch.argsort(0.0 - n_photons_det, dim=0,
-                          stable=True)[:k_truth]               # (K, C)
-    contrib = torch.gather(n_photons_det, 0, order)
-    has = contrib > 0
+    order, contrib, has = _top_contributors(n_photons_det, k_truth)
     ids = torch.where(has, segs.segment_id[order], -1).t()     # (C, K)
 
     lut_idx = (op_channel % lut_t0_avg.shape[3]).long()
@@ -268,6 +300,68 @@ def light_truth_points(segs: Segments, voxels, n_photons_det, op_channel,
     amp = torch.where(has & (tick_f > itick), f32.div_const(contrib, tick),
                       0.0)
     return ids, amp.t().float(), itick.t()
+
+
+def light_truth_select(segs: Segments, voxels, n_photons_det, *,
+                       k_truth: int):
+    """Top-K truth contributor metadata per channel: the card's part of the
+    host route of the LUT-smearing truth (``models.light``), where a
+    worker rebuilds each contributor's series from the host LUT.
+
+    Returns:
+        ids (C, K) int32 segment ids (-1: none), contrib (C, K) float32
+        photons (0 where none), t0 (C, K) float32 [us], voxels (C, K, 3)
+        int32.
+    """
+    order, contrib, has = _top_contributors(n_photons_det, k_truth)
+    ids = torch.where(has, segs.segment_id[order], -1)
+    return (ids.t().to(torch.int32).contiguous(),
+            torch.where(has, contrib, 0.0).t().float().contiguous(),
+            segs.t0[order].t().float().contiguous(),
+            voxels[order].transpose(0, 1).to(torch.int32).contiguous())
+
+
+def light_truth_series(segs: Segments, voxels, n_photons_det, op_channel,
+                       lut_time_dist, start_time: float, light: LightParams,
+                       *, n_ticks: int, k_truth: int):
+    """Per-(channel, top-K segment) photon series with LUT smearing
+    (the JAX op's ``lut_smearing`` branch, light_sim.py:106-129): each
+    contributor's LUT arrival profile, one row per contributor.  The truth
+    chain is linear, so each row can be pushed through the transfer table
+    on its own.  Duplicate ticks of one contributor add in the JAX
+    scatter's order (:func:`ordered_sum`).
+
+    Returns:
+        ids (C, K) segment ids (-1 padding), series (C, K, n_ticks) float32
+        photons/us.
+    """
+    tick = light.light_tick_size
+    dev = n_photons_det.device
+    C = n_photons_det.shape[1]
+    order, contrib, has = _top_contributors(n_photons_det, k_truth)
+    K = order.shape[0]
+    ids = torch.where(has, segs.segment_id[order], -1).t()     # (C, K)
+
+    lut_idx = (op_channel % lut_time_dist.shape[3]).long()
+    vox = voxels[order]                                        # (K, C, 3)
+    prof = lut_time_dist[vox[..., 0], vox[..., 1], vox[..., 2],
+                         lut_idx[None, :]]                     # (K, C, nprof)
+    nprof = prof.shape[-1]
+    j_arr = torch.arange(nprof, dtype=torch.float32, device=dev) * 1e-3
+    t_arr = segs.t0[order][..., None] + j_arr                  # (K, C, nprof)
+    tick_f = f32.div_const(t_arr - start_time, tick)
+    itick = torch.ceil(tick_f).to(torch.int32) - 1
+    ok = ((tick_f > itick) & (itick >= 0) & (itick < n_ticks)
+          & has[..., None])
+    photons = f32.div_const(contrib[..., None] * prof, tick)
+    # output row of (k, c): c * K + k; the rows run (k, c, bin) major, the
+    # JAX scatter's update order
+    row = (torch.arange(C, device=dev)[None, :] * K
+           + torch.arange(K, device=dev)[:, None])             # (K, C)
+    n_out = C * K * n_ticks
+    keys = torch.where(ok, row[..., None].long() * n_ticks + itick, n_out)
+    series = ordered_sum(keys.reshape(-1), photons.reshape(-1, 1), n_out)
+    return ids, series.view(C, K, n_ticks)
 
 
 def scintillation_kernel(light: LightParams, conv_ticks: int) -> torch.Tensor:

@@ -10,9 +10,15 @@ batch's device (the Poisson counts at the rates each run computed).
 
 Tolerances: waveforms within one quantum (2^(16 - light_nbit) ADC) with
 >= 99.9% of samples equal (cuFFT and pocketfft round differently, and a
-rate a last bit apart can draw another Poisson count); truth records
-(trigger, channel, tick, segment id) equal with pe_current at rtol 1e-4 /
-atol 1e-6.  Two runs on the card give the same bits.
+rate a last bit apart can draw another Poisson count); contributor-point
+truth records (trigger, channel, tick, segment id) equal with pe_current
+at rtol 1e-4 / atol 1e-6.  LUT-smearing truth records (either route) are
+float32 sums in another order on each side (cuBLAS, the CPU's BLAS, the
+host route's blocks), ~1e-5 apart: those whose |pe| lies more than
+``MARGIN`` from the record threshold are equal in (trigger, channel, tick,
+segment id) with pe_current at rtol 1e-4 / atol 1e-5 (the JAX package's
+tolerances between its two routes, tests/test_end_to_end.py:262-273); the
+rest are counted.  Two runs on the card give the same bits.
 """
 from __future__ import annotations
 
@@ -55,6 +61,10 @@ def to_device(obj, device):
         if isinstance(getattr(obj, f.name), torch.Tensor)})
 
 
+#: LUT-smearing truth records whose |pe| lies within this of the record
+#: threshold may be kept on one side only
+MARGIN = 1e-3
+
 #: Poisson counts up to this many are tried by the inversion below
 POISSON_KMAX = 100
 
@@ -91,16 +101,24 @@ def cpu_draw(seed: int, device) -> LightDraw:
 
 
 def rerun(args: tuple, kwargs: dict, device, seed: int, *,
-          smearing: bool | None = None, truth_ids: int | None = None):
+          smearing: bool | None = None, truth_ids: int | None = None,
+          threshold: float | None = None, truth_path: str | None = None):
     """``simulate_light_batch(*args, **kwargs)`` again on ``device`` with
-    :func:`cpu_draw` draws; ``smearing`` / ``truth_ids`` switch the LUT
-    smearing and the number of truth contributors.  Returns the result
+    :func:`cpu_draw` draws; ``smearing`` / ``truth_ids`` / ``threshold`` /
+    ``truth_path`` switch the LUT smearing, the number of truth
+    contributors, the record threshold and the smearing truth's route.
+    The records are computed in the call (no worker).  Returns the result
     with its waveforms on the host."""
     segs, light, sim, n_det, vox, lut, noise, _ = args
     if smearing is not None:
         light = light.replace(enable_lut_smearing=smearing)
     if truth_ids is not None:
         sim = dataclasses.replace(sim, max_mc_truth_ids=truth_ids)
+    if threshold is not None:
+        sim = dataclasses.replace(sim, mc_truth_threshold=threshold)
+    kwargs = dict(kwargs, truth_executor=None)
+    if truth_path is not None:
+        kwargs['truth_path'] = truth_path
     res = light_model.simulate_light_batch(
         to_device(segs, device), to_device(light, device), sim,
         n_det.to(device), vox.to(device), to_device(lut, device), noise,
@@ -109,9 +127,32 @@ def rerun(args: tuple, kwargs: dict, device, seed: int, *,
     return res
 
 
-def compare(got, want, light) -> dict:
+def records_agree(got, want, threshold: float,
+                  keys=('trig', 'op_channel', 'tick', 'segment_id')) -> dict:
+    """LUT-smearing truth records (dicts of columns, or record arrays with
+    the ``keys`` fields and ``pe_current``) beyond ``MARGIN`` of the
+    threshold: equal in ``keys``, pe_current at rtol 1e-4 / atol 1e-5;
+    raises AssertionError otherwise.  Returns the records compared and the
+    records near the threshold on each side."""
+    far_g = np.abs(np.abs(got['pe_current']) - threshold) > MARGIN
+    far_w = np.abs(np.abs(want['pe_current']) - threshold) > MARGIN
+    assert far_g.sum() == far_w.sum(), \
+        f'{far_g.sum()} records against {far_w.sum()} beyond the margin'
+    for k in keys:
+        assert np.array_equal(got[k][far_g], want[k][far_w]), \
+            f'truth {k} differs'
+    np.testing.assert_allclose(got['pe_current'][far_g],
+                               want['pe_current'][far_w], rtol=1e-4,
+                               atol=1e-5)
+    return dict(records=int(far_w.sum()),
+                near=(int((~far_g).sum()), int((~far_w).sum())))
+
+
+def compare(got, want, light, *, smeared_at: float | None = None) -> dict:
     """``got`` (card) against ``want`` (CPU) at the tolerances above;
-    raises AssertionError outside them."""
+    raises AssertionError outside them.  ``smeared_at``: the record
+    threshold of LUT-smearing truth (:func:`records_agree`); None holds
+    the records equal."""
     quant = 2.0 ** (16 - light.light_nbit)
     a, b = got.waveforms.astype(np.float64), want.waveforms.astype(np.float64)
     assert a.shape == b.shape, (a.shape, b.shape)
@@ -120,16 +161,20 @@ def compare(got, want, light) -> dict:
     equal = float((d == 0).mean()) if d.size else 1.0
     assert err <= quant, f'waveforms differ by {err} > one quantum {quant}'
     assert equal >= 0.999, f'only {equal:.5f} of the samples are equal'
-    n_rec = 0
+    n_rec, near = 0, (0, 0)
     if want.truth_sparse is not None:
         g, w = got.truth_sparse, want.truth_sparse
-        for k in ('trig', 'op_channel', 'tick', 'segment_id'):
-            assert np.array_equal(g[k], w[k]), f'truth {k} differs'
-        np.testing.assert_allclose(g['pe_current'], w['pe_current'],
-                                   rtol=1e-4, atol=1e-6)
-        n_rec = len(w['tick'])
+        if smeared_at is not None:
+            rec = records_agree(g, w, smeared_at)
+            n_rec, near = rec['records'], rec['near']
+        else:
+            for k in ('trig', 'op_channel', 'tick', 'segment_id'):
+                assert np.array_equal(g[k], w[k]), f'truth {k} differs'
+            np.testing.assert_allclose(g['pe_current'], w['pe_current'],
+                                       rtol=1e-4, atol=1e-6)
+            n_rec = len(w['tick'])
     return dict(max_abs_err=err, equal_share=equal, records=n_rec,
-                peak=float(np.abs(b).max()) if b.size else 0.0)
+                near=near, peak=float(np.abs(b).max()) if b.size else 0.0)
 
 
 def identical(a, b) -> bool:

@@ -29,16 +29,25 @@ channels, 16 us beam window: 16384 ticks, FFTs of 32768; the synthetic
 and, beside the port's float64 transforms, the same convolutions and noise
 in float32, the JAX ops' arithmetic (``light_scintillation_f32``,
 ``light_sipm_f32``, ``light_noise_f32``; not on the port's path: they
-give the cost of its float64 choice).
+give the cost of its float64 choice), and the MC truth with LUT smearing
+at the 2x2 production setting (K 50 contributors per channel, threshold
+0.1 pe/us; the (16384, 256) transfer table):
+
+  light_truth_series   the dense (C x K, 16384) contributor series
+  light_truth_product  the series times the transfer table, float32
+  light_truth_pull     keep mask, nonzero and the kept records to the host
+  light_truth_host     the host route's recompute of one batch (host wall,
+                       no bound)
 
 For each op: the bytes it must move (each input read once, each output
 written once) and the operations it does on these inputs, counted from this
 run's shapes and data; the bound on this card (the larger of bytes / 3.35
 TB/s and float32 operations / 33.5e12 per second, from an H100 SXM's
 published peaks); which of the two sets it; and the share of the bound
-reached (the light ops: bytes only).  K1 and K2 also get their launches
-per batch and the time of one PyTorch call that computes the same
-function, where one exists.
+reached (the light ops: bytes only, but the truth product: its
+multiply-adds at the FMA rate, 67e12 FLOP/s counting one as two).  K1 and
+K2 also get their launches per batch and the time of one PyTorch call
+that computes the same function, where one exists.
 
     python -m larndsim_tpu_torch.tools.perf_guard [--log PATH]
 
@@ -58,6 +67,7 @@ import tempfile
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..kernels.build import BUILD_DIR
@@ -93,6 +103,10 @@ FRACTION_OPS = 12
 DIGITIZE_OPS = 8
 #: per live (segment, pixel, step) of K1: the response row of the point
 ROW_OPS = 10
+#: the LUT-smearing truth of the JAX bench's 2x2 production configuration
+#: (bench.py: max_light_truth_ids 50, mc_truth_threshold 0.1)
+TRUTH_K = 50
+TRUTH_THRESHOLD = 0.1
 #: the PyTorch call that computes each kernel's function, or why none does
 LIBRARY = dict(
     induced_current='none: a data-dependent gather-accumulate (each '
@@ -405,6 +419,87 @@ def light_op_costs(lw: dict) -> dict:
     return costs
 
 
+def light_truth_calls(lw: dict, k_truth: int = TRUTH_K) -> tuple:
+    """The LUT-smearing truth of the guard's batch, each stage as
+    (function, args, kwargs), with its inputs made by running the stages
+    before it once: (device calls, host calls, shapes)."""
+    from ..models import light as lm
+    from ..ops import f32
+    from ..ops import light as lo
+    light, lut, sh = lw['light'], lw['lut'], lw['shapes']
+    dev = lw['n_det'].device
+    n_ticks, S = sh['n_ticks'], sh['digit_samples']
+    post = int(np.ceil(light.light_trig_window[1] / light.light_tick_size))
+    pad_back = max(post - n_ticks, 0)
+    T = lm._transfer_table_host(light, sh['conv_ticks'], n_ticks, S,
+                                sh['pad_front'],
+                                n_ticks + sh['pad_front'] + pad_back)
+    table = lm._device_table(T, dev)
+    series_args = (lw['segs'], lw['vox'], lw['n_det'], lw['op_channel'],
+                   lut.time_dist, 0.0, light)
+    series_kw = dict(n_ticks=n_ticks, k_truth=k_truth)
+    ids, series = lo.light_truth_series(*series_args, **series_kw)
+    C, K = ids.shape
+    rows = series.view(C * K, n_ticks)
+    tw = f32.matmul(rows, table).view(C, K, 1, S).permute(
+        2, 0, 3, 1).contiguous()
+    op_host = lw['op_channel'].cpu().numpy()
+    sel = [t.cpu().numpy() for t in lo.light_truth_select(
+        lw['segs'], lw['vox'], lw['n_det'], k_truth=k_truth)]
+    host_args = (*sel, lut.time_dist_host, op_host, light, TRUTH_THRESHOLD,
+                 sh['conv_ticks'], n_ticks, S, sh['pad_front'], pad_back,
+                 0.0)
+    shapes = dict(pad_n=sh['pad_n'], n_op_channel=C, k_truth=K,
+                  n_ticks=n_ticks, digit_samples=S,
+                  threshold=TRUTH_THRESHOLD)
+    return (dict(light_truth_series=(lo.light_truth_series, series_args,
+                                     series_kw),
+                 light_truth_product=(f32.matmul, (rows, table), {}),
+                 light_truth_pull=(lm._pull_dense_truth,
+                                   (ids, tw, op_host, TRUTH_THRESHOLD), {})),
+            dict(light_truth_host=(lm._host_smeared_truth_sparse, host_args,
+                                   dict(as_records=True))),
+            shapes)
+
+
+def light_truth_costs(calls: dict, n_records: int) -> dict:
+    """Bytes and operations of the truth stages on this run's inputs.
+
+    series: its dense (C x K, n_ticks) float32 output written once and the
+    profiles it gathers read once (the zero fill the scatter-add needs
+    first is the implementation's, not counted).
+    product: series and table read once, (C x K, S) written once; one
+    multiply-add per (row, tick, sample), at the FMA rate (one instruction
+    each, :data:`F32_OPS_PER_S`).  pull: the (1, C, S, K) truth and the ids read
+    once, each kept record's flat index and value (12 bytes) written once;
+    its device-to-host copy is not in the bound.
+    """
+    ids, tw = calls['light_truth_pull'][1][:2]
+    rows, table = calls['light_truth_product'][1]
+    R, n_ticks = rows.shape
+    S = table.shape[1]
+    nprof = calls['light_truth_series'][1][4].shape[-1]
+    return dict(
+        light_truth_series=dict(bytes=nbytes(rows) + R * nprof * 4,
+                                ops=0),
+        light_truth_product=dict(bytes=nbytes(rows, table) + R * S * 4,
+                                 ops=R * n_ticks * S),
+        light_truth_pull=dict(bytes=nbytes(ids, tw) + 12 * n_records,
+                              ops=0))
+
+
+def host_timed(fn, *args, reps: int = REPS, **kw) -> Timing:
+    """Host wall time of ``fn(*args, **kw)``: one warm-up call, then
+    ``reps`` timed calls; minimum and mean in ms."""
+    fn(*args, **kw)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn(*args, **kw)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return Timing(min(times), sum(times) / len(times))
+
+
 def op_calls(w: dict) -> dict:
     """Each guarded op as (function, args, kwargs), with its inputs made by
     running the ops before it once."""
@@ -533,10 +628,19 @@ def main(argv=None) -> dict:
     costs = op_costs(w, calls)
     calls.update(light_op_calls(lw))
     costs.update(light_op_costs(lw))
+    truth_calls, host_calls, truth_shapes = light_truth_calls(lw)
+    calls.update(truth_calls)
+    n_records = len(truth_calls['light_truth_pull'][0](
+        *truth_calls['light_truth_pull'][1])['tick'])
+    costs.update(light_truth_costs(truth_calls, n_records))
     ops_ms = {}
     for name, (fn, args, kw) in calls.items():
         t = timed(fn, *args, **kw)
         ops_ms[name] = dict(min_ms=t.min_ms, mean_ms=t.mean_ms)
+    host_ms = {}
+    for name, (fn, args, kw) in host_calls.items():
+        t = host_timed(fn, *args, **kw)
+        host_ms[name] = dict(min_ms=t.min_ms, mean_ms=t.mean_ms)
     roofline = {name: bound(c['bytes'], c['ops'], ops_ms[name]['min_ms'])
                 for name, c in costs.items()}
     c = card()
@@ -547,7 +651,8 @@ def main(argv=None) -> dict:
                       detector='Module-0-shaped, generated (the 2x2 YAMLs '
                       'of the JAX guard are not in the repository)'),
         shapes=w['shapes'], light_shapes=lw['shapes'],
-        logged_shapes=LOGGED_SHAPES, ops_ms=ops_ms,
+        truth_shapes=dict(truth_shapes, records=n_records),
+        logged_shapes=LOGGED_SHAPES, ops_ms=ops_ms, host_ms=host_ms,
         roofline=roofline,
         kernels={name: dict(launches_per_batch=launches[name],
                             library_ms=None, library=LIBRARY[name])
@@ -561,6 +666,10 @@ def main(argv=None) -> dict:
               f'({ops_ms[name]["mean_ms"]:.3f} mean), bound '
               f'{r["bound_ms"]:.4f} ms by {r["bound_by"]}, share '
               f'{r["share"]:.4f}  [{c["smi"]}]', flush=True)
+    for name, t in host_ms.items():
+        print(f'guard {name:>20}: {t["min_ms"]:9.3f} ms min '
+              f'({t["mean_ms"]:.3f} mean), host wall, no bound  '
+              f'[{c["smi"]}]', flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(opts.log)), exist_ok=True)
     with open(opts.log, 'a') as f:
         f.write(json.dumps(entry) + '\n')

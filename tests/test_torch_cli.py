@@ -98,20 +98,23 @@ def test_clis_agree(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('what', ['mode0', 'smearing_truth'])
 def test_cli_refuses_what_it_does_not_run(tmp_path, what):
-    """The threshold light trigger (mode 0) and MC truth with LUT smearing
-    are refused before the input is read."""
+    """The threshold light trigger (mode 0) is refused before the input is
+    read, and so is a route of the MC truth with LUT smearing other than
+    its two (tests/test_torch_light_cli.py runs those)."""
     paths = tpa.write_tree(
         tmp_path / 'tree', light=dict(light_trig_mode=0) if what == 'mode0'
         else True, sim_overrides=dict(max_light_truth_ids=3))
     inp = tmp_path / 'in.h5'
     inp.write_bytes(b'')
-    with pytest.raises(NotImplementedError):
+    error, kw = ((NotImplementedError, {}) if what == 'mode0'
+                 else (ValueError, dict(truth_path='tunnel')))
+    with pytest.raises(error):
         tcli.run_simulation(
             str(inp), str(tmp_path / 'o.h5'),
             detector_properties=paths['detector_properties'],
             pixel_layout=paths['pixel_layout'],
             simulation_properties=paths['simulation_properties'],
-            light_simulated=True, device='cpu')
+            light_simulated=True, device='cpu', **kw)
 
 
 def test_port_runs_without_jax_or_h5py(tmp_path):

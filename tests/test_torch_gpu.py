@@ -17,8 +17,11 @@ shapes.  The light chain (plain PyTorch on both devices): the ordered
 photon sum gives the CPU's bits; a light batch at the slice's widths (96
 channels, 16 us), run on the card and on the CPU with the same draws,
 agrees at ``tools.light_check``'s tolerances (waveforms within one
-quantum, >= 99.9% of samples equal; truth records equal), and two card
-runs are identical.
+quantum, >= 99.9% of samples equal; truth records equal, the LUT-smearing
+truth's beyond 1e-3 of the threshold), and two card runs are identical;
+the smearing truth's two routes agree on the card; its product stays
+float32 (within rtol 1e-5 of float64, where TF32 is ~1e-3 off) when the
+caller enables TF32; a host-route worker's error fails the CLI.
 """
 from __future__ import annotations
 
@@ -368,17 +371,95 @@ def light_batch(cuda, tmp_path_factory):
     return seen[0]
 
 
-@pytest.mark.parametrize('route', ['smearing', 'contributor_truth'])
+LIGHT_ROUTES = dict(
+    smearing=dict(smearing=True, truth_ids=0),
+    contributor_truth=dict(smearing=False, truth_ids=16),
+    smearing_truth_device=dict(smearing=True, truth_ids=50, threshold=0.1,
+                               truth_path='device'),
+    smearing_truth_host=dict(smearing=True, truth_ids=50, threshold=0.1,
+                             truth_path='host'))
+
+
+@pytest.mark.parametrize('route', list(LIGHT_ROUTES))
 def test_light_batch_on_card_matches_cpu(light_batch, route):
     from larndsim_tpu_torch.tools import light_check
     args, kw = light_batch
-    smear = route == 'smearing'
-    opts = dict(smearing=smear, truth_ids=0 if smear else 16)
+    opts = LIGHT_ROUTES[route]
     card = light_check.rerun(args, kw, 'cuda', 5, **opts)
     again = light_check.rerun(args, kw, 'cuda', 5, **opts)
     cpu = light_check.rerun(args, kw, 'cpu', 5, **opts)
     assert card.waveforms.shape == (1, 96, 256)
     assert light_check.identical(card, again)
-    rec = light_check.compare(card, cpu, args[1])
+    rec = light_check.compare(card, cpu, args[1],
+                              smeared_at=opts.get('threshold'))
     assert rec['peak'] > 64
-    assert (rec['records'] > 0) == (not smear)
+    assert (rec['records'] > 0) == (opts['truth_ids'] > 0)
+
+
+def test_smearing_truth_routes_agree_on_card(light_batch):
+    from larndsim_tpu_torch.tools import light_check
+    args, kw = light_batch
+    dev, host = (light_check.rerun(args, kw, 'cuda', 5,
+                                   **LIGHT_ROUTES[f'smearing_truth_{r}'])
+                 for r in ('device', 'host'))
+    rec = light_check.compare(dev, host, args[1], smeared_at=0.1)
+    assert rec['records'] > 0 and rec['max_abs_err'] == 0
+
+
+def test_truth_product_is_float32_under_tf32(cuda):
+    """The device route's product keeps float32 when the caller turns TF32
+    on, and leaves the caller's setting."""
+    from larndsim_tpu_torch.ops import f32
+    gen = torch.Generator().manual_seed(8)
+    a = torch.randn((256, 16384), generator=gen)
+    b = torch.randn((16384, 256), generator=gen)
+    want = (a.double() @ b.double()).float()
+    a, b = a.to(cuda), b.to(cuda)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = (a @ b).cpu()
+        got = f32.matmul(a, b).cpu()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    # |err| over the output's peak: TF32 rounds each term to 2^-11
+    err = lambda x: float((x - want).abs().max() / want.abs().max())
+    assert err(tf32) > 1e-4, ('TF32 was not in effect', err(tf32))
+    assert err(got) < 1e-5, err(got)
+
+
+def test_truth_route_under_tf32_matches_cpu(light_batch):
+    from larndsim_tpu_torch.tools import light_check
+    args, kw = light_batch
+    opts = LIGHT_ROUTES['smearing_truth_device']
+    cpu = light_check.rerun(args, kw, 'cpu', 5, **opts)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = light_check.rerun(args, kw, 'cuda', 5, **opts)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert light_check.compare(card, cpu, args[1],
+                               smeared_at=0.1)['records'] > 0
+
+
+def test_host_route_worker_error_fails_the_cli(cuda, tmp_path, monkeypatch):
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    from larndsim_tpu_torch.models import light as light_model
+    paths = tpa.write_tree(tmp_path / 'tree', light=True,
+                           sim_overrides=dict(max_light_truth_ids=50))
+    inp = str(tmp_path / 'in.h5')
+    write_input(inp, tpa.load_port(paths).tpc_borders, n_events=2,
+                tracks_per_event=3, segments_per_track=6, segment_length=0.4,
+                dEdx=8.0, seed=7)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError('worker failed')
+    monkeypatch.setattr(light_model, '_host_smeared_truth_sparse', broken)
+    with pytest.raises(RuntimeError, match='worker failed'):
+        run_simulation(inp, str(tmp_path / 'out.h5'),
+                       detector_properties=paths['detector_properties'],
+                       pixel_layout=paths['pixel_layout'],
+                       simulation_properties=paths['simulation_properties'],
+                       response_file=str(tmp_path / 'r.npy'), rand_seed=7,
+                       step_scale=2.0, device='cuda', truth_path='host',
+                       truth_workers=2)

@@ -391,16 +391,21 @@ def test_simulate_light_batch(setup, i_sub, noise, smear, truth):
 
 @pytest.mark.parametrize('what', ['mode0', 'smearing_truth'])
 def test_refuses_what_it_does_not_run(setup, what):
+    """Mode 0 is not ported; the truth with LUT smearing runs by its two
+    routes (tests/test_torch_light_truth.py), and another route is
+    refused."""
     s = setup
     sim = tpa.load_port_sim(s['paths'])
     tl = s['tl']
     if what == 'mode0':
         tl = tl.replace(light_trig_mode=0)
+        error, kw = NotImplementedError, {}
     else:
         tl = tl.replace(enable_lut_smearing=True)
         sim = dataclasses.replace(sim, max_mc_truth_ids=3)
-    with pytest.raises(NotImplementedError):
+        error, kw = ValueError, dict(truth_path='tunnel')
+    with pytest.raises(error):
         tmodel.simulate_light_batch(
             s['ts'], tl, sim, torch.from_numpy(s['n_ph']),
             torch.from_numpy(s['vox']), s['tlut'], s['noise'],
-            jax_draw(jax.random.PRNGKey(0)))
+            jax_draw(jax.random.PRNGKey(0)), **kw)

@@ -172,3 +172,45 @@ def test_light_ops_run_and_have_a_bound(workload):
     assert costs['light_sum_smearing']['bytes'] == \
         costs['light_sum_t0avg']['bytes'] + 32 * 96 * 99 * 4
     assert costs['light_digitize']['bytes'] == 3 * 96 * 256 * 4
+
+
+def test_light_truth_rows_run_and_have_a_bound(workload):
+    """The smearing-truth rows on the guard's batch (tiny here, 4
+    contributors): each stage runs, the product's bound is its
+    multiply-adds, and the rows' records are the device route's."""
+    import dataclasses
+    from larndsim_tpu_torch.tools import light_check
+    lw = pg.build_light_workload(workload)
+    # the tiny batch's light arrives at ~1.9 us, past the digitized
+    # window's 1.66: a microsecond earlier
+    lw['segs'] = dataclasses.replace(lw['segs'], t0=lw['segs'].t0 - 1.0)
+    calls, host_calls, shapes = pg.light_truth_calls(lw, k_truth=4)
+    assert shapes == dict(pad_n=32, n_op_channel=96, k_truth=4,
+                          n_ticks=16384, digit_samples=256, threshold=0.1)
+    assert set(calls) == {'light_truth_series', 'light_truth_product',
+                          'light_truth_pull'}
+    outs = {name: fn(*args, **kw) for name, (fn, args, kw) in calls.items()}
+    (fn, args, kw), = host_calls.values()
+    rec = fn(*args, **kw)
+    dev = outs['light_truth_pull']
+    assert len(dev['tick']) > 0
+    light_check.records_agree(
+        {k: rec[f] for k, f in (('trig', 'trigger_id'),
+                                ('op_channel', 'op_channel_id'),
+                                ('tick', 'tick'), ('segment_id', 'segment_id'),
+                                ('pe_current', 'pe_current'))}, dev, 0.1)
+    costs = pg.light_truth_costs(calls, len(dev['tick']))
+    rows = 96 * 4
+    series = rows * 16384 * 4
+    assert costs['light_truth_series'] == dict(
+        bytes=series + rows * 100 * 4, ops=0)
+    assert costs['light_truth_product'] == dict(
+        bytes=series + 16384 * 256 * 4 + rows * 256 * 4,
+        ops=rows * 16384 * 256)
+    assert costs['light_truth_pull']['bytes'] == \
+        rows * 4 + rows * 256 * 4 + 12 * len(dev['tick'])
+    # at production shapes (C 96, K 50) the product is bound by its
+    # multiply-adds: 40.3 GFLOP at 67 TFLOP/s
+    b = pg.bound(0, 96 * 50 * 16384 * 256)
+    assert b['bound_by'] == 'operations'
+    assert np.isclose(b['bound_ms'], 0.601, atol=1e-3)
