@@ -9,7 +9,11 @@ Phases, one line each; any failure exits non-zero with nothing caught:
 2. build: compile the CUDA kernels of ``larndsim_tpu_torch/csrc``;
 3. reference: the port's CLI on a tiny noise-free geometry, on the card
    (kernels) and on the CPU (plain versions, which tests/test_torch_*.py
-   hold against the JAX package): data packets must agree;
+   hold against the JAX package): data packets must agree; then four
+   spills at ``event_group_size`` 3 on the card: data packets equal to
+   the ungrouped card run's and to the CPU's grouped run's, with fewer
+   kernel launches, and, with a per-pixel threshold file, equal to the
+   ungrouped run with that file;
 4. warm-up: the main path once, capturing the first batch's kernel inputs;
 5. K1 / K2: each kernel against its plain PyTorch version on the card, at
    the first batch's shapes (and, for the FSM, a drawn case with many
@@ -20,7 +24,9 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    published widths (2 TPCs x 2x4 tiles of 70x70 pixels, 78,400 pixels),
    the synthetic 45x45x1891 response and 8 spills of 16 tracks x 42
    segments, with every launch counter set to 0 before and read after;
-   the plain versions are forbidden during it;
+   the plain versions are forbidden during it; its phase table
+   (``utils.trace``: self wall, thread-CPU and device time per label)
+   and the host cost of one phase on the card;
 7. light: the charge+light warm-up (the slice's input on the same
    detector with the light keys of one 2x2 module: 96 channels, beam
    trigger, 16 us window, LUT smearing; ``max_light_truth_ids`` 0) keeps
@@ -44,7 +50,18 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    equal to the truth-off run's, the two routes' records agree, and each
    route's wall, records and their MB, light stage span, peak device and
    host memory, the device route's pulls and the host route's worker
-   seconds;
+   seconds, and each route's phase table;
+   grouped: the charge-only slice at ``event_group_size`` 4 (bench.py's
+   default), timed as the slice (hit-set overlap >= 0.7 with the ungrouped
+   run: other charge draws), then the truth slice on the device route at
+   ``event_group_size`` 4: ``light_wvfm`` equal to the
+   ungrouped run's, truth records beyond 1e-3 of the threshold equal
+   (pe_current rtol 1e-4), data packets per event within 25% and hit-set
+   overlap >= 0.7 (other charge draws), fewer K1 / K2 launches; its wall,
+   segments/s, phase table and peak device memory;
+   memory log: the charge-only slice with ``save_memory``, read back
+   through ``utils.memlog.read_memlog``: the phases ``loading``,
+   ``quench_drift_mod-1`` and ``loop_mod-1`` with the card's memory;
 10. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
    (``probe_folded``): cases a-g, each in its own process, each OK and
    importing nothing of JAX; each of its three kernels against its plain
@@ -94,6 +111,8 @@ P1_KERNELS = dict(probe_window=('tools/probe_folded.py:55, :92', 'a'),
 LIGHT_TRUTH_IDS = 64
 #: the JAX bench's 2x2 "truth on": contributors per channel, threshold
 SMEAR_TRUTH = dict(max_light_truth_ids=50, mc_truth_threshold=0.1)
+#: bench.py's event_group_size (bench.py:216-217)
+GROUP = 4
 
 
 def log(phase: str, msg: str) -> None:
@@ -170,6 +189,129 @@ def reference_phase(tmp: str) -> None:
     assert n > 0 and matched >= 0.99 * n, (matched, n)
     log('reference', f'tiny run: {matched}/{n} data packets agree, card '
         'vs CPU plain versions')
+    grouped_reference(tmp, paths, kw)
+
+
+def grouped_reference(tmp: str, paths: dict, kw: dict) -> None:
+    """Four spills of the tiny noise-free geometry at event_group_size 3:
+    the packets of the ungrouped run on the card and of the grouped run on
+    the CPU; with a per-pixel threshold file, those of its ungrouped run
+    (each pixel's threshold by its id, not by its group key)."""
+    from larndsim_tpu_torch.assets.make_input import write_input
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    from larndsim_tpu_torch.kernels import binding
+    from larndsim_tpu_torch.params import load_detector
+    dm = load_detector(paths['detector_properties'], paths['pixel_layout'],
+                       device='cpu')
+    inp = os.path.join(tmp, 'tiny_spills.h5')
+    write_input(inp, dm.tpc_borders, n_events=4, tracks_per_event=3,
+                segments_per_track=6, segment_length=0.4, dEdx=8.0, seed=7)
+    nx, ny = dm.params.n_pixels
+    keys = np.arange(nx * ny * dm.params.n_tpcs)
+    thr = os.path.join(tmp, 'tiny_thresholds.npz')
+    np.savez(thr, keys=keys, values=np.random.default_rng(3).uniform(
+        5e3, 9e3, len(keys)).astype(np.float32), default=7e3)
+    runs = {}
+    for name, dev, g, thr_file in (('card', 'cuda', 1, None),
+                                   ('card grouped', 'cuda', 3, None),
+                                   ('CPU grouped', 'cpu', 3, None),
+                                   ('thresholds', 'cuda', 1, thr),
+                                   ('thresholds grouped', 'cuda', 3, thr)):
+        out = os.path.join(tmp, f'tiny_{name.replace(" ", "_")}.h5')
+        binding.reset_launches()
+        run_simulation(inp, out, device=dev, event_group_size=g,
+                       pixel_thresholds_file=thr_file, **kw)
+        runs[name] = (data_packets(out), binding.launches['induced_current'])
+    n = sum(runs['card'][0].values())
+    assert n > 0
+    assert runs['card grouped'][0] == runs['card'][0], 'grouped packets'
+    assert runs['CPU grouped'][0] == runs['card'][0], 'CPU grouped packets'
+    assert runs['thresholds grouped'][0] == runs['thresholds'][0], \
+        'grouped packets with per-pixel thresholds'
+    assert runs['thresholds'][0] != runs['card'][0], \
+        'the threshold file changed nothing'
+    assert runs['card grouped'][1] < runs['card'][1], \
+        (runs['card grouped'][1], runs['card'][1])
+    log('reference', f'4 spills at event_group_size 3: {n} data packets '
+        'equal to the ungrouped card run and to the CPU grouped run; '
+        f'{sum(runs["thresholds"][0].values())} with a per-pixel threshold '
+        'file, equal grouped and ungrouped; K1 launches '
+        f'{runs["card grouped"][1]} grouped vs {runs["card"][1]}')
+
+
+def phase_table(name: str) -> str:
+    """The last run's phase table (``utils.trace.report``), printed under
+    ``name``; it must hold device time."""
+    from larndsim_tpu_torch.utils import trace
+    table = trace.report()
+    assert 'ms device' in table, f'{name}: no device time in the table'
+    log('phases', f'{name} (label, self wall s, self thread-CPU s, self '
+        'device ms (the stream\'s span, idle gaps included), calls):')
+    for row in table.splitlines():
+        print(f'    {row}', flush=True)
+    return table
+
+
+def trace_cost(n: int = 2000) -> dict:
+    """Host microseconds of one empty phase on the card, its events read
+    once at the end as ``report()`` reads them, and of its parts alone: a
+    phase on the host only, a profiler range, an NVTX range, and a pair
+    of timing events created, recorded and read."""
+    import torch
+    from larndsim_tpu_torch.utils import trace
+
+    def us(body, end=torch.cuda.synchronize):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            body()
+        end()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def card_phase():
+        with trace.phase('cost', 'cuda'):
+            pass
+    pairs = []
+
+    def events():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        for e in ev:
+            e.record()
+        pairs.append(ev)
+
+    def read_events():
+        torch.cuda.synchronize()
+        for a, b in pairs:
+            a.elapsed_time(b)
+
+    def host_phase():
+        with trace.phase('cost'):
+            pass
+
+    def profiler_range():
+        with torch.profiler.record_function('cost'):
+            pass
+
+    def nvtx_range():
+        torch.cuda.nvtx.range_push('cost')
+        torch.cuda.nvtx.range_pop()
+    cost = dict(phase=us(card_phase, trace.summary_device),
+                host_phase=us(host_phase), profiler_range=us(profiler_range),
+                nvtx_range=us(nvtx_range), event_pair=us(events, read_events))
+    trace.reset()
+    return cost
+
+
+def packet_events(path: str):
+    """Data packets per event and the hit set (io_group, chip, channel)."""
+    from larndsim_tpu_torch.io.h5 import File
+    with File(path, 'r') as f:
+        pk = np.array(f['packets'])
+        ev = np.array(f['mc_packets_assn'])['event_ids'][:, 0]
+    data = pk['packet_type'] == 0
+    hits = set(zip(pk['io_group'][data].tolist(), pk['chip_id'][data].tolist(),
+                   pk['channel_id'][data].tolist()))
+    return collections.Counter(ev[data].tolist()), hits
 
 
 def compare_k1(args) -> dict:
@@ -375,6 +517,8 @@ def guard_phase() -> dict:
     for name, r in entry['roofline'].items():
         assert np.isfinite(entry['ops_ms'][name]['min_ms']), name
         shapes = entry['truth_shapes' if name.startswith('light_truth')
+                       else 'group_shapes' if name.endswith('_beam')
+                       or name.endswith('_beam_x4')
                        else 'light_shapes' if name.startswith('light_')
                        else 'shapes']
         log('guard', f'{name}: {entry["ops_ms"][name]["min_ms"]:.3f} ms, '
@@ -439,10 +583,11 @@ def peak_rss_gib() -> float:
 
 
 def truth_phase(tmp: str, out_off: str, kw_l: dict, n_seg: int,
-                light_slice, light_model) -> None:
+                light_slice, light_model) -> dict:
     """The charge+light slice with the smearing truth on, once per route:
     physics equal to the truth-off run ``out_off``, the routes' records in
-    agreement."""
+    agreement.  Returns the device route's run: its keywords, output,
+    launches and wall."""
     from larndsim_tpu_torch.assets.geometry import write_module0
     from larndsim_tpu_torch.io.h5 import File
     from larndsim_tpu_torch.tools import light_check
@@ -451,13 +596,14 @@ def truth_phase(tmp: str, out_off: str, kw_l: dict, n_seg: int,
     with File(out_off, 'r') as f:
         wv_off = np.array(f['light_wvfm'])
     pulls, worker_s = [], []
-    orig_pull = light_model._pull_dense_truth
+    orig_pull = light_model._pull_group_dense_truth
     orig_worker = light_model._worker_smeared_truth
 
     def spy_pull(*args, **kwargs):
         t0 = time.perf_counter()
         out = orig_pull(*args, **kwargs)
-        pulls.append((time.perf_counter() - t0, 12 * len(out['tick'])))
+        pulls.append((time.perf_counter() - t0,
+                      12 * sum(len(o['tick']) for o in out)))
         return out
 
     def spy_worker(*args, **kwargs):
@@ -465,21 +611,23 @@ def truth_phase(tmp: str, out_off: str, kw_l: dict, n_seg: int,
         out = orig_worker(*args, **kwargs)
         worker_s.append(time.perf_counter() - t0)
         return out
-    records = {}
+    records, runs = {}, {}
     for route in ('device', 'host'):
         out = os.path.join(tmp, f'slice_truth_{route}.h5')
         run_kw = dict(kw_l, simulation_properties=paths_t[
             'simulation_properties'], truth_path=route)
         pulls.clear()
         worker_s.clear()
-        light_model._pull_dense_truth = spy_pull
+        light_model._pull_group_dense_truth = spy_pull
         light_model._worker_smeared_truth = spy_worker
         rss_before = peak_rss_gib()
         try:
             wall, launches, peak, trig_ms, _ = light_slice(out, run_kw)
         finally:
-            light_model._pull_dense_truth = orig_pull
+            light_model._pull_group_dense_truth = orig_pull
             light_model._worker_smeared_truth = orig_worker
+        runs[route] = dict(kw=run_kw, out=out, launches=launches, wall=wall,
+                           table=phase_table(f'truth slice, {route} route'))
         assert data_packets(out) == data_packets(out_off), \
             f'truth {route}: packets differ from the truth-off run'
         with File(out, 'r') as f:
@@ -516,6 +664,93 @@ def truth_phase(tmp: str, out_off: str, kw_l: dict, n_seg: int,
     log('truth slice', f'device vs host route: {agree["records"]} records '
         f'agree ({agree["near"][0]} / {agree["near"][1]} within 1e-3 of the '
         'threshold)')
+    return runs['device']
+
+
+def grouped_phase(tmp: str, solo: dict, charge_only: dict, n_seg: int,
+                  main_path) -> dict:
+    """The charge-only slice, then the truth slice on the device route, at
+    event_group_size GROUP, against their ungrouped runs ``charge_only``
+    and ``solo``."""
+    from larndsim_tpu_torch.io.h5 import File
+    from larndsim_tpu_torch.tools import light_check
+    out = os.path.join(tmp, 'slice_grouped.h5')
+    wall, launches, peak = main_path(out, dict(charge_only['kw'],
+                                               event_group_size=GROUP))
+    phase_table(f'charge-only slice, event_group_size {GROUP}')
+    per_ev, hits = packet_events(out)
+    per_ev_solo, hits_solo = packet_events(charge_only['out'])
+    overlap = len(hits & hits_solo) / max(len(hits | hits_solo), 1)
+    assert overlap >= 0.7, overlap
+    log('grouped', f'charge-only slice, event_group_size {GROUP}: wall '
+        f'{wall:.3f} s ({charge_only["wall"]:.3f} s ungrouped), '
+        f'{n_seg / wall:.1f} segments/s; K1 / K2 launches '
+        f'{launches["induced_current"]} / {launches["fee_fsm"]} '
+        f'(ungrouped {charge_only["launches"]["induced_current"]} / '
+        f'{charge_only["launches"]["fee_fsm"]}); data packets '
+        f'{sum(per_ev.values())} vs {sum(per_ev_solo.values())}, hit-set '
+        f'overlap {overlap:.3f}; peak device memory {peak:.2f} GiB')
+    out = os.path.join(tmp, 'slice_truth_grouped.h5')
+    wall, launches, peak = main_path(out, dict(solo['kw'],
+                                               event_group_size=GROUP))
+    table = phase_table(f'truth slice, device route, event_group_size '
+                        f'{GROUP}')
+    with File(out, 'r') as f, File(solo['out'], 'r') as g:
+        assert np.array_equal(np.array(f['light_wvfm']),
+                              np.array(g['light_wvfm'])), \
+            'grouped light_wvfm differs from the ungrouped run'
+        rec, rec_solo = (np.array(x['light_wvfm_mc_assn']) for x in (f, g))
+    agree = light_check.records_agree(
+        rec, rec_solo, SMEAR_TRUTH['mc_truth_threshold'],
+        keys=('trigger_id', 'op_channel_id', 'tick', 'event_id',
+              'segment_id'))
+    per_ev, hits = packet_events(out)
+    per_ev_solo, hits_solo = packet_events(solo['out'])
+    assert set(per_ev) == set(per_ev_solo), (per_ev, per_ev_solo)
+    worst = max(abs(per_ev[e] - per_ev_solo[e]) / max(per_ev[e],
+                                                      per_ev_solo[e])
+                for e in per_ev)
+    overlap = len(hits & hits_solo) / max(len(hits | hits_solo), 1)
+    assert worst <= 0.25 and overlap >= 0.7, (worst, overlap)
+    for name in ('induced_current', 'fee_fsm'):
+        assert launches[name] < solo['launches'][name], \
+            (name, launches[name], solo['launches'][name])
+    log('grouped', f'truth slice, device route, event_group_size {GROUP}: '
+        f'wall {wall:.3f} s ({solo["wall"]:.3f} s ungrouped), '
+        f'{n_seg / wall:.1f} segments/s; launches {launches} (ungrouped '
+        f'{solo["launches"]}); light_wvfm equal to the ungrouped run; '
+        f'{agree["records"]} truth records equal ({agree["near"][0]} / '
+        f'{agree["near"][1]} within 1e-3 of the threshold); data packets '
+        f'{sum(per_ev.values())} vs {sum(per_ev_solo.values())}, per event '
+        f'within {100 * worst:.1f}% (<= 25%), hit-set overlap '
+        f'{overlap:.3f} (>= 0.7); peak device memory {peak:.2f} GiB')
+    return dict(launches=launches, wall=wall, table=table)
+
+
+def memlog_phase(tmp: str, inp: str, kw: dict) -> None:
+    """The charge-only slice with save_memory, read back through
+    read_memlog: per-phase peaks of the card's and the host's memory."""
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    from larndsim_tpu_torch.utils.memlog import read_memlog
+    mem = os.path.join(tmp, 'memlog.h5')
+    run_simulation(inp, os.path.join(tmp, 'slice_memlog.h5'),
+                   save_memory=mem, **kw)
+    tables = read_memlog(mem)
+    want = ('loading', 'quench_drift_mod-1', 'loop_mod-1')
+    assert set(want) <= set(tables), sorted(tables)
+    peaks = []
+    for name in want:
+        t = tables[name]
+        used = np.asarray(t['gpu_mem_used'], np.float64)
+        assert len(used) > 0 and (used > 0).all(), (name, used)
+        peaks.append(f'{name}: {len(used)} snapshots, card in use up to '
+                     f'{used.max() / 2 ** 30:.3f} GiB (free down to '
+                     f'{np.asarray(t["gpu_mem_free"]).min() / 2 ** 30:.2f} '
+                     'GiB), host traced peak '
+                     f'{np.asarray(t["cpu_mem_peak"]).max() / 2 ** 20:.1f} '
+                     'MiB')
+    log('memlog', 'charge-only slice with save_memory, read back through '
+        'read_memlog: ' + '; '.join(peaks))
 
 
 def light_checks(out: str, n_seg: int) -> str:
@@ -662,6 +897,14 @@ def main(argv=None) -> int:
         log('slice', f'wall {wall:.3f} s, {n_seg / wall:.1f} segments/s, '
             f'{n_data} data packets, launches {launches}, peak device '
             f'memory {peak_gib:.2f} GiB')
+        phase_table('charge-only slice')
+        cost = trace_cost()
+        log('phases', f'cost of one phase on the card: {cost["phase"]:.1f} '
+            'us of host time; alone: a phase on the host only '
+            f'{cost["host_phase"]:.1f} us, a profiler range '
+            f'{cost["profiler_range"]:.1f} us, an NVTX range '
+            f'{cost["nvtx_range"]:.1f} us, two timing events created, '
+            f'recorded and read {cost["event_pair"]:.1f} us')
 
         # ---- charge + light ----
         paths_l = write_module0(os.path.join(tmp, 'module0_light'),
@@ -717,7 +960,12 @@ def main(argv=None) -> int:
             f'batch ({len(rest_ms)}); launches {launches_l}, peak device '
             f'memory {peak_l:.2f} GiB')
 
-        truth_phase(tmp, out_l, kw_l, n_seg, light_slice, light_model)
+        solo = truth_phase(tmp, out_l, kw_l, n_seg, light_slice,
+                           light_model)
+        grouped = grouped_phase(
+            tmp, solo, dict(kw=kw, out=out, wall=wall, launches=launches),
+            n_seg, main_path)
+        memlog_phase(tmp, inp, kw)
 
         if opts.profile:
             profile_slice(inp, os.path.join(tmp, 'profiled.h5'), kw,
@@ -742,10 +990,12 @@ def main(argv=None) -> int:
         dict(name='induced_current', route='cuda', source=K1_SOURCE,
              replaces=K1_REPLACES, launches=launches['induced_current'],
              launches_charge_light=launches_l['induced_current'],
+             launches_grouped=grouped['launches']['induced_current'],
              **k1, **at_production('induced_current')),
         dict(name='fee_fsm', route='cuda', source=K2_SOURCE,
              replaces=K2_REPLACES, launches=launches['fee_fsm'],
-             launches_charge_light=launches_l['fee_fsm'], **k2,
+             launches_charge_light=launches_l['fee_fsm'],
+             launches_grouped=grouped['launches']['fee_fsm'], **k2,
              **at_production('fee_fsm')),
     ] + probes
     print(json.dumps({'kernels': kernels}))

@@ -2,15 +2,20 @@
 waveforms out.
 
 Counterpart of ``larndsim_tpu.cli.simulate_pixels.run_simulation`` for one
-module (no module-to-module variation), one device and one event per
-batch; the light chain runs in beam-trigger mode (mode 1).  Flag names
-match the JAX CLI for every flag supported here, plus ``--device``.  The
-charge chain's draws come from a ``torch.Generator`` per batch, seeded from
-(rand_seed, event, batch number); the light chain's from a generator of
-their own per (event, sub-batch) (:func:`light_draw`), so switching light
-on moves no charge draw.  Event times come from
+module (no module-to-module variation) and one device; the light chain runs
+in beam-trigger mode (mode 1).  Flag names match the JAX CLI for every flag
+supported here, plus ``--device``, ``--truth_path`` and ``--unique_guard``.
+``event_group_size`` G runs up to G independent (event, TPC) batches as one
+charge call (pixel keys offset per event) and their first batches' light
+as one group call.  The charge chain's draws come from a
+``torch.Generator`` per call, seeded from (rand_seed, the call's first
+event, call number); the light chain's from a generator of their own per
+(event, sub-batch) (:func:`light_draw`), so switching light on moves no
+charge draw and grouping moves no light draw.  Event times come from
 ``np.random.default_rng(rand_seed)`` as in the JAX CLI, so the packet
-timestamps match it.
+timestamps match it.  The run ends with the phase table
+(``utils.trace``); ``save_memory`` writes the memory log
+(``utils.memlog``).
 
     python -m larndsim_tpu_torch.cli.simulate_pixels IN.h5 OUT.h5 \\
         --detector_properties det.yaml --pixel_layout layout.yaml \\
@@ -40,8 +45,10 @@ from ..ops.drift import drift, select_active_volume
 from ..ops.quench import quench
 from ..params import (get_module_ids, load_detector, load_light, load_sim,
                       physics)
-from ..segments import from_structured, to_structured
+from ..segments import from_structured, from_structured_group, to_structured
+from ..utils import trace
 from ..utils.batching import TPCBatcher
+from ..utils.memlog import MemoryLogger
 from ..utils.pixel_lut import PixelLUT
 
 
@@ -66,7 +73,8 @@ def _single(value, what: str):
 
 def batch_generator(rand_seed: int, i_mod: int, event: int, seq: int,
                     device) -> torch.Generator:
-    """Generator of one batch's draws, seeded from its identity."""
+    """Generator of one charge call's draws, seeded from its identity: its
+    first event and its number in the run."""
     seed = np.random.SeedSequence(
         [rand_seed, max(i_mod, 0), int(event), seq]).generate_state(1)[0]
     return torch.Generator(device=device).manual_seed(int(seed))
@@ -98,10 +106,13 @@ def run_simulation(input_filename: str,
                    pixel_thresholds_file=None,
                    pixel_gains_file=None,
                    rand_seed: int | None = None,
+                   save_memory: str | None = None,
                    step_scale: float = 1.0,
+                   event_group_size: int = 1,
                    device: str = 'cuda',
                    truth_path: str = 'device',
-                   truth_workers: int = 1):
+                   truth_workers: int = 1,
+                   unique_guard: int = 65536):
     """Simulate the charge and light readout of a pixelated LArTPC.
 
     ``light_simulated`` None follows the configuration and the detector
@@ -114,6 +125,12 @@ def run_simulation(input_filename: str,
     card, kept records pulled; 'host': the card's top-K contributors,
     records recomputed on ``truth_workers`` worker threads); the records
     are written in batch order, and a worker's error fails the run.
+    ``event_group_size`` G groups up to G (event, TPC) batches into one
+    charge call and their events' first batches into one light call; a
+    group also closes before it would pass ``sim.batch_size`` segments, or
+    ``unique_guard`` unique pixels at the largest unique-pixel-per-segment
+    ratio seen so far (0: no guard).  ``save_memory`` names the memory
+    log's file (HDF5 for .h5 / .hdf5, else npz).
     """
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
@@ -153,7 +170,11 @@ def run_simulation(input_filename: str,
                                  and light_loaded.light_simulated)
     if light.light_simulated:
         light_model.check_supported(light, truth_path)
+    memlog = MemoryLogger(save_memory is None, device)
+    memlog.start()
     t_sim0 = time.time()
+    # a table per run: repeated runs in one process would add up
+    trace.reset()
     if rand_seed is None:
         rand_seed = int(time.time())
     np_rng = np.random.default_rng(rand_seed)
@@ -166,6 +187,8 @@ def run_simulation(input_filename: str,
                          max_events_per_file=sim.max_events_per_file)
     tracks = inp.tracks
     vertices, mc_hdr, mc_stack = inp.vertices, inp.mc_hdr, inp.mc_stack
+    memlog.take_snapshot()
+    memlog.archive('loading')
 
     det_model = load_detector(detector_properties, pixel_layout,
                               device=device)
@@ -230,6 +253,8 @@ def run_simulation(input_filename: str,
     segs_all = drift(quench(segs_all, det, physics.BIRKS), det)
     tracks_mod = to_structured(segs_all, dtype=all_mod_tracks.dtype)
     print(f'Quenching and drifting: {time.time() - t0:.2f} s')
+    memlog.take_snapshot()
+    memlog.archive(f'quench_drift_mod{i_mod}')
 
     # ---- light incidence over the module (cli:398-441) ----
     if light.light_simulated:
@@ -356,52 +381,84 @@ def run_simulation(input_filename: str,
             pending_truth.append((fut, int(ievd_l), i_light_trig))
         i_light_trig += ntrig
 
-    def process_light(ievd, sel, segs):
-        """The light batch of these segments: only an event's first batch
-        triggers (i_subbatch 0, cli:1047-1051)."""
-        i_sub = 0 if ievd not in light_done_events else 1
-        light_done_events.add(ievd)
-        pad, n = segs.size, len(sel)
-        rows = torch.from_numpy(sel).to(device)
-        inc = light_inc.new_zeros((pad, light_inc.shape[1]))
-        inc[:n] = light_inc[rows]
-        vox = light_vox.new_zeros((pad, 3))
-        vox[:n] = light_vox[rows]
-        lres = light_model.simulate_light_batch(
-            segs, light, sim, inc, vox, lut, light_noise,
+    def light_rows(sels, pad):
+        """The incidence and voxels of each batch's segments, (G, pad, C)
+        and (G, pad, 3), zero past each batch's length."""
+        inc = light_inc.new_zeros((len(sels), pad, light_inc.shape[1]))
+        vox = light_vox.new_zeros((len(sels), pad, 3))
+        for g, sel in enumerate(sels):
+            rows = torch.from_numpy(sel).to(device)
+            inc[g, :len(sel)] = light_inc[rows]
+            vox[g, :len(sel)] = light_vox[rows]
+        return inc, vox
+
+    def light_batch(ievd, sel, i_sub, segs=None):
+        if segs is None:
+            segs = from_structured(tracks_mod[sel],
+                                   pad_to=bucket(len(sel), lo=32),
+                                   device=device)
+        inc, vox = light_rows([sel], segs.size)
+        return light_model.simulate_light_batch(
+            segs, light, sim, inc[0], vox[0], lut, light_noise,
             light_draw(rand_seed, i_mod, ievd, i_sub, device),
             i_subbatch=i_sub, truth_path=truth_path,
             truth_executor=truth_executor, event_id=int(ievd))
-        accumulate_light(ievd, lres)
 
-    def process(ievd, sel, seq):
-        selected = tracks_mod[sel]
-        segs = from_structured(selected, pad_to=bucket(len(sel), lo=32),
-                               device=device)
-        if light.light_simulated:
-            process_light(ievd, sel, segs)
-        gen = batch_generator(rand_seed, i_mod, ievd, seq, device)
-        res = simulate_charge_batch(
-            segs, det_model, sim, generator_draw(gen, device), response,
-            pixel_thresholds=thresholds_lut, pixel_gains=gains_lut,
-            already_drifted=True, step_scale=step_scale, host_segs=selected)
-        if res.overflow:
-            warnings.warn('More segments per pixel than MAX_TRACKS_PER_PIXEL '
-                          f'({sim.max_tracks_per_pixel}); backtracking may '
-                          'be incomplete')
-        # batch-local track indices -> global ids (cli:1112-1115)
+    def process_light(items, segs):
+        """The light of a group's batches (cli:1033-1054): only an event's
+        first batch triggers (i_subbatch 0); two or more first batches run
+        as one group call, each with its own draws; a later batch of an
+        event runs alone with i_subbatch 1 (adds nothing).  ``segs``: the
+        charge call's segments when it holds one batch."""
+        firsts, later = [], []
+        for ievd, sel in items:
+            (later if ievd in light_done_events else firsts).append(
+                (ievd, sel))
+            light_done_events.add(ievd)
+        with trace.phase('light_batch', device):
+            if len(firsts) > 1:
+                sels = [sel for _, sel in firsts]
+                pad = bucket(max(len(sel) for sel in sels), lo=32)
+                inc, vox = light_rows(sels, pad)
+                lres = light_model.simulate_light_group(
+                    from_structured_group([tracks_mod[sel] for sel in sels],
+                                          pad, device=device),
+                    light, sim, inc, vox, lut, light_noise,
+                    [light_draw(rand_seed, i_mod, ievd, 0, device)
+                     for ievd, _ in firsts],
+                    truth_path=truth_path, truth_executor=truth_executor,
+                    event_ids=[int(ievd) for ievd, _ in firsts])
+            else:
+                lres = [light_batch(ievd, sel, 0, segs)
+                        for ievd, sel in firsts]
+            lres += [light_batch(ievd, sel, 1, segs) for ievd, sel in later]
+        for (ievd, _), res in zip(firsts + later, lres):
+            accumulate_light(ievd, res)
+
+    def accumulate_charge(items, cat, res):
+        """One charge call's rows (cli:953-998): events and pixels decoded
+        from the keys, batch-local track indices made global ids."""
+        nonlocal uniq_ratio
+        uniq_ratio = max(uniq_ratio, res.n_unique / len(cat))
+        uniq = res.unique_pix
+        valid_u = uniq >= 0
+        events = np.array([ievd for ievd, _ in items], dtype=np.int64)
+        if len(items) > 1:
+            event_u = events[np.where(valid_u, uniq // n_pix_total, 0)]
+            pid_u = np.where(valid_u, uniq % n_pix_total, -1)
+        else:
+            event_u = np.full(len(uniq), events[0])
+            pid_u = uniq
         tmap = res.track_pixel_map
         tmap_seg = np.where(tmap >= 0,
-                            segment_ids[sel][np.clip(tmap, 0, None)], -1)
+                            segment_ids[cat][np.clip(tmap, 0, None)], -1)
         tmap_trj = np.where(tmap >= 0,
-                            traj_ids[sel][np.clip(tmap, 0, None)], -1)
-        valid_u = res.unique_pix >= 0
+                            traj_ids[cat][np.clip(tmap, 0, None)], -1)
         row_offset = sum(len(x) for x in results_acc['unique_pix'])
         new_row = np.cumsum(valid_u) - 1
         keep_h = valid_u[res.hit_row]
-        results_acc['event_pix'].append(
-            np.full(int(valid_u.sum()), ievd, dtype=np.int64))
-        results_acc['unique_pix'].append(res.unique_pix[valid_u])
+        results_acc['event_pix'].append(event_u[valid_u])
+        results_acc['unique_pix'].append(pid_u[valid_u])
         results_acc['track_pixel_map'].append(tmap_seg[valid_u])
         results_acc['traj_pixel_map'].append(tmap_trj[valid_u])
         results_acc['hit_row'].append(
@@ -410,14 +467,59 @@ def run_simulation(input_filename: str,
         results_acc['hit_ticks'].append(res.hit_ticks[keep_h])
         results_acc['hit_frac'].append(res.hit_fractions[keep_h])
         if len(results_acc['event_pix']) >= sim.write_batch_size:
-            flush_results()
+            with trace.phase('export'):
+                flush_results()
+
+    def process_group():
+        """One charge call for the buffered batches, with their light."""
+        nonlocal group_seq
+        if not group:
+            return
+        group_seq += 1
+        items = list(group)
+        group.clear()
+        sels = [sel for _, sel in items]
+        cat = np.concatenate(sels)
+        selected = tracks_mod[cat]
+        segs = from_structured(selected, pad_to=bucket(len(cat), lo=32),
+                               device=device)
+        if light.light_simulated:
+            process_light(items, segs if len(items) == 1 else None)
+        slot = None
+        if len(items) > 1:
+            slot = np.zeros(segs.size, np.int32)
+            slot[:len(cat)] = np.repeat(np.arange(len(items)),
+                                        [len(sel) for sel in sels])
+        gen = batch_generator(rand_seed, i_mod, items[0][0], group_seq,
+                              device)
+        with trace.phase('charge_batch', device):
+            res = simulate_charge_batch(
+                segs, det_model, sim, generator_draw(gen, device), response,
+                pixel_thresholds=thresholds_lut, pixel_gains=gains_lut,
+                already_drifted=True, step_scale=step_scale,
+                host_segs=selected, event_slot=slot)
+        if res.overflow:
+            warnings.warn('More segments per pixel than MAX_TRACKS_PER_PIXEL '
+                          f'({sim.max_tracks_per_pixel}); backtracking may '
+                          'be incomplete')
+        accumulate_charge(items, cat, res)
 
     batcher = TPCBatcher(all_mod_tracks, tracks_mod, sim.event_separator,
                          tpc_batch_size=sim.event_batch_size,
                          tpc_borders=det_model.tpc_borders)
 
+    nx, ny = det.n_pixels
+    n_pix_total = nx * ny * det.n_tpcs
+    group_cap = max(int(event_group_size), 1)
+    if n_pix_total * (group_cap + 1) >= 2 ** 31:
+        warnings.warn('event_group_size reduced to 1: pixel keys would '
+                      'overflow int32 for this geometry')
+        group_cap = 1
+    group: list = []       # buffered (event, segment rows) of one call
+    group_seq = 0          # calls so far: each one's draws of its own
+    uniq_ratio = 0.0       # the largest unique pixels per segment so far
+
     event_id_buffer = -1
-    seq = 0
     for ievd, batch_mask in batcher:
         this_event_time = event_times[int(ievd) % sim.max_events_per_file]
         if ievd > event_id_buffer:
@@ -437,6 +539,7 @@ def run_simulation(input_filename: str,
                     trig_mode, sim, i_mod)
         idx = np.nonzero(batch_mask)[0]
         if len(idx) == 0:
+            process_group()
             if light.light_simulated:
                 # an empty batch still gets its event a zero waveform row,
                 # float64 (cli:1103-1132)
@@ -453,15 +556,34 @@ def run_simulation(input_filename: str,
                 flush_results()
             continue
         if len(idx) > sim.batch_size:
+            # an oversized batch: the pending group first, then its
+            # sub-batches, each a call of its own (cli:1136-1147)
+            process_group()
             warnings.warn('Entered sub-batch loop; consider increasing '
                           f'batch_size (currently {sim.batch_size})')
-        for i0 in range(0, len(idx), sim.batch_size):
-            seq += 1
-            process(ievd, idx[i0:i0 + sim.batch_size], seq)
-    flush_results()
-    drain_truth(block=True)
+            for i0 in range(0, len(idx), sim.batch_size):
+                group.append((ievd, idx[i0:i0 + sim.batch_size]))
+                process_group()
+        else:
+            # the group is capped by its segments too: one call holds an
+            # (S, P, T) signals tensor (cli:1149-1160)
+            would = sum(len(sel) for _, sel in group) + len(idx)
+            if group and (would > sim.batch_size
+                          or (unique_guard and uniq_ratio
+                              and would * uniq_ratio > unique_guard)):
+                process_group()
+            group.append((ievd, idx))
+            if len(group) >= group_cap:
+                process_group()
+        memlog.take_snapshot()
+    process_group()
+    with trace.phase('export/flush'):
+        flush_results()
+    with trace.phase('truth/drain'):
+        drain_truth(block=True)
     if truth_executor is not None:
         truth_executor.shutdown()
+    memlog.archive(f'loop_mod{i_mod}')
 
     # ---------------- truth + final exports ----------------
     segments_to_files = tracks_mod
@@ -498,8 +620,13 @@ def run_simulation(input_filename: str,
     if 'configs' in out:
         out['configs'].attrs['pixel_layout'] = str(pixel_layout)
     out.close()
+    memlog.store(save_memory)
     print(f'Output saved in: {output_filename}')
     print(f'Elapsed time: {time.time() - t_sim0:.2f} s')
+    rep = trace.report()
+    if rep:
+        print('Phase breakdown:')
+        print(rep)
 
 
 def main(argv=None):

@@ -23,6 +23,7 @@ from ..params import physics
 from ..params.detector import DetectorModel, DetectorParams
 from ..params.sim import SimParams
 from ..segments import Segments
+from ..utils import trace
 
 #: draw(name, shape) -> standard normals of that shape.  Names: 'smear'
 #: (3, S, n_steps), 'fee_noise' (n_scan, 5, U), 'q_init' (U,).
@@ -106,11 +107,13 @@ def stage_batch(segs: Segments, det_model: DetectorModel, sim: SimParams, *,
                 pixel_thresholds=None, pixel_gains=None,
                 mode: int = physics.BIRKS, already_drifted: bool = False,
                 step_scale: float = 1.0,
-                host_segs: np.ndarray | None = None) -> BatchStage:
+                host_segs: np.ndarray | None = None,
+                event_slot=None) -> BatchStage:
     """Quench and drift (unless ``already_drifted``), choose the batch's
     shapes on the host, and build the pixel maps; the arguments are those
     of :func:`simulate_charge_batch`."""
     det = det_model.params
+    dev = segs.x.device
     if not already_drifted:
         segs = drift(quench(segs, det, mode), det)
 
@@ -157,26 +160,50 @@ def stage_batch(segs: Segments, det_model: DetectorModel, sim: SimParams, *,
     n_steps = bucket(int(np.ceil(np.max(host['dx'][valid]) / min_step))
                      * sim.mc_sample_multiplier, lo=8)
 
-    pixels, distances, npix = pixelize.get_pixels(
-        segs, det, max_active=max_active, radius=max_radius,
-        max_neighboring=max_nb)
+    with trace.phase('charge/get_pixels', dev):
+        pixels, distances, npix = pixelize.get_pixels(
+            segs, det, max_active=max_active, radius=max_radius,
+            max_neighboring=max_nb)
+
+    nx, ny = det.n_pixels
+    n_pix_total = nx * ny * det.n_tpcs
+    keyed = pixels
+    if event_slot is not None:
+        # each event of a group in a pixel-id space of its own, so events
+        # never share a waveform; unique ids decode as key // n_pix_total
+        # (the event's slot) and key % n_pix_total (the pixel)
+        slot_np = np.asarray(event_slot)
+        if n_pix_total * (int(slot_np.max()) + 1) >= 2 ** 31:
+            raise ValueError('event grouping would overflow int32 pixel '
+                             'keys')
+        slot_t = torch.as_tensor(slot_np, dtype=pixels.dtype, device=dev)
+        keyed = torch.where(pixels >= 0,
+                            pixels + slot_t[:, None] * n_pix_total, -1)
+
     # the unique axis is sized from the exact unique count (one host read)
-    counts = accumulate.batch_pixel_counts(pixels, npix).cpu().numpy()
-    n_unique_cap = bucket(int(counts[1]), lo=32)
+    with trace.phase('charge/npix_sync', dev):
+        counts = accumulate.batch_pixel_counts(keyed, npix).cpu().numpy()
+        n_unique_cap = bucket(int(counts[1]), lo=32)
 
-    uniq, n_unique = accumulate.unique_pixels(pixels, n_unique_cap)
-    pix_idx = accumulate.pixel_index_map(pixels, uniq)
-    track_map, slot, overflow = accumulate.track_pixel_map(
-        pix_idx, distances, n_unique_cap,
-        max_tracks=sim.max_tracks_per_pixel)
-    px, py = pixel_centers(torch.clamp(pixels, min=0), det)
-    track_starts, _ = pixelize.time_intervals(segs, det)
+    with trace.phase('charge/prep', dev):
+        uniq, n_unique = accumulate.unique_pixels(keyed, n_unique_cap)
+        pix_idx = accumulate.pixel_index_map(keyed, uniq)
+        track_map, slot, overflow = accumulate.track_pixel_map(
+            pix_idx, distances, n_unique_cap,
+            max_tracks=sim.max_tracks_per_pixel)
+        # the centres of the pixels themselves, not of their keys
+        px, py = pixel_centers(torch.clamp(pixels, min=0), det)
+        track_starts, _ = pixelize.time_intervals(segs, det)
 
-    thresholds = gains = None
-    if pixel_thresholds is not None:
-        thresholds = pixel_thresholds.lookup(torch.clamp(uniq, min=0))
-    if pixel_gains is not None:
-        gains = pixel_gains.lookup(torch.clamp(uniq, min=0))[:, None]
+        # per-pixel values by pixel id: a grouped event's key is the id
+        # plus its slot's offset (the JAX package looks the key up, so an
+        # event past the group's first gets the default)
+        pid = torch.clamp(uniq, min=0) % n_pix_total
+        thresholds = gains = None
+        if pixel_thresholds is not None:
+            thresholds = pixel_thresholds.lookup(pid)
+        if pixel_gains is not None:
+            gains = pixel_gains.lookup(pid)[:, None]
 
     return BatchStage(
         segs=segs, max_nb=max_nb, t_sig=t_sig,
@@ -193,8 +220,8 @@ def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
                           mode: int = physics.BIRKS,
                           already_drifted: bool = False,
                           step_scale: float = 1.0,
-                          host_segs: np.ndarray | None = None
-                          ) -> ChargeChainResult:
+                          host_segs: np.ndarray | None = None,
+                          event_slot=None) -> ChargeChainResult:
     """Run the full charge chain on one (padded) segment batch.
 
     Args:
@@ -208,79 +235,93 @@ def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
             MIN_STEP_SIZE density).
         host_segs: the batch's drifted rows on the host (with
             ``already_drifted``), which spares a device read.
+        event_slot: optional (S,) int array that groups several
+            independent events into one call: pixel ids are keyed by
+            ``id + slot * n_pixels_total`` so events never share a
+            waveform; ``unique_pix`` holds the keys (decode the event's
+            slot with ``// n_pixels_total``, the pixel with ``%``).
+            Per-pixel thresholds and gains are looked up by pixel id.
     """
     det = det_model.params
     dev = segs.x.device
     st = stage_batch(segs, det_model, sim, pixel_thresholds=pixel_thresholds,
                      pixel_gains=pixel_gains, mode=mode,
                      already_drifted=already_drifted, step_scale=step_scale,
-                     host_segs=host_segs)
+                     host_segs=host_segs, event_slot=event_slot)
     segs, n_unique_cap = st.segs, st.n_unique_cap
-    signals = current.current(
-        segs, st.px, st.py, st.pixels >= 0, response, det,
-        draw('smear', (3, segs.size, st.n_steps)), n_steps=st.n_steps,
-        t_sig=st.t_sig, shift_band=st.shift_band, min_step=st.min_step)
+    # the JAX package's label of its induced-current kernel, so the two
+    # phase tables line up
+    with trace.phase('charge/current_pallas', dev):
+        signals = current.current(
+            segs, st.px, st.py, st.pixels >= 0, response, det,
+            draw('smear', (3, segs.size, st.n_steps)), n_steps=st.n_steps,
+            t_sig=st.t_sig, shift_band=st.shift_band, min_step=st.min_step)
 
     # --- waveform sum + FEE ---
-    pixels_signals = accumulate.sum_pixel_signals(
-        signals, st.pix_idx, st.track_starts, n_unique_cap,
-        n_ticks=det.time_ticks, time_sampling=det.time_sampling)
-    thresholds = st.thresholds
-    if thresholds is None:
-        thresholds = torch.full((n_unique_cap,),
-                                det.f32('discrimination_threshold'),
-                                dtype=torch.float32, device=dev)
     a_full = sim.max_adc_values
-    n_scan = det.time_ticks + det.integrate_ticks + det.busy_ticks + 4
-    s = fee.fsm_scalars(det, max_adc=a_full)
-    q_init = draw('q_init', (n_unique_cap,)) * s.sigma_reset
-    fee_res = fee.get_adc_values(
-        pixels_signals, fee.tick_times(det, dev), thresholds, det,
-        max_adc=a_full, n_scan=n_scan,
-        noise=draw('fee_noise', (n_scan, 5, n_unique_cap)), q_init=q_init)
+    with trace.phase('charge/fee_stage', dev):
+        pixels_signals = accumulate.sum_pixel_signals(
+            signals, st.pix_idx, st.track_starts, n_unique_cap,
+            n_ticks=det.time_ticks, time_sampling=det.time_sampling)
+        thresholds = st.thresholds
+        if thresholds is None:
+            thresholds = torch.full((n_unique_cap,),
+                                    det.f32('discrimination_threshold'),
+                                    dtype=torch.float32, device=dev)
+        n_scan = det.time_ticks + det.integrate_ticks + det.busy_ticks + 4
+        s = fee.fsm_scalars(det, max_adc=a_full)
+        q_init = draw('q_init', (n_unique_cap,)) * s.sigma_reset
+        fee_res = fee.get_adc_values(
+            pixels_signals, fee.tick_times(det, dev), thresholds, det,
+            max_adc=a_full, n_scan=n_scan,
+            noise=draw('fee_noise', (n_scan, 5, n_unique_cap)),
+            q_init=q_init)
 
-    # one host read: unique count, per-pixel hit counts, track occupancy
-    n_unique_i = int(st.n_unique)
-    n_u = min(bucket(max(n_unique_i, 1), lo=32), n_unique_cap)
-    t_cnt = (st.track_map[:n_u] >= 0).sum(dim=1).max()
-    sync_h = torch.cat([fee_res.n_adc[:n_u],
-                        t_cnt[None].to(fee_res.n_adc.dtype)]).cpu().numpy()
-    n_adc_host, t_max = sync_h[:-1], int(sync_h[-1])
-    max_hits = int(n_adc_host.max()) if n_adc_host.size else 0
+        # one host read: unique count, per-pixel hit counts, track
+        # occupancy
+        n_unique_i = int(st.n_unique)
+        n_u = min(bucket(max(n_unique_i, 1), lo=32), n_unique_cap)
+        t_cnt = (st.track_map[:n_u] >= 0).sum(dim=1).max()
+        sync_h = torch.cat([fee_res.n_adc[:n_u],
+                            t_cnt[None].to(fee_res.n_adc.dtype)]
+                           ).cpu().numpy()
+        n_adc_host, t_max = sync_h[:-1], int(sync_h[-1])
+        max_hits = int(n_adc_host.max()) if n_adc_host.size else 0
 
-    # fractions only for the ADC slots that latched somewhere
-    fractions = fee.current_fractions(
-        signals, st.pix_idx, st.slot, st.track_starts, fee_res, det,
-        max_adc=a_full, max_tracks=sim.max_tracks_per_pixel,
-        n_adc_scan=max_hits)
-    adc = fee.digitize(fee_res.integrals, det, gain=st.gains)
+        # fractions only for the ADC slots that latched somewhere
+        fractions = fee.current_fractions(
+            signals, st.pix_idx, st.slot, st.track_starts, fee_res, det,
+            max_adc=a_full, max_tracks=sim.max_tracks_per_pixel,
+            n_adc_scan=max_hits)
+        adc = fee.digitize(fee_res.integrals, det, gain=st.gains)
 
     # pull only the hit entries and the occupied track prefix
     K_full = sim.max_tracks_per_pixel
     t_cap = min(bucket(max(t_max, 1), lo=4), K_full)
-    hit_mask = (torch.arange(a_full, device=dev)[None, :]
-                < fee_res.n_adc[:n_u, None])
-    u_h, a_h = torch.nonzero(hit_mask, as_tuple=True)
 
     def _pad_tracks(arr_np, fill):
         out = np.full((arr_np.shape[0], K_full), fill, arr_np.dtype)
         out[:, :arr_np.shape[1]] = arr_np
         return out
 
-    return ChargeChainResult(
-        unique_pix=st.uniq[:n_u].cpu().numpy(),
-        n_unique=n_unique_i,
-        n_adc=n_adc_host,
-        track_pixel_map=_pad_tracks(
-            st.track_map[:n_u, :t_cap].cpu().numpy(), -1),
-        overflow=bool(st.overflow.any()),
-        segments=segs,
-        max_adc_slots=a_full,
-        hit_row=u_h.to(torch.int32).cpu().numpy(),
-        hit_slot=a_h.to(torch.int32).cpu().numpy(),
-        hit_adc=adc[u_h, a_h].cpu().numpy(),
-        hit_ticks=fee_res.ticks[u_h, a_h].cpu().numpy(),
-        hit_integrals=fee_res.integrals[u_h, a_h].cpu().numpy(),
-        hit_fractions=_pad_tracks(
-            fractions[u_h, a_h, :t_cap].cpu().numpy(), 0.0),
-    )
+    with trace.phase('charge/pull', dev):
+        hit_mask = (torch.arange(a_full, device=dev)[None, :]
+                    < fee_res.n_adc[:n_u, None])
+        u_h, a_h = torch.nonzero(hit_mask, as_tuple=True)
+        return ChargeChainResult(
+            unique_pix=st.uniq[:n_u].cpu().numpy(),
+            n_unique=n_unique_i,
+            n_adc=n_adc_host,
+            track_pixel_map=_pad_tracks(
+                st.track_map[:n_u, :t_cap].cpu().numpy(), -1),
+            overflow=bool(st.overflow.any()),
+            segments=segs,
+            max_adc_slots=a_full,
+            hit_row=u_h.to(torch.int32).cpu().numpy(),
+            hit_slot=a_h.to(torch.int32).cpu().numpy(),
+            hit_adc=adc[u_h, a_h].cpu().numpy(),
+            hit_ticks=fee_res.ticks[u_h, a_h].cpu().numpy(),
+            hit_integrals=fee_res.integrals[u_h, a_h].cpu().numpy(),
+            hit_fractions=_pad_tracks(
+                fractions[u_h, a_h, :t_cap].cpu().numpy(), 0.0),
+        )

@@ -18,6 +18,11 @@ and its MC truth:
   host with a windowed GEMM (:func:`_host_smeared_truth_sparse`), on a
   worker thread when the caller gives an executor.
 
+:func:`simulate_light_group` runs G independent events' beam batches as
+one: each op takes the group on a leading axis, each event draws from its
+own :class:`ops.light.LightDraw` as its solo call would, and each event's
+results equal those of its own :func:`simulate_light_batch` call.
+
 The threshold trigger (mode 0) is refused (:func:`check_supported`).
 """
 from __future__ import annotations
@@ -36,7 +41,8 @@ from ..ops import light as light_ops
 from ..ops.light import LightDraw
 from ..params.light import LightParams
 from ..params.sim import SimParams
-from ..segments import Segments
+from ..segments import Segments, stack
+from ..utils import trace
 
 #: cap on the simulated light ticks of one batch (cli:1125:
 #: min(nticks, 5e4))
@@ -69,6 +75,19 @@ def generator_draw(generator: torch.Generator, device) -> LightDraw:
                                          device=device),
         uniform=lambda shape: torch.rand(shape, generator=generator,
                                          device=device))
+
+
+def group_draw(draws: list) -> LightDraw:
+    """The draws of a stacked group of events: event g's slice of each
+    draw comes from ``draws[g]`` at the shape its solo call draws, in the
+    solo call's order (Poisson counts, normals, noise phases)."""
+    return LightDraw(
+        poisson=lambda rate: torch.stack(
+            [d.poisson(r) for d, r in zip(draws, rate)]),
+        normal=lambda shape: torch.stack(
+            [d.normal(tuple(shape[1:])) for d in draws]),
+        uniform=lambda shape: torch.stack(
+            [d.uniform(tuple(shape[1:])) for d in draws]))
 
 
 def digit_samples(light: LightParams) -> int:
@@ -379,13 +398,17 @@ def _smeared_truth_stage(segs, voxels, n_det, op_channel, time_dist,
                          table: torch.Tensor, *, n_ticks: int, k_truth: int):
     """Each contributor's series (C * K, n_ticks) times the transfer table
     in full float32 (JAX: ``Precision.HIGHEST``): (ids (C, K), truth
-    (1, C, digit_samples, K)) on the batch's device."""
+    (1, C, digit_samples, K)) on the batch's device; for a stacked group,
+    one product of its G * C * K rows, (G, C, K) and (G, 1, C,
+    digit_samples, K)."""
     ids, series = light_ops.light_truth_series(
         segs, voxels, n_det, op_channel, time_dist, start_time, light,
         n_ticks=n_ticks, k_truth=k_truth)
-    C, K = ids.shape
-    tw = f32.matmul(series.view(C * K, n_ticks), table)        # (C*K, S)
-    return ids, tw.view(C, K, 1, -1).permute(2, 0, 3, 1).contiguous()
+    *lead, C, K = ids.shape
+    tw = f32.matmul(series.view(-1, n_ticks), table)           # (G*C*K, S)
+    # (..., C, K, 1, S) -> (..., 1, C, S, K)
+    return ids, tw.view(*lead, C, K, 1, -1).movedim(
+        (-2, -4, -1, -3), (-4, -3, -2, -1)).contiguous()
 
 
 def _empty_truth_sparse() -> dict:
@@ -395,29 +418,46 @@ def _empty_truth_sparse() -> dict:
         pe_current=np.empty(0, np.float64))
 
 
-def _pull_dense_truth(ids: torch.Tensor, tw: torch.Tensor, op_channel,
-                      threshold: float) -> dict:
-    """Zero-suppressed records of (ntrig, C, S, K) truth: the slots of a
-    contributor (id >= 0) with |pe| > threshold, found on the device; only
-    their flat indices and values are pulled.  Record order is flat-index
-    ascending: (trigger, channel, tick, contributor)."""
-    ntrig, C, S, K = tw.shape
-    keep = (ids[None, :, None, :] >= 0) & (tw.abs() > threshold)
+def _pull_group_dense_truth(ids: torch.Tensor, tw: torch.Tensor,
+                            op_channel, threshold: float) -> list:
+    """Zero-suppressed records of G events' (G, ntrig, C, S, K) truth: the
+    slots of a contributor (id >= 0) with |pe| > threshold, found on the
+    device in one pass; only their flat indices and values are pulled, then
+    split per event on the host.  Record order is flat-index ascending:
+    (trigger, channel, tick, contributor) within each event."""
+    G, ntrig, C, S, K = tw.shape
+    keep = (ids[:, None, :, None, :] >= 0) & (tw.abs() > threshold)
     idx = torch.nonzero(keep.view(-1)).squeeze(1)
     vals = tw.view(-1)[idx]
     idx_h = idx.cpu().numpy()
     if not idx_h.size:
-        return _empty_truth_sparse()
+        return [_empty_truth_sparse() for _ in range(G)]
     vals_h = vals.cpu().numpy()
     ids_h = ids.cpu().numpy()
-    trig, rem = np.divmod(idx_h, C * S * K)
+    op_channel = np.asarray(op_channel)
+    g, rem = np.divmod(idx_h, ntrig * C * S * K)
+    trig, rem = np.divmod(rem, C * S * K)
     chan, rem = np.divmod(rem, S * K)
     tick, k = np.divmod(rem, K)
-    return dict(trig=trig.astype(np.int32),
-                op_channel=np.asarray(op_channel)[chan].astype(np.int32),
-                tick=tick.astype(np.int32),
-                segment_id=ids_h[chan, k].astype(np.int64),
-                pe_current=vals_h.astype(np.float64))
+    bounds = np.searchsorted(g, np.arange(G + 1))
+    out = []
+    for gi in range(G):
+        sl = slice(int(bounds[gi]), int(bounds[gi + 1]))
+        out.append(dict(trig=trig[sl].astype(np.int32),
+                        op_channel=op_channel[chan[sl]].astype(np.int32),
+                        tick=tick[sl].astype(np.int32),
+                        segment_id=ids_h[gi][chan[sl], k[sl]].astype(
+                            np.int64),
+                        pe_current=vals_h[sl].astype(np.float64)))
+    return out
+
+
+def _pull_dense_truth(ids: torch.Tensor, tw: torch.Tensor, op_channel,
+                      threshold: float) -> dict:
+    """One batch's (ntrig, C, S, K) truth through
+    :func:`_pull_group_dense_truth`."""
+    return _pull_group_dense_truth(ids[None], tw[None], op_channel,
+                                   threshold)[0]
 
 
 # --------------------------------------------------------------------------
@@ -694,8 +734,10 @@ def _start_host_copy(tensors) -> 'callable':
 def _worker_smeared_truth(fetch, *args, **kw):
     """Truth-worker entry of the host route: waits for the metadata's
     copies (``fetch``, :func:`_start_host_copy`), then recomputes the
-    records (:func:`_host_smeared_truth_sparse`)."""
-    return _host_smeared_truth_sparse(*fetch(), *args, **kw)
+    records (:func:`_host_smeared_truth_sparse`); traced as
+    ``truth/worker``."""
+    with trace.phase('truth/worker'):
+        return _host_smeared_truth_sparse(*fetch(), *args, **kw)
 
 
 def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
@@ -726,21 +768,58 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
         event_id: the records' event id on a worker.
     """
     check_supported(light, truth_path)
-    dev = n_photons_det.device
-    # every channel of the module, in the TPCs' order
-    op_channel = light.tpc_to_op_channel.cpu().numpy().ravel()
-    C = len(op_channel)
-    n_samples = digit_samples(light)
-    n_ticks, start_time = light_ops.get_nticks(light)
-    n_ticks, conv_ticks = window(light, n_ticks)
     if i_subbatch != 0:
         # the beam trigger fires on an event's first batch only: a later
         # batch has no trigger, and its waveforms would be discarded (the
         # JAX package computes and drops them; the outputs are the same)
-        return LightBatchResult(np.empty(0, int), np.empty(0, int),
-                                np.empty((0, C), int),
-                                torch.zeros((0, C, n_samples), device=dev),
-                                start_time, n_ticks)
+        C = light.tpc_to_op_channel.numel()
+        n_ticks, start_time = light_ops.get_nticks(light)
+        return LightBatchResult(
+            np.empty(0, int), np.empty(0, int), np.empty((0, C), int),
+            torch.zeros((0, C, digit_samples(light)),
+                        device=n_photons_det.device),
+            start_time, window(light, n_ticks)[0])
+    return simulate_light_group(
+        stack([segs]), light, sim, n_photons_det[None], voxels[None], lut,
+        light_noise, [draw], add_noise=add_noise, truth_path=truth_path,
+        truth_executor=truth_executor, event_ids=[event_id])[0]
+
+
+def simulate_light_group(segs: Segments, light: LightParams, sim: SimParams,
+                         n_photons_det, voxels, lut: light_ops.LightLUT,
+                         light_noise: torch.Tensor, draws: list,
+                         add_noise: bool = True,
+                         truth_path: str = 'device',
+                         truth_executor=None,
+                         event_ids=None) -> list[LightBatchResult]:
+    """Run the light chain for G independent events' first batches at
+    once, beam trigger (mode 1): one pass of each op over the group.
+
+    Each event's result equals its own :func:`simulate_light_batch` call
+    (``i_subbatch`` 0) with its row of the group and its draw: the
+    waveforms and the contributor and host-route truth records bit for
+    bit; the device route's truth is one product of the group's G * C * K
+    contributor rows, float32 sums that may differ from a solo call's in
+    the last bits.
+
+    Args:
+        segs: (G, S) stacked segments (``segments.from_structured_group``
+            or ``segments.stack``).
+        n_photons_det: (G, S, C); voxels: (G, S, 3).
+        draws: G :class:`ops.light.LightDraw`, event g's draws as its solo
+            call takes them.
+        event_ids: (G,) the records' event ids on a worker.
+        The other arguments are those of :func:`simulate_light_batch`.
+    """
+    check_supported(light, truth_path)
+    G = len(draws)
+    event_ids = [0] * G if event_ids is None else event_ids
+    dev = n_photons_det.device
+    # every channel of the module, in the TPCs' order
+    op_channel = light.tpc_to_op_channel.cpu().numpy().ravel()
+    n_samples = digit_samples(light)
+    n_ticks, start_time = light_ops.get_nticks(light)
+    n_ticks, conv_ticks = window(light, n_ticks)
 
     op_channel_dev = torch.from_numpy(op_channel).to(dev)
     gains = light.light_gain[op_channel_dev.long()]
@@ -749,6 +828,7 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
         noise = torch.as_tensor(light_noise, dtype=torch.float32, device=dev)
         noise_rows = noise[(op_channel_dev % noise.shape[0]).long()]
 
+    draw = group_draw(draws)
     response = _signal_stage(
         segs, voxels, n_photons_det, op_channel_dev, lut.time_dist,
         lut.t0_avg, start_time, gains, draw, light, n_ticks=n_ticks,
@@ -773,16 +853,17 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
         pad_front=pad_front, pad_back=pad_back,
         k_truth=k_truth if points else 0)
 
-    truth_sparse = truth_future = None
+    truth_sparse, truth_future = [None] * G, [None] * G
     thr = sim.mc_truth_threshold
     if points:
         # sample the combined kernel at the (C, K) contributor points in
         # numpy; only those small arrays leave the device
         kernel = _combined_kernel_host(light, conv_ticks)
-        truth_sparse = _host_truth_sparse(
-            truth_ids.cpu().numpy(), amp.cpu().numpy(),
-            itick.cpu().numpy(), kernel, trigger_idx, light, n_samples,
-            op_channel, thr)
+        ids_h, amp_h, it_h = (t.cpu().numpy() for t in (truth_ids, amp,
+                                                        itick))
+        truth_sparse = [_host_truth_sparse(
+            ids_h[g], amp_h[g], it_h[g], kernel, trigger_idx, light,
+            n_samples, op_channel, thr) for g in range(G)]
     elif k_truth > 0 and truth_path == 'device':
         if sim.ref_exact_truth_staging:
             warnings.warn('ref_exact_truth_staging has no effect on the '
@@ -794,25 +875,28 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
             segs, voxels, n_photons_det, op_channel_dev, lut.time_dist,
             start_time, light, _device_table(T, dev), n_ticks=n_ticks,
             k_truth=k_truth)
-        truth_sparse = _pull_dense_truth(ids, tw, op_channel, thr)
+        with trace.phase('truth/pull', dev):
+            truth_sparse = _pull_group_dense_truth(ids, tw, op_channel, thr)
     elif k_truth > 0:
-        # the device selects the top-K contributors; their (C, K) metadata
-        # is copied now, behind this batch's work, and the records are
-        # recomputed on the host from the host LUT
-        fetch = _start_host_copy(light_ops.light_truth_select(
-            segs, voxels, n_photons_det, k_truth=k_truth))
+        # the device selects each event's top-K contributors; their (C, K)
+        # metadata is copied now, behind the group's work, and each event's
+        # records are recomputed on the host from the host LUT
+        sel = light_ops.light_truth_select(segs, voxels, n_photons_det,
+                                           k_truth=k_truth)
         args = (lut.time_dist_host, op_channel, light, thr, conv_ticks,
                 n_ticks, n_samples, pad_front, pad_back, start_time)
         staged = sim.ref_exact_truth_staging
-        if truth_executor is not None:
-            truth_future = truth_executor.submit(
-                _worker_smeared_truth, fetch, *args, as_records=True,
-                staged=staged, event_id=event_id)
-        else:
-            truth_sparse = _host_smeared_truth_sparse(*fetch(), *args,
-                                                      staged=staged)
-    return LightBatchResult(
+        for g in range(G):
+            fetch = _start_host_copy([t[g] for t in sel])
+            if truth_executor is not None:
+                truth_future[g] = truth_executor.submit(
+                    _worker_smeared_truth, fetch, *args, as_records=True,
+                    staged=staged, event_id=int(event_ids[g]))
+            else:
+                truth_sparse[g] = _host_smeared_truth_sparse(
+                    *fetch(), *args, staged=staged)
+    return [LightBatchResult(
         trigger_idx=trigger_idx, trigger_type=trig_type,
-        op_channel_idx=trig_op, waveforms=wvfms, start_time=start_time,
-        n_ticks=n_ticks, truth_sparse=truth_sparse,
-        truth_future=truth_future)
+        op_channel_idx=trig_op, waveforms=wvfms[g], start_time=start_time,
+        n_ticks=n_ticks, truth_sparse=truth_sparse[g],
+        truth_future=truth_future[g]) for g in range(G)]

@@ -20,6 +20,9 @@ the JAX module has no Pallas kernel.
   or on the host from :func:`light_truth_select`'s metadata).
 * Random draws are explicit: a :class:`LightDraw` supplies the Poisson
   counts, the normals and the noise phases.
+* The beam chain's ops also take a stacked group of independent events
+  on a leading axis (``models.light.simulate_light_group``); each event's
+  values are those of a call with that event alone.
 * The JAX ops run jitted, where XLA turns a division by a constant (a
   tick size, a window length) into a multiplication by the constant's
   float32 reciprocal; ``ops.f32.div_const`` does the same on every device,
@@ -209,6 +212,15 @@ def ordered_sum(keys: torch.Tensor, values: torch.Tensor,
     return out[:n_out]
 
 
+def _event_offset(lead, stride: int, device):
+    """Key offset ``g * stride`` of each event of a stacked group, shaped
+    to broadcast against its (*lead, x, y) tensors; 0 without a group."""
+    if not lead:
+        return 0
+    G = math.prod(lead)
+    return (torch.arange(G, device=device) * stride).view(*lead, 1, 1)
+
+
 def sum_light_signals(segs: Segments, voxels, n_photons_det, op_channel,
                       lut_time_dist, lut_t0_avg, start_time: float,
                       light: LightParams, *, n_ticks: int,
@@ -224,55 +236,79 @@ def sum_light_signals(segs: Segments, voxels, n_photons_det, op_channel,
         start_time: window start [us].
 
     Returns:
-        (C, n_ticks) photons/us.
+        (C, n_ticks) photons/us.  A stacked group of events (segments
+        (G, S), voxels (G, S, 3), photons (G, S, C)) gives (G, C, n_ticks):
+        each event's keys are offset by its own range, so each series is
+        the sum a call with that event alone gives, in the same order.
     """
-    S, C = n_photons_det.shape
+    *lead, S, C = n_photons_det.shape
+    G = math.prod(lead)
     dev = n_photons_det.device
     tick = light.light_tick_size
     lut_idx = (op_channel % lut_time_dist.shape[3]).long()
-    track_time = segs.t0                                       # (S,)
+    track_time = segs.t0                                       # (..., S)
     if S == 0:
-        return torch.zeros((C, n_ticks), dtype=torch.float32, device=dev)
+        return torch.zeros((*lead, C, n_ticks), dtype=torch.float32,
+                           device=dev)
     if lut_smearing:
         nprof = lut_time_dist.shape[4]
-        prof = _at_voxels(lut_time_dist, voxels, lut_idx)      # (S, C, nprof)
+        prof = _at_voxels(lut_time_dist, voxels, lut_idx)  # (.., S, C, nprof)
         # profile bin j arrives at track_time + j * 1 ns (light_sim.py:101:
         # assumes 1 ns profile bins); the tick of (segment, bin) is the same
         # for every channel
         j_arr = torch.arange(nprof, dtype=torch.float32, device=dev) * 1e-3
-        t_arr = track_time[:, None] + j_arr[None, :]           # (S, nprof)
+        t_arr = track_time[..., None] + j_arr                  # (.., S, nprof)
         tick_f = f32.div_const(t_arr - start_time, tick)
         itick = torch.ceil(tick_f).to(torch.int32) - 1
         # strict (start_tick_time, end_tick_time) interval as in the
         # reference
         ok = (tick_f > itick) & (itick >= 0) & (itick < n_ticks)
-        photons = f32.div_const(n_photons_det[:, :, None] * prof, tick)
-        rows = photons.transpose(1, 2).reshape(S * nprof, C)   # (s, j) major
-        keys = torch.where(ok, itick, n_ticks).reshape(-1).long()
-        return ordered_sum(keys, rows, n_ticks).t().contiguous()
-    t0_avg = _at_voxels(lut_t0_avg, voxels, lut_idx)           # (S, C)
-    t_arr = track_time[:, None] + t0_avg * 1e-3                # ns -> us
+        photons = f32.div_const(n_photons_det[..., None] * prof, tick)
+        # (g, s, j) major
+        rows = photons.transpose(-1, -2).reshape(G * S * nprof, C)
+        keys = torch.where(ok, itick + _event_offset(lead, n_ticks, dev),
+                           G * n_ticks).reshape(-1).long()
+        out = ordered_sum(keys, rows, G * n_ticks)
+        return out.view(*lead, n_ticks, C).transpose(-1, -2).contiguous()
+    t0_avg = _at_voxels(lut_t0_avg, voxels, lut_idx)           # (..., S, C)
+    t_arr = track_time[..., None] + t0_avg * 1e-3              # ns -> us
     tick_f = f32.div_const(t_arr - start_time, tick)
     itick = torch.ceil(tick_f).to(torch.int32) - 1
     ok = (tick_f > itick) & (itick >= 0) & (itick < n_ticks)
     photons = f32.div_const(n_photons_det, tick)
-    rows = torch.arange(C, device=dev)[None, :] * n_ticks
-    keys = torch.where(ok, rows + itick, C * n_ticks).reshape(-1)
-    out = ordered_sum(keys, photons.reshape(S * C, 1), C * n_ticks)
-    return out.view(C, n_ticks)
+    rows = (torch.arange(C, device=dev) * n_ticks
+            + _event_offset(lead, C * n_ticks, dev))
+    keys = torch.where(ok, rows + itick, G * C * n_ticks).reshape(-1)
+    out = ordered_sum(keys, photons.reshape(G * S * C, 1), G * C * n_ticks)
+    return out.view(*lead, C, n_ticks)
 
 
 def _top_contributors(n_photons_det: torch.Tensor, k_truth: int):
     """The K strongest segments of each channel by detected photons, as
     (order (K, C) segment rows, contrib (K, C) photons, has (K, C) photons
-    > 0).  A stable sort of ``0 - n`` (zeros sort as +0.0 on every
-    device): ties between equal photon counts pick the same segments as
-    the JAX package's ``argsort(-n)``."""
-    k_truth = min(k_truth, n_photons_det.shape[0])
-    order = torch.argsort(0.0 - n_photons_det, dim=0,
-                          stable=True)[:k_truth]               # (K, C)
-    contrib = torch.gather(n_photons_det, 0, order)
+    > 0); (G, K, C) each for a stacked group's (G, S, C).  A stable sort of
+    ``0 - n`` (zeros sort as +0.0 on every device): ties between equal
+    photon counts pick the same segments as the JAX package's
+    ``argsort(-n)``."""
+    k_truth = min(k_truth, n_photons_det.shape[-2])
+    order = torch.argsort(0.0 - n_photons_det, dim=-2,
+                          stable=True)[..., :k_truth, :]       # (..., K, C)
+    contrib = torch.gather(n_photons_det, -2, order)
     return order, contrib, contrib > 0
+
+
+def _take(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Per-segment ``values`` (..., S) at the rows ``order`` (..., K, C):
+    (..., K, C)."""
+    return torch.gather(values.unsqueeze(-1).expand(
+        *values.shape, order.shape[-1]), -2, order)
+
+
+def _take_voxels(voxels: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Voxels (..., S, 3) at the rows ``order`` (..., K, C): (..., K, C,
+    3)."""
+    return torch.stack([_take(voxels[..., i], order) for i in range(3)],
+                       dim=-1)
 
 
 def light_truth_points(segs: Segments, voxels, n_photons_det, op_channel,
@@ -288,18 +324,19 @@ def light_truth_points(segs: Segments, voxels, n_photons_det, op_channel,
     """
     tick = light.light_tick_size
     order, contrib, has = _top_contributors(n_photons_det, k_truth)
-    ids = torch.where(has, segs.segment_id[order], -1).t()     # (C, K)
+    ids = torch.where(has, _take(segs.segment_id, order),
+                      -1).transpose(-1, -2)                    # (C, K)
 
     lut_idx = (op_channel % lut_t0_avg.shape[3]).long()
-    vox = voxels[order]                                        # (K, C, 3)
+    vox = _take_voxels(voxels, order)                          # (K, C, 3)
     t0_avg = lut_t0_avg[vox[..., 0], vox[..., 1], vox[..., 2],
-                        lut_idx[None, :]]                      # (K, C)
-    t_arr = segs.t0[order] + t0_avg * 1e-3
+                        lut_idx]                               # (K, C)
+    t_arr = _take(segs.t0, order) + t0_avg * 1e-3
     tick_f = f32.div_const(t_arr - start_time, tick)
     itick = torch.ceil(tick_f).to(torch.int32) - 1             # (K, C)
     amp = torch.where(has & (tick_f > itick), f32.div_const(contrib, tick),
                       0.0)
-    return ids, amp.t().float(), itick.t()
+    return ids, amp.transpose(-1, -2).float(), itick.transpose(-1, -2)
 
 
 def light_truth_select(segs: Segments, voxels, n_photons_det, *,
@@ -314,11 +351,13 @@ def light_truth_select(segs: Segments, voxels, n_photons_det, *,
         int32.
     """
     order, contrib, has = _top_contributors(n_photons_det, k_truth)
-    ids = torch.where(has, segs.segment_id[order], -1)
-    return (ids.t().to(torch.int32).contiguous(),
-            torch.where(has, contrib, 0.0).t().float().contiguous(),
-            segs.t0[order].t().float().contiguous(),
-            voxels[order].transpose(0, 1).to(torch.int32).contiguous())
+    ids = torch.where(has, _take(segs.segment_id, order), -1)
+    return (ids.transpose(-1, -2).to(torch.int32).contiguous(),
+            torch.where(has, contrib, 0.0).transpose(-1, -2).float()
+            .contiguous(),
+            _take(segs.t0, order).transpose(-1, -2).float().contiguous(),
+            _take_voxels(voxels, order).transpose(-3, -2).to(torch.int32)
+            .contiguous())
 
 
 def light_truth_series(segs: Segments, voxels, n_photons_det, op_channel,
@@ -333,35 +372,39 @@ def light_truth_series(segs: Segments, voxels, n_photons_det, op_channel,
 
     Returns:
         ids (C, K) segment ids (-1 padding), series (C, K, n_ticks) float32
-        photons/us.
+        photons/us; (G, C, K) and (G, C, K, n_ticks) for a stacked group
+        (as :func:`sum_light_signals` takes one).
     """
     tick = light.light_tick_size
     dev = n_photons_det.device
-    C = n_photons_det.shape[1]
+    *lead, _, C = n_photons_det.shape
+    G = math.prod(lead)
     order, contrib, has = _top_contributors(n_photons_det, k_truth)
-    K = order.shape[0]
-    ids = torch.where(has, segs.segment_id[order], -1).t()     # (C, K)
+    K = order.shape[-2]
+    ids = torch.where(has, _take(segs.segment_id, order),
+                      -1).transpose(-1, -2)                    # (..., C, K)
 
     lut_idx = (op_channel % lut_time_dist.shape[3]).long()
-    vox = voxels[order]                                        # (K, C, 3)
+    vox = _take_voxels(voxels, order)                          # (..., K, C, 3)
     prof = lut_time_dist[vox[..., 0], vox[..., 1], vox[..., 2],
-                         lut_idx[None, :]]                     # (K, C, nprof)
+                         lut_idx]                              # (.., K, C, nprof)
     nprof = prof.shape[-1]
     j_arr = torch.arange(nprof, dtype=torch.float32, device=dev) * 1e-3
-    t_arr = segs.t0[order][..., None] + j_arr                  # (K, C, nprof)
+    t_arr = _take(segs.t0, order)[..., None] + j_arr           # (.., K, C, nprof)
     tick_f = f32.div_const(t_arr - start_time, tick)
     itick = torch.ceil(tick_f).to(torch.int32) - 1
     ok = ((tick_f > itick) & (itick >= 0) & (itick < n_ticks)
           & has[..., None])
     photons = f32.div_const(contrib[..., None] * prof, tick)
-    # output row of (k, c): c * K + k; the rows run (k, c, bin) major, the
-    # JAX scatter's update order
+    # output row of (g, k, c): (g * C + c) * K + k; the rows run (g, k, c,
+    # bin) major, the JAX scatter's update order within each event
     row = (torch.arange(C, device=dev)[None, :] * K
-           + torch.arange(K, device=dev)[:, None])             # (K, C)
-    n_out = C * K * n_ticks
+           + torch.arange(K, device=dev)[:, None]
+           + _event_offset(lead, C * K, dev))                  # (..., K, C)
+    n_out = G * C * K * n_ticks
     keys = torch.where(ok, row[..., None].long() * n_ticks + itick, n_out)
     series = ordered_sum(keys.reshape(-1), photons.reshape(-1, 1), n_out)
-    return ids, series.view(C, K, n_ticks)
+    return ids, series.view(*lead, C, K, n_ticks)
 
 
 def scintillation_kernel(light: LightParams, conv_ticks: int) -> torch.Tensor:
@@ -459,7 +502,8 @@ def calc_stat_fluctuations(light_sample_inc, draw: LightDraw,
 def calc_light_detector_response(light_sample_inc, gains,
                                  light: LightParams, *,
                                  conv_ticks: int) -> torch.Tensor:
-    """SiPM response convolution x per-channel gain (light_sim.py:303-336)."""
+    """SiPM response convolution x per-channel gain (light_sim.py:303-336);
+    (..., C, n_ticks) in and out."""
     resp = causal_convolve(light_sample_inc, sipm_kernel(light, conv_ticks))
     return gains[:, None] * resp
 
@@ -517,9 +561,10 @@ def noise_spectrum(n: int, light_det_noise: torch.Tensor,
 
 def noise_from_spectrum(spectrum: torch.Tensor, phase: torch.Tensor,
                         n: int, light: LightParams) -> torch.Tensor:
-    """Noise of ``n`` ticks from amplitudes and phases (C, n_freq): inverse
-    FFT, rounded to whole quanta, zero-padded to ``n`` (light_sim.py:
-    367-377); in the inputs' dtype, returned as float32."""
+    """Noise of ``n`` ticks from amplitudes and phases (C, n_freq; the
+    phases may carry leading axes): inverse FFT, rounded to whole quanta,
+    zero-padded to ``n`` (light_sim.py:367-377); in the inputs' dtype,
+    returned as float32."""
     noise_f = torch.complex(spectrum * torch.cos(phase),
                             spectrum * torch.sin(phase))
     quant = 2 ** (16 - light.light_nbit)
@@ -528,9 +573,9 @@ def noise_from_spectrum(spectrum: torch.Tensor, phase: torch.Tensor,
     else:
         noise = torch.round(torch.fft.irfft(noise_f, dim=-1)) * quant
     noise = noise.float()
-    if noise.shape[1] < n:
-        noise = torch.nn.functional.pad(noise, (0, n - noise.shape[1]))
-    return noise[:, :n]
+    if noise.shape[-1] < n:
+        noise = torch.nn.functional.pad(noise, (0, n - noise.shape[-1]))
+    return noise[..., :n]
 
 
 def gen_light_detector_noise(shape, light_det_noise: torch.Tensor,
@@ -541,18 +586,20 @@ def gen_light_detector_noise(shape, light_det_noise: torch.Tensor,
     phases, inverse FFT.
 
     Args:
-        shape: (C, n) of the noise.
+        shape: (C, n) of the noise, or (G, C, n) for a stacked group (each
+            event's phases drawn at (C, n_freq) by the group's draw).
         light_det_noise: (C, n_bins) float32 amplitude spectra.
     """
-    if shape[0] == 0:
+    if shape[-2] == 0:
         return torch.zeros(shape, dtype=torch.float32,
                            device=light_det_noise.device)
-    spectrum = noise_spectrum(shape[1], light_det_noise, light)
-    phase = (2 * math.pi) * draw.uniform(tuple(spectrum.shape))
+    spectrum = noise_spectrum(shape[-1], light_det_noise, light)
+    phase = (2 * math.pi) * draw.uniform(tuple(shape[:-1])
+                                         + (spectrum.shape[-1],))
     # phases and the inverse transform in float64 (as in causal_convolve):
     # the rounding to whole quanta then gives the same noise on every
     # device but at ties
-    return noise_from_spectrum(spectrum.double(), phase.double(), shape[1],
+    return noise_from_spectrum(spectrum.double(), phase.double(), shape[-1],
                                light)
 
 
@@ -564,7 +611,7 @@ def digitize_signal(signal: torch.Tensor, padded_trigger_idx: torch.Tensor,
 
     Args:
         signal: (C, n_padded_ticks) waveform including front padding of
-            ceil(trig_window[0]/tick).
+            ceil(trig_window[0]/tick); (G, C, n_padded_ticks) for a group.
         padded_trigger_idx: (ntrig,) int trigger tick in the padded signal.
         ref_exact: reproduce the reference's *active* code line, which
             ignores `trigger_idx` (light_sim.py:498: every trigger samples
@@ -572,7 +619,8 @@ def digitize_signal(signal: torch.Tensor, padded_trigger_idx: torch.Tensor,
             (beam mode).
 
     Returns:
-        (ntrig, C, digit_samples).
+        (ntrig, C, digit_samples); (G, ntrig, C, digit_samples) for a
+        group.
     """
     dev = signal.device
     f = light.light_digit_sample_spacing / light.light_tick_size
@@ -588,7 +636,8 @@ def digitize_signal(signal: torch.Tensor, padded_trigger_idx: torch.Tensor,
     n = signal.shape[-1]
     ok0 = (i0 >= 0) & (i0 <= n - 1)
     ok1 = (i0 + 1 >= 0) & (i0 + 1 <= n - 1)
-    at = lambda i: signal[:, torch.clamp(i, 0, n - 1).long()].transpose(0, 1)
+    at = lambda i: signal[..., torch.clamp(i, 0, n - 1).long()].movedim(
+        -2, -3)
     v0 = torch.where(ok0[:, None, :], at(i0), 0.0)               # (ntrig,C,M)
     v1 = torch.where(ok1[:, None, :], at(i0 + 1), 0.0)
     # linear interp with reference edge handling (light_sim.interp :241-271)

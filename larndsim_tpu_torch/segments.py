@@ -38,7 +38,13 @@ class Segments:
 
     @property
     def size(self) -> int:
-        return self.x_start.shape[0]
+        """Rows of the batch (of each event's row of a stacked group)."""
+        return self.x_start.shape[-1]
+
+    def event(self, g: int) -> 'Segments':
+        """Event ``g`` of a stacked (G, S) group, as an (S,) batch."""
+        return Segments(**{f.name: getattr(self, f.name)[g]
+                           for f in dataclasses.fields(self)})
 
     def replace(self, **changes) -> 'Segments':
         return dataclasses.replace(self, **changes)
@@ -77,6 +83,43 @@ def from_structured(tracks: np.ndarray, pad_to: int | None = None,
     valid = np.zeros(m, bool)
     valid[:n] = True
     return Segments(valid=torch.from_numpy(valid).to(device), **kwargs)
+
+
+def from_structured_group(tracks_list: list, pad_to: int,
+                          device='cuda') -> Segments:
+    """G event batches stacked into a (G, pad_to)-shaped :class:`Segments`
+    on ``device`` (the card unless the caller names another): row g holds
+    ``tracks_list[g]``, zero/invalid past its length."""
+    device = card_or(device, 'the segments')
+    G = len(tracks_list)
+
+    def field(name, dtype):
+        out = np.zeros((G, pad_to), dtype=dtype)
+        for g, tracks in enumerate(tracks_list):
+            names = tracks.dtype.names or ()
+            if name == 'traj_id' and 'traj_id' not in names \
+                    and 'file_traj_id' in names:
+                src = tracks['file_traj_id']
+            elif name in names:
+                src = tracks[name]
+            else:
+                src = np.zeros(tracks.shape[0])
+            out[g, :tracks.shape[0]] = src.astype(dtype)
+        return torch.from_numpy(out).to(device)
+
+    kwargs = {name: field(name, np.float32) for name in FLOAT_FIELDS}
+    kwargs.update({name: field(name, np.int32) for name in INT_FIELDS})
+    valid = np.zeros((G, pad_to), bool)
+    for g, tracks in enumerate(tracks_list):
+        valid[g, :tracks.shape[0]] = True
+    return Segments(valid=torch.from_numpy(valid).to(device), **kwargs)
+
+
+def stack(batches: list) -> Segments:
+    """Batches of one size stacked into a (G, S) group, on their device."""
+    return Segments(**{f.name: torch.stack([getattr(b, f.name)
+                                            for b in batches])
+                       for f in dataclasses.fields(Segments)})
 
 
 def to_structured(segs: Segments, dtype: np.dtype | None = None) -> np.ndarray:

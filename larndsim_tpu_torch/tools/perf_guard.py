@@ -26,6 +26,12 @@ channels, 16 us beam window: 16384 ticks, FFTs of 32768; the synthetic
   light_noise          the noise synthesis (inverse FFT), draws included
   light_digitize       the beam trigger's 256 ADC samples per channel
 
+and the whole beam stage of ``models.light`` (LUT smearing on, truth off)
+on the batch cut into 4 events of S / 4 segments each:
+
+  light_group_beam     the 4 events as one ``simulate_light_group`` call
+  light_solo_beam_x4   the same 4 events as 4 ``simulate_light_batch`` calls
+
 and, beside the port's float64 transforms, the same convolutions and noise
 in float32, the JAX ops' arithmetic (``light_scintillation_f32``,
 ``light_sipm_f32``, ``light_noise_f32``; not on the port's path: they
@@ -59,6 +65,7 @@ shapes on the same card.  Needs a CUDA device: without one it raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -107,6 +114,8 @@ ROW_OPS = 10
 #: (bench.py: max_light_truth_ids 50, mc_truth_threshold 0.1)
 TRUTH_K = 50
 TRUTH_THRESHOLD = 0.1
+#: events of the grouped beam-stage rows (bench.py's event_group_size)
+N_GROUP = 4
 #: the PyTorch call that computes each kernel's function, or why none does
 LIBRARY = dict(
     induced_current='none: a data-dependent gather-accumulate (each '
@@ -419,6 +428,59 @@ def light_op_costs(lw: dict) -> dict:
     return costs
 
 
+def _group_inputs(lw: dict, n_events: int) -> tuple:
+    """The guard's light batch cut into ``n_events`` events of equal size:
+    (stacked segments, (G, S/G, C) photons, (G, S/G, 3) voxels)."""
+    from ..segments import Segments
+    segs = lw['segs']
+    G = n_events
+    return (Segments(**{f.name: getattr(segs, f.name).view(G, -1)
+                        for f in dataclasses.fields(segs)}),
+            lw['n_det'].view(G, -1, lw['n_det'].shape[-1]),
+            lw['vox'].view(G, -1, 3))
+
+
+def light_group_calls(lw: dict, sim, n_events: int = N_GROUP) -> dict:
+    """The beam stage of ``n_events`` events as one group call and as
+    ``n_events`` solo calls, each event with draws of its own generator
+    (the groups's and the solo calls' generators seeded alike)."""
+    from ..models import light as lm
+    sim = dataclasses.replace(sim, max_mc_truth_ids=0)
+    light = lw['light'].replace(enable_lut_smearing=True)
+    segs_g, n_det_g, vox_g = _group_inputs(lw, n_events)
+    dev = n_det_g.device
+    gens = [torch.Generator(dev).manual_seed(100 + g)
+            for g in range(n_events)]
+    args = (light, sim)
+    tail = (lw['lut'], lw['noise'])
+
+    def group():
+        return lm.simulate_light_group(
+            segs_g, *args, n_det_g, vox_g, *tail,
+            [lm.generator_draw(gen, dev) for gen in gens])
+
+    def solo():
+        return [lm.simulate_light_batch(
+            segs_g.event(g), *args, n_det_g[g], vox_g[g], *tail,
+            lm.generator_draw(gens[g], dev)) for g in range(n_events)]
+    return dict(light_group_beam=(group, (), {}),
+                light_solo_beam_x4=(solo, (), {}))
+
+
+def light_group_costs(lw: dict, n_events: int = N_GROUP) -> dict:
+    """Bytes of the beam stage, each event's light ops' bytes (as
+    :func:`light_op_costs` counts them at S / G segments) summed over the
+    events; the same for the group call and the solo calls."""
+    sh = lw['shapes']
+    per_event = light_op_costs(dict(
+        lw, shapes=dict(sh, pad_n=sh['pad_n'] // n_events)))
+    chain = ('light_sum_smearing', 'light_scintillation', 'light_stat',
+             'light_sipm', 'light_noise', 'light_digitize')
+    n_bytes = n_events * sum(per_event[k]['bytes'] for k in chain)
+    return dict(light_group_beam=dict(bytes=n_bytes, ops=0),
+                light_solo_beam_x4=dict(bytes=n_bytes, ops=0))
+
+
 def light_truth_calls(lw: dict, k_truth: int = TRUTH_K) -> tuple:
     """The LUT-smearing truth of the guard's batch, each stage as
     (function, args, kwargs), with its inputs made by running the stages
@@ -628,6 +690,8 @@ def main(argv=None) -> dict:
     costs = op_costs(w, calls)
     calls.update(light_op_calls(lw))
     costs.update(light_op_costs(lw))
+    calls.update(light_group_calls(lw, w['sim']))
+    costs.update(light_group_costs(lw))
     truth_calls, host_calls, truth_shapes = light_truth_calls(lw)
     calls.update(truth_calls)
     n_records = len(truth_calls['light_truth_pull'][0](
@@ -651,6 +715,8 @@ def main(argv=None) -> dict:
                       detector='Module-0-shaped, generated (the 2x2 YAMLs '
                       'of the JAX guard are not in the repository)'),
         shapes=w['shapes'], light_shapes=lw['shapes'],
+        group_shapes=dict(events=N_GROUP,
+                          pad_n=lw['shapes']['pad_n'] // N_GROUP),
         truth_shapes=dict(truth_shapes, records=n_records),
         logged_shapes=LOGGED_SHAPES, ops_ms=ops_ms, host_ms=host_ms,
         roofline=roofline,

@@ -21,11 +21,19 @@ quantum, >= 99.9% of samples equal; truth records equal, the LUT-smearing
 truth's beyond 1e-3 of the threshold), and two card runs are identical;
 the smearing truth's two routes agree on the card; its product stays
 float32 (within rtol 1e-5 of float64, where TF32 is ~1e-3 off) when the
-caller enables TF32; a host-route worker's error fails the CLI.
+caller enables TF32; a host-route worker's error fails the CLI.  Event
+grouping: the light of three events as one group call equals their solo
+calls on the card (waveforms and contributor / host-route records bit for
+bit, the device route's records at the truth tolerance above: the batched
+float64 FFTs and the one product are where the bits could move), and the
+grouped CLI on the card gives the ungrouped run's packets and
+``light_wvfm``.  Phase tracing records device time on the card; the
+memory log reads the card's memory.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 
 import numpy as np
 import pytest
@@ -463,3 +471,111 @@ def test_host_route_worker_error_fails_the_cli(cuda, tmp_path, monkeypatch):
                        response_file=str(tmp_path / 'r.npy'), rand_seed=7,
                        step_scale=2.0, device='cuda', truth_path='host',
                        truth_workers=2)
+
+
+@pytest.mark.parametrize('route', list(LIGHT_ROUTES))
+def test_light_group_on_card_equals_solo(light_batch, route):
+    from larndsim_tpu_torch.models import light as light_model
+    from larndsim_tpu_torch.segments import stack
+    from larndsim_tpu_torch.tools import light_check
+    (segs, light, sim, n_det, vox, lut, noise, _), _ = light_batch
+    opts = LIGHT_ROUTES[route]
+    light = light.replace(enable_lut_smearing=opts['smearing'])
+    sim = dataclasses.replace(sim, max_mc_truth_ids=opts['truth_ids'],
+                              mc_truth_threshold=opts.get('threshold', 0.1))
+    path = opts.get('truth_path', 'device')
+    # three events: the batch, and copies of it 0.3 and 0.6 us later
+    events = [segs.replace(t0=segs.t0 + 0.3 * g) for g in range(3)]
+
+    def draws():
+        return [light_check.cpu_draw(10 + g, segs.t0.device)
+                for g in range(3)]
+    solos = [light_model.simulate_light_batch(
+        e, light, sim, n_det, vox, lut, noise, d, truth_path=path)
+        for e, d in zip(events, draws())]
+    group = light_model.simulate_light_group(
+        stack(events), light, sim, torch.stack([n_det] * 3),
+        torch.stack([vox] * 3), lut, noise, draws(), truth_path=path)
+    n_records = 0
+    for s, g in zip(solos, group):
+        assert g.waveforms.shape == (1, 96, 256)
+        assert torch.equal(g.waveforms, s.waveforms)
+        if s.truth_sparse is None:
+            assert g.truth_sparse is None
+        elif path == 'device' and opts['smearing']:
+            n_records += light_check.records_agree(
+                g.truth_sparse, s.truth_sparse, 0.1)['records']
+        else:
+            for k in s.truth_sparse:
+                assert np.array_equal(g.truth_sparse[k], s.truth_sparse[k])
+            n_records += len(s.truth_sparse['tick'])
+    assert float(solos[0].waveforms.abs().max()) > 64
+    assert (n_records > 0) == (opts['truth_ids'] > 0)
+
+
+def test_grouped_cli_on_card_equals_ungrouped(cuda, tmp_path):
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    from larndsim_tpu_torch.tools import light_check
+    paths = tpa.write_tree(tmp_path / 'tree', detector_overrides=tpa.QUIET,
+                           light=True, sim_overrides=dict(
+                               max_light_truth_ids=50,
+                               mc_truth_threshold=0.1))
+    inp = str(tmp_path / 'in.h5')
+    write_input(inp, tpa.load_port(paths).tpc_borders, n_events=4,
+                tracks_per_event=3, segments_per_track=6, segment_length=0.4,
+                dEdx=8.0, seed=7)
+    outs = {}
+    for g in (1, 3):
+        outs[g] = str(tmp_path / f'g{g}.h5')
+        run_simulation(inp, outs[g],
+                       detector_properties=paths['detector_properties'],
+                       pixel_layout=paths['pixel_layout'],
+                       simulation_properties=paths['simulation_properties'],
+                       response_file=str(tmp_path / 'r.npy'), rand_seed=7,
+                       step_scale=2.0, device='cuda', event_group_size=g)
+    got = {}
+    for g, path in outs.items():
+        with File(path, 'r') as f:
+            pk = np.array(f['packets'])
+            got[g] = (collections.Counter(map(tuple, pk[pk['packet_type']
+                                                        == 0].tolist())),
+                      np.array(f['light_wvfm']),
+                      np.array(f['light_wvfm_mc_assn']))
+    assert sum(got[1][0].values()) > 0 and got[1][0] == got[3][0]
+    assert np.array_equal(got[1][1], got[3][1])
+    assert light_check.records_agree(
+        got[3][2], got[1][2], 0.1, keys=('trigger_id', 'op_channel_id',
+                                         'tick', 'event_id',
+                                         'segment_id'))['records'] > 0
+
+
+def test_trace_times_phases_on_the_card(cuda):
+    from larndsim_tpu_torch.utils import trace
+    trace.reset()
+    a = torch.randn((2048, 2048), device=cuda)
+    with trace.phase('outer', cuda):
+        with trace.phase('inner', cuda):
+            for _ in range(20):
+                b = a @ a
+        b.sum()
+    with trace.phase('host only'):
+        pass
+    total = trace.summary_device()
+    assert total['inner'] > 0.1 and total['outer'] >= 0
+    assert 'host only' not in total
+    rows = {r.split()[0]: r for r in trace.report().splitlines()}
+    assert 'ms device' in rows['inner'] and 'ms device' not in rows['host']
+    trace.reset()
+
+
+def test_memlog_reads_the_card(cuda, tmp_path):
+    from larndsim_tpu_torch.utils.memlog import MemoryLogger, read_memlog
+    ml = MemoryLogger(device=cuda)
+    ml.start()
+    x = torch.empty(2 ** 26, device=cuda)
+    ml.take_snapshot()
+    ml.archive('loading')
+    ml.store(str(tmp_path / 'mem.h5'))
+    rec = read_memlog(str(tmp_path / 'mem.h5'))['loading']
+    assert float(np.asarray(rec['gpu_mem_used'])[0]) >= x.numel() * 4
+    assert float(np.asarray(rec['gpu_mem_free'])[0]) > 0

@@ -214,3 +214,26 @@ def test_light_truth_rows_run_and_have_a_bound(workload):
     b = pg.bound(0, 96 * 50 * 16384 * 256)
     assert b['bound_by'] == 'operations'
     assert np.isclose(b['bound_ms'], 0.601, atol=1e-3)
+
+
+def test_grouped_beam_rows_run_and_have_a_bound(workload):
+    """The beam stage of the guard's batch cut into 4 events (8 segments
+    each here): the group call's waveforms equal the 4 solo calls' with
+    generators seeded alike (bit for bit), and both rows have the bytes of
+    4 events' light ops."""
+    lw = pg.build_light_workload(workload)
+    (group, _, _), _ = pg.light_group_calls(lw, workload['sim']).values()
+    _, (solo, _, _) = pg.light_group_calls(lw, workload['sim']).values()
+    got, want = group(), solo()
+    assert len(got) == len(want) == pg.N_GROUP
+    for g, w in zip(got, want):
+        assert g.waveforms.shape == (1, 96, 256)
+        assert torch.equal(g.waveforms, w.waveforms)
+    costs = pg.light_group_costs(lw)
+    assert costs['light_group_beam'] == costs['light_solo_beam_x4']
+    per_event = pg.light_op_costs(dict(lw, shapes=dict(lw['shapes'],
+                                                       pad_n=8)))
+    assert costs['light_group_beam']['bytes'] == 4 * sum(
+        per_event[k]['bytes'] for k in (
+            'light_sum_smearing', 'light_scintillation', 'light_stat',
+            'light_sipm', 'light_noise', 'light_digitize'))
