@@ -62,14 +62,27 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    memory log: the charge-only slice with ``save_memory``, read back
    through ``utils.memlog.read_memlog``: the phases ``loading``,
    ``quench_drift_mod-1`` and ``loop_mod-1`` with the card's memory;
-10. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
+10. mode0: the slice's input with Module-0's light keys in the threshold
+   mode (96 channels in groups of 6 at -2000 ADC, the loader's default
+   [1, 10] us window, no LUT smearing, bench.py's module0 truth: contributor
+   points, K 50, threshold 0.1): the warm-up's first light batch run again
+   on the card (twice) and on the CPU with CPU-made draws (trigger tables,
+   window, waveforms and truth records as in the light phase); then the
+   run timed ungrouped and at ``event_group_size`` 4 with the launch
+   counters and the plain versions forbidden: data packets equal to the
+   charge-only slice's, at least one batch with two triggers, grouped
+   ``light_wvfm`` and ``light_trig`` equal to ungrouped; triggers per
+   event, ``n_ticks`` per batch, the light datasets' rows, trigger packets
+   per io group, truth records, wall, launches, peak device memory and
+   the phase tables;
+11. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
    (``probe_folded``): cases a-g, each in its own process, each OK and
    importing nothing of JAX; each of its three kernels against its plain
    version.  P2 / P3 (``probe_fee`` / ``probe_fee2``): every variant timed
    at the probe shapes beside the FSM kernel (the entry points, launch
    counters set to 0 before and read after), then every variant equal to
    its plain version at the same shapes on a random signal;
-11. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
+12. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
    and the light truth) at production shapes, with each one's bound on
    this card and the share reached.
 By the end neither JAX nor the JAX package ``larndsim_tpu`` may have been
@@ -113,6 +126,13 @@ LIGHT_TRUTH_IDS = 64
 SMEAR_TRUTH = dict(max_light_truth_ids=50, mc_truth_threshold=0.1)
 #: bench.py's event_group_size (bench.py:216-217)
 GROUP = 4
+#: the mode-0 phase's light keys: Module-0's (light_properties with
+#: light_trig_mode 0: 96 channels in groups of 6 at -2000 ADC), the
+#: loader's default [1, 10] us light window, no LUT smearing; and bench.py's
+#: module0 truth (bench.py:147-150: contributor points, K 50, 0.1 pe/us)
+MODE0_LIGHT = dict(light_trig_mode=0, light_window=(1.0, 10.0),
+                   enable_lut_smearing=False)
+MODE0_TRUTH = dict(max_light_truth_ids=50, mc_truth_threshold=0.1)
 
 
 def log(phase: str, msg: str) -> None:
@@ -753,6 +773,115 @@ def memlog_phase(tmp: str, inp: str, kw: dict) -> None:
         'read_memlog: ' + '; '.join(peaks))
 
 
+def mode0_phase(tmp: str, inp: str, kw: dict, n_seg: int,
+                charge_only_out: str, main_path) -> dict:
+    """The slice with Module-0's light keys in the threshold mode
+    (MODE0_LIGHT, MODE0_TRUTH): a warm-up keeps its first light batch,
+    which is run again on the card (twice) and on the CPU with CPU-made
+    draws (trigger tables equal, waveforms and truth records as in the
+    light phase); then the run timed ungrouped and at event_group_size
+    GROUP, launch counters set to 0 before and read after, with every
+    mode-0 light call's window and triggers recorded."""
+    import torch
+    from larndsim_tpu_torch.assets.geometry import write_module0
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    from larndsim_tpu_torch.io.h5 import File
+    from larndsim_tpu_torch.models import light as light_model
+    from larndsim_tpu_torch.tools import light_check
+    paths = write_module0(os.path.join(tmp, 'module0_mode0'),
+                          light=MODE0_LIGHT, sim_overrides=MODE0_TRUTH)
+    kw0 = dict(kw, detector_properties=paths['detector_properties'],
+               simulation_properties=paths['simulation_properties'])
+    t0 = time.perf_counter()
+    with light_check.first_batch() as seen:
+        run_simulation(inp, os.path.join(tmp, 'warm_mode0.h5'), **kw0)
+    torch.cuda.synchronize()
+    log('mode0', f'warm-up {time.perf_counter() - t0:.2f} s')
+    assert len(seen) == 1, 'the warm-up ran no light batch'
+    args, bkw = seen[0]
+    card = light_check.rerun(args, bkw, 'cuda', 5)
+    again = light_check.rerun(args, bkw, 'cuda', 5)
+    cpu = light_check.rerun(args, bkw, 'cpu', 5)
+    assert light_check.identical(card, again), 'mode 0: two card runs differ'
+    rec = light_check.compare(card, cpu, args[1])
+    assert rec['triggers'] > 0, 'the checked batch fired no trigger'
+    assert rec['records'] > 0, 'the checked batch made no truth record'
+    log('mode0', f'first light batch (S={args[0].size}, C='
+        f'{card.waveforms.shape[1]}, n_ticks={card.n_ticks}, start '
+        f'{card.start_time:.6f} us): card vs CPU, same draws: trigger '
+        f'ticks {card.trigger_idx.tolist()} equal, types and channels '
+        f'equal; waveforms {card.waveforms.shape} max |err| '
+        f'{rec["max_abs_err"]:.1f} ADC (peak {rec["peak"]:.1f}, tolerance '
+        f'one quantum 64), {100 * rec["equal_share"]:.3f}% of samples equal '
+        f'(>= 99.9%); {rec["records"]} contributor truth records equal '
+        '(pe_current rtol 1e-4); two card runs identical')
+
+    calls = []
+    orig = light_model.simulate_light_group_mode0
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        calls.append([(int(e), r.n_ticks, len(r.trigger_idx))
+                      for e, r in zip(k['event_ids'], out)])
+        return out
+    runs = {}
+    light_model.simulate_light_group_mode0 = spy
+    try:
+        for g in (1, GROUP):
+            out = os.path.join(tmp, f'slice_mode0_g{g}.h5')
+            calls.clear()
+            wall, launches, peak = main_path(out, dict(kw0,
+                                                       event_group_size=g))
+            runs[g] = dict(out=out, wall=wall, launches=launches, peak=peak,
+                           calls=list(calls), table=phase_table(
+                               f'mode-0 slice, event_group_size {g}'))
+    finally:
+        light_model.simulate_light_group_mode0 = orig
+    solo = runs[1]
+    assert data_packets(solo['out']) == data_packets(charge_only_out), \
+        'mode 0: packets differ from the charge-only slice'
+    with File(solo['out'], 'r') as f, File(runs[GROUP]['out'], 'r') as h:
+        for name in ('light_wvfm', 'light_trig'):
+            assert np.array_equal(np.array(f[name]), np.array(h[name])), \
+                f'mode 0: grouped {name} differs from the ungrouped run'
+        wv, trig = np.array(f['light_wvfm']), np.array(f['light_trig'])
+        rec = np.array(f['light_wvfm_mc_assn'])
+        pk = np.array(f['packets'])
+    assert np.isfinite(wv).all() and (wv != 0).any(), 'mode 0: light_wvfm'
+    assert wv.shape[1:] == (96, 256) and len(wv) == len(trig)
+    assert len(rec) > 0 and (np.abs(rec['pe_current'])
+                             > MODE0_TRUTH['mc_truth_threshold']).all()
+    batches = [b for c in solo['calls'] for b in c]
+    per_event = collections.Counter()
+    for ev, _, n in batches:
+        per_event[ev] += n
+    n_trig = sum(per_event.values())
+    twice = sum(n >= 2 for _, _, n in batches)
+    assert n_trig > 0, 'mode 0: no threshold trigger'
+    assert twice > 0, 'mode 0: no batch triggered twice'
+    n_grouped = [len(c) for c in runs[GROUP]['calls']]
+    assert max(n_grouped) > 1, 'mode 0: no grouped light call'
+    io_trig = collections.Counter(
+        pk['io_group'][pk['packet_type'] == 7].tolist())
+    log('mode0', f'{n_trig} threshold triggers in {len(batches)} light '
+        f'batches; per event {dict(sorted(per_event.items()))}; '
+        f'{twice} batches with >= 2 triggers; n_ticks per batch '
+        f'{[nt for _, nt, _ in batches]}; light_trig {len(trig)} rows, '
+        f'light_wvfm {wv.shape}; trigger packets per io group '
+        f'{dict(sorted(io_trig.items()))}; {len(rec)} truth records '
+        f'({rec.nbytes / 1e6:.3f} MB)')
+    for g, r in runs.items():
+        log('mode0', f'event_group_size {g}: wall {r["wall"]:.3f} s, '
+            f'{n_seg / r["wall"]:.1f} segments/s; light calls per group '
+            f'{[len(c) for c in r["calls"]]}; K1 / K2 launches '
+            f'{r["launches"]["induced_current"]} / '
+            f'{r["launches"]["fee_fsm"]}; peak device memory '
+            f'{r["peak"]:.2f} GiB')
+    log('mode0', 'data packets equal to the charge-only slice\'s; grouped '
+        'light_wvfm and light_trig equal to the ungrouped run\'s')
+    return runs
+
+
 def light_checks(out: str, n_seg: int) -> str:
     """The light datasets of the charge+light slice: one waveform row and
     one trigger per spill, the incidence of every segment."""
@@ -966,6 +1095,7 @@ def main(argv=None) -> int:
             tmp, solo, dict(kw=kw, out=out, wall=wall, launches=launches),
             n_seg, main_path)
         memlog_phase(tmp, inp, kw)
+        mode0_phase(tmp, inp, kw, n_seg, out, main_path)
 
         if opts.profile:
             profile_slice(inp, os.path.join(tmp, 'profiled.h5'), kw,

@@ -3,11 +3,13 @@ waveforms out.
 
 Counterpart of ``larndsim_tpu.cli.simulate_pixels.run_simulation`` for one
 module (no module-to-module variation) and one device; the light chain runs
-in beam-trigger mode (mode 1).  Flag names match the JAX CLI for every flag
-supported here, plus ``--device``, ``--truth_path`` and ``--unique_guard``.
+in the configuration's trigger mode, the beam trigger (1) or the threshold
+trigger (0).  Flag names match the JAX CLI for every flag supported here,
+plus ``--device``, ``--truth_path`` and ``--unique_guard``.
 ``event_group_size`` G runs up to G independent (event, TPC) batches as one
 charge call (pixel keys offset per event) and their first batches' light
-as one group call.  The charge chain's draws come from a
+as one group call (in mode 0, one per window bucket).  The charge chain's
+draws come from a
 ``torch.Generator`` per call, seeded from (rand_seed, the call's first
 event, call number); the light chain's from a generator of their own per
 (event, sub-batch) (:func:`light_draw`), so switching light on moves no
@@ -119,8 +121,11 @@ def run_simulation(input_filename: str,
     YAML (no light keys: no light); ``step_scale`` coarsens the MC
     charge-sampling density (1.0 is the reference MIN_STEP_SIZE density);
     ``device`` is where the chains run ('cuda' raises when no card is
-    present).  Light runs in beam-trigger mode only: the threshold trigger
-    (mode 0) raises NotImplementedError.  ``truth_path`` is the route of
+    present).  Light runs in the detector YAML's ``light_trig_mode``: the
+    beam trigger (1) fires once on an event's first batch, the threshold
+    trigger (0) wherever a channel group crosses its threshold, on every
+    batch, with ``light_trig`` rows written per flush and trigger packets
+    per module io group.  ``truth_path`` is the route of
     the light MC truth with LUT smearing ('device': dense truth on the
     card, kept records pulled; 'host': the card's top-K contributors,
     records recomputed on ``truth_workers`` worker threads); the records
@@ -278,10 +283,14 @@ def run_simulation(input_filename: str,
                              dtype=[('segment_id', 'u4'),
                                     ('n_photons_det', 'f4'),
                                     ('t0_det', 'f4')])
+        # host copies: light_dat, and mode 0's windows (mode0_window)
+        light_inc_h = light_inc.cpu().numpy()[valid]
+        light_t0_h = light_t0.cpu().numpy()[valid]
         light_dat['segment_id'] = segment_ids[:, None]
-        light_dat['n_photons_det'] = light_inc.cpu().numpy()[valid]
-        light_dat['t0_det'] = light_t0.cpu().numpy()[valid]
+        light_dat['n_photons_det'] = light_inc_h
+        light_dat['t0_det'] = light_t0_h
         op_channel_sim = light.tpc_to_op_channel.cpu().numpy().ravel()
+        op_channel_tpc = light.op_channel_to_tpc.cpu().numpy()
         print(f'Light incidence: {time.time() - t0:.2f} s')
 
     # ---- batching loop ----
@@ -306,7 +315,8 @@ def run_simulation(input_filename: str,
 
     def flush_results():
         """Write the accumulated rows (cli:639-724): packets, and the light
-        waveforms; without charge rows, the light rows alone."""
+        waveforms (mode 0: and their light_trig rows); without charge rows,
+        the light rows alone."""
         nonlocal results_acc
         light_only = not results_acc.get('event_pix')
         if light_only and not results_acc.get('light_event_id'):
@@ -320,8 +330,15 @@ def run_simulation(input_filename: str,
             uniq_event_times = event_times[uniq_events
                                            % sim.max_events_per_file]
             if has_light:
-                # beam mode: the trigger type stands in for the module
-                light_trig_modules = res['trigger_type']
+                if trig_mode == 1:
+                    # beam mode: the trigger type stands in for the module
+                    light_trig_modules = res['trigger_type']
+                else:
+                    # each trigger's module, by its first channel's TPC
+                    op0 = res['light_op_channel_idx'][:, 0]
+                    light_trig_modules = np.array(
+                        [det_model.tpc_to_module[t]
+                         for t in op_channel_tpc[op0]])
                 light_trigger_times = (res['light_start_time']
                                        + res['light_trigger_idx']
                                        * light.light_tick_size)
@@ -340,6 +357,15 @@ def run_simulation(input_filename: str,
                 light_trigger_modules=light_trig_modules,
                 bad_channels=bad_channels, i_mod=i_mod)
         if has_light:
+            if trig_mode == 0:
+                # the event times of the light rows' own events (a flush
+                # can hold light rows of events without charge rows)
+                uniq_l = np.unique(res['light_event_id'])
+                export.export_light_trig_to_hdf5(
+                    res['light_event_id'], res['light_start_time'],
+                    res['light_trigger_idx'], res['light_op_channel_idx'],
+                    out, event_times[uniq_l % sim.max_events_per_file],
+                    det_model, light)
             export.export_light_wvfm_to_hdf5(
                 res['light_event_id'], res['light_waveforms'], out, sim,
                 light, i_mod=i_mod)
@@ -356,7 +382,8 @@ def run_simulation(input_filename: str,
                 truth = export.truth_sparse_to_records(truth, ievd_t, trig_t)
             else:   # a worker's records, trigger ids counted from 0
                 truth['trigger_id'] += trig_t
-            export.export_light_truth_to_hdf5(out, truth)
+            with trace.phase('truth/h5'):
+                export.export_light_truth_to_hdf5(out, truth)
 
     def accumulate_light(ievd_l, lres):
         """One light batch's rows (cli:761-799); its truth records are
@@ -382,58 +409,87 @@ def run_simulation(input_filename: str,
         i_light_trig += ntrig
 
     def light_rows(sels, pad):
-        """The incidence and voxels of each batch's segments, (G, pad, C)
-        and (G, pad, 3), zero past each batch's length."""
+        """The incidence, first arrivals and voxels of each batch's
+        segments, (G, pad, C), (G, pad, C) and (G, pad, 3), zero past each
+        batch's length."""
         inc = light_inc.new_zeros((len(sels), pad, light_inc.shape[1]))
+        t0 = light_t0.new_zeros((len(sels), pad, light_t0.shape[1]))
         vox = light_vox.new_zeros((len(sels), pad, 3))
         for g, sel in enumerate(sels):
-            rows = torch.from_numpy(sel).to(device)
+            rows = light_ops.upload(sel, device)    # nothing waits for it
             inc[g, :len(sel)] = light_inc[rows]
+            t0[g, :len(sel)] = light_t0[rows]
             vox[g, :len(sel)] = light_vox[rows]
-        return inc, vox
+        return inc, t0, vox
+
+    def mode0_window(sel):
+        """Mode 0's (n_ticks, start_time) of a batch, from the host
+        copies of its incidence."""
+        return light_model.mode0_window(light_inc_h[sel], light_t0_h[sel],
+                                        light)
 
     def light_batch(ievd, sel, i_sub, segs=None):
         if segs is None:
             segs = from_structured(tracks_mod[sel],
                                    pad_to=bucket(len(sel), lo=32),
                                    device=device)
-        inc, vox = light_rows([sel], segs.size)
+        inc, t0, vox = light_rows([sel], segs.size)
+        mode0 = dict(t0_det=t0[0], module_to_tpcs=det_model.module_to_tpcs,
+                     sim_window=mode0_window(sel)) if trig_mode == 0 else {}
         return light_model.simulate_light_batch(
             segs, light, sim, inc[0], vox[0], lut, light_noise,
             light_draw(rand_seed, i_mod, ievd, i_sub, device),
             i_subbatch=i_sub, truth_path=truth_path,
-            truth_executor=truth_executor, event_id=int(ievd))
+            truth_executor=truth_executor, event_id=int(ievd), **mode0)
+
+    def light_group(firsts):
+        """Two or more events' first batches as one group call, each with
+        its own draws."""
+        sels = [sel for _, sel in firsts]
+        pad = bucket(max(len(sel) for sel in sels), lo=32)
+        inc, _, vox = light_rows(sels, pad)
+        args = (from_structured_group([tracks_mod[sel] for sel in sels],
+                                      pad, device=device),
+                light, sim, inc, vox, lut, light_noise,
+                [light_draw(rand_seed, i_mod, ievd, 0, device)
+                 for ievd, _ in firsts])
+        kw = dict(truth_path=truth_path, truth_executor=truth_executor,
+                  event_ids=[int(ievd) for ievd, _ in firsts])
+        if trig_mode == 0:
+            return light_model.simulate_light_group_mode0(
+                *args, windows=[mode0_window(sel) for sel in sels],
+                module_to_tpcs=det_model.module_to_tpcs, **kw)
+        return light_model.simulate_light_group(*args, **kw)
 
     def process_light(items, segs):
-        """The light of a group's batches (cli:1033-1054): only an event's
-        first batch triggers (i_subbatch 0); two or more first batches run
-        as one group call, each with its own draws; a later batch of an
-        event runs alone with i_subbatch 1 (adds nothing).  ``segs``: the
-        charge call's segments when it holds one batch."""
+        """The light of a group's batches (cli:1033-1054, :866-917): an
+        event's first batch runs with i_subbatch 0, a later one alone with
+        i_subbatch 1 (in beam mode it adds nothing; in mode 0 it triggers
+        as any batch).  Two or more first batches run as one group call
+        (mode 0: one per window bucket, a bucket of one alone).  The rows
+        are accumulated in the group's order.  ``segs``: the charge call's
+        segments when it holds one batch."""
         firsts, later = [], []
-        for ievd, sel in items:
-            (later if ievd in light_done_events else firsts).append(
-                (ievd, sel))
+        for i, (ievd, sel) in enumerate(items):
+            (later if ievd in light_done_events else firsts).append(i)
             light_done_events.add(ievd)
+        lres = {}
         with trace.phase('light_batch', device):
-            if len(firsts) > 1:
-                sels = [sel for _, sel in firsts]
-                pad = bucket(max(len(sel) for sel in sels), lo=32)
-                inc, vox = light_rows(sels, pad)
-                lres = light_model.simulate_light_group(
-                    from_structured_group([tracks_mod[sel] for sel in sels],
-                                          pad, device=device),
-                    light, sim, inc, vox, lut, light_noise,
-                    [light_draw(rand_seed, i_mod, ievd, 0, device)
-                     for ievd, _ in firsts],
-                    truth_path=truth_path, truth_executor=truth_executor,
-                    event_ids=[int(ievd) for ievd, _ in firsts])
-            else:
-                lres = [light_batch(ievd, sel, 0, segs)
-                        for ievd, sel in firsts]
-            lres += [light_batch(ievd, sel, 1, segs) for ievd, sel in later]
-        for (ievd, _), res in zip(firsts + later, lres):
-            accumulate_light(ievd, res)
+            buckets = defaultdict(list)
+            for i in firsts:
+                key = mode0_window(items[i][1])[0] if trig_mode == 0 else 0
+                buckets[key].append(i)
+            for group_i in buckets.values():
+                if len(group_i) > 1:
+                    lres.update(zip(group_i, light_group(
+                        [items[i] for i in group_i])))
+                else:
+                    lres[group_i[0]] = light_batch(*items[group_i[0]], 0,
+                                                   segs)
+            for i in later:
+                lres[i] = light_batch(*items[i], 1, segs)
+        for i, (ievd, _) in enumerate(items):
+            accumulate_light(ievd, lres[i])
 
     def accumulate_charge(items, cat, res):
         """One charge call's rows (cli:953-998): events and pixels decoded
@@ -595,8 +651,9 @@ def run_simulation(input_filename: str,
             if fld in segments_to_files.dtype.names:
                 segments_to_files[fld] = (segments_to_files[fld]
                                           + local_spill * sim.spill_period)
-    if light.light_simulated:
-        # one beam trigger row per event (cli:1264-1275)
+    if light.light_simulated and trig_mode == 1:
+        # one beam trigger row per event (cli:1264-1275); mode 0 wrote its
+        # rows per flush
         light_event_id = (np.unique(local_spill) if sim.is_spill_sim
                           else (vertices['event_id'] if vertices is not None
                                 else np.unique(

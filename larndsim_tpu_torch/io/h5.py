@@ -42,7 +42,7 @@ class Dataset:
     """A dataset held in memory as a numpy array."""
 
     def __init__(self, data: np.ndarray):
-        self.data = np.array(data)
+        self.data = self._buf = np.array(data)
         self.attrs: dict = {}
 
     shape = property(lambda self: self.data.shape)
@@ -61,12 +61,18 @@ class Dataset:
         self.data[key] = value
 
     def resize(self, n: int, axis: int = 0) -> None:
-        """Grow or shrink the first axis; new rows are zero."""
+        """Grow or shrink the first axis; new rows are zero.  ``data`` is a
+        view of a buffer that at least doubles when it grows, so appending
+        in many pieces copies each row a bounded number of times."""
         if axis != 0 or self.data.ndim == 0:
             raise NotImplementedError('resize along the first axis only')
-        data = np.zeros((n,) + self.data.shape[1:], self.data.dtype)
-        data[:min(n, len(self.data))] = self.data[:n]
-        self.data = data
+        old, buf = len(self.data), self._buf
+        if n > len(buf):
+            buf = np.empty((max(n, 2 * len(buf)),) + buf.shape[1:],
+                           buf.dtype)
+            buf[:old] = self.data
+        buf[old:n] = 0
+        self._buf, self.data = buf, buf[:n]
 
 
 class Group:

@@ -1,10 +1,22 @@
 """Light-readout chain: segments -> SiPM waveforms + triggers.
 
-Counterpart of the beam-trigger path of ``larndsim_tpu.models.light``: the
-per-batch pipeline the reference runs at cli/simulate_pixels.py:1119-1205
--- photon time series -> scintillation smear -> Poisson PE statistics ->
-SiPM response -> forced beam trigger -> noise + ADC-rate digitization --
-and its MC truth:
+Counterpart of ``larndsim_tpu.models.light``: the per-batch pipeline the
+reference runs at cli/simulate_pixels.py:1119-1205 -- photon time series
+-> scintillation smear -> Poisson PE statistics -> SiPM response ->
+triggers -> noise + ADC-rate digitization -- and its MC truth.  Two
+trigger modes:
+
+* the beam trigger (mode 1): a fixed window, one forced trigger at tick 0
+  on an event's first batch;
+* the threshold trigger (mode 0): the window spans the batch's photon
+  arrivals (:func:`mode0_window`); each module triggers where a channel
+  group's sum falls below its threshold, with a dead time of one
+  digitized window; every trigger is digitized, with noise drawn at the
+  shape padded around them.  Its one wait per batch or group is the copy
+  of the trigger tables to the host, whose counts set the shapes that
+  follow.
+
+The truth:
 
 * without LUT smearing, the contributor points, zero-suppressed on the
   host (:func:`_host_truth_sparse`);
@@ -16,14 +28,14 @@ and its MC truth:
   (:func:`_smeared_truth_stage`, :func:`_pull_dense_truth`); ``'host'``
   pulls the (C, K) contributor metadata and recomputes the records on the
   host with a windowed GEMM (:func:`_host_smeared_truth_sparse`), on a
-  worker thread when the caller gives an executor.
+  worker thread when the caller gives an executor.  Several triggers take
+  one transfer table each (records trigger-major).
 
-:func:`simulate_light_group` runs G independent events' beam batches as
-one: each op takes the group on a leading axis, each event draws from its
-own :class:`ops.light.LightDraw` as its solo call would, and each event's
+:func:`simulate_light_group` (beam) and :func:`simulate_light_group_mode0`
+(threshold) run G independent events' batches as one: each op takes the
+group on a leading axis, each event draws from its own
+:class:`ops.light.LightDraw` as its solo call would, and each event's
 results equal those of its own :func:`simulate_light_batch` call.
-
-The threshold trigger (mode 0) is refused (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -108,16 +120,41 @@ def window(light: LightParams, n_ticks: int) -> tuple[int, int]:
     return n_ticks, max(min(conv_ticks, n_ticks), 1)
 
 
+def mode0_window(n_photons_det, t0_det, light: LightParams) -> tuple[int,
+                                                                      float]:
+    """The threshold trigger's (n_ticks, start_time), bucketed as
+    :func:`simulate_light_batch` sizes it (models/light.py:1901-1913):
+    ``ops.light.get_nticks`` on the host, capped at MAX_TICKS, in
+    power-of-two buckets of at least 256.  Events of one
+    :func:`simulate_light_group_mode0` call share the bucket."""
+    n_ticks, start = light_ops.get_nticks(n_photons_det, t0_det, light)
+    return window(light, n_ticks)[0], start
+
+
 def check_supported(light: LightParams, truth_path: str) -> None:
-    """Raise for the light routes this port does not run yet, and for a
+    """Raise for a trigger mode the reference does not have, and for a
     truth route that does not exist."""
-    if light.light_trig_mode != 1:
+    if light.light_trig_mode not in (0, 1):
         raise NotImplementedError(
-            f'light_trig_mode {light.light_trig_mode}: only the beam trigger '
-            '(mode 1) is ported')
+            f'light_trig_mode {light.light_trig_mode}: the threshold (0) '
+            'and beam (1) triggers are ported')
     if truth_path not in TRUTH_PATHS:
         raise ValueError(f'truth_path {truth_path!r}: use one of '
                          f'{TRUTH_PATHS}')
+
+
+def _channels(light: LightParams, light_noise, add_noise: bool, device):
+    """Every channel of the module in the TPCs' order, on the host and on
+    ``device``, with their gains and noise spectra (None without noise)."""
+    op_channel = light_ops.host_array(light.tpc_to_op_channel).ravel()
+    op_channel_dev = light.tpc_to_op_channel.reshape(-1)
+    gains = light.light_gain[op_channel_dev.long()]
+    noise_rows = None
+    if add_noise:
+        noise = torch.as_tensor(light_noise, dtype=torch.float32,
+                                device=device)
+        noise_rows = noise[(op_channel_dev % noise.shape[0]).long()]
+    return op_channel, op_channel_dev, gains, noise_rows
 
 
 def _signal_stage(segs, voxels, n_det, op_channel, time_dist, t0_avg,
@@ -377,16 +414,31 @@ def _transfer_col_bounds(T: np.ndarray) -> tuple:
 
 
 def _device_table(T: np.ndarray, device) -> torch.Tensor:
-    """``T`` on ``device``, uploaded once per host table."""
+    """``T`` on ``device``, uploaded once per host table, behind the
+    stream's queued work (nothing waits for it)."""
     key = (id(T), str(torch.device(device)))
     hit = _DEVICE_TABLES.get(key)
     if hit is not None and hit[0] is T:
         return hit[1]
     if len(_DEVICE_TABLES) > 8:
         _DEVICE_TABLES.clear()
-    table = torch.from_numpy(T).to(device)
+    table = light_ops.upload(T, device)
     _DEVICE_TABLES[key] = (T, table)
     return table
+
+
+def _trigger_table(light: LightParams, conv_ticks: int, n_ticks: int,
+                   digit_samples: int, pad_front: int, n_padded: int,
+                   trigger_idx, device) -> torch.Tensor:
+    """The transfer tables of every trigger side by side on ``device``:
+    (n_ticks, ntrig * digit_samples), trigger t's columns from its own
+    table (:func:`_transfer_table_host` at offset ``trigger_idx[t]``)."""
+    tables = [_transfer_table_host(light, conv_ticks, n_ticks, digit_samples,
+                                   pad_front, n_padded, offset=int(t))
+              for t in trigger_idx]
+    if len(tables) == 1:
+        return _device_table(tables[0], device)
+    return light_ops.upload(np.concatenate(tables, axis=1), device)
 
 
 # --------------------------------------------------------------------------
@@ -395,19 +447,21 @@ def _device_table(T: np.ndarray, device) -> torch.Tensor:
 
 def _smeared_truth_stage(segs, voxels, n_det, op_channel, time_dist,
                          start_time: float, light: LightParams,
-                         table: torch.Tensor, *, n_ticks: int, k_truth: int):
+                         table: torch.Tensor, *, n_ticks: int, k_truth: int,
+                         ntrig: int = 1):
     """Each contributor's series (C * K, n_ticks) times the transfer table
-    in full float32 (JAX: ``Precision.HIGHEST``): (ids (C, K), truth
-    (1, C, digit_samples, K)) on the batch's device; for a stacked group,
-    one product of its G * C * K rows, (G, C, K) and (G, 1, C,
+    of ``ntrig`` triggers (n_ticks, ntrig * digit_samples) in full float32
+    (JAX: ``Precision.HIGHEST``): (ids (C, K), truth (ntrig, C,
+    digit_samples, K)) on the batch's device; for a stacked group, one
+    product of its G * C * K rows, (G, C, K) and (G, ntrig, C,
     digit_samples, K)."""
     ids, series = light_ops.light_truth_series(
         segs, voxels, n_det, op_channel, time_dist, start_time, light,
         n_ticks=n_ticks, k_truth=k_truth)
     *lead, C, K = ids.shape
-    tw = f32.matmul(series.view(-1, n_ticks), table)           # (G*C*K, S)
-    # (..., C, K, 1, S) -> (..., 1, C, S, K)
-    return ids, tw.view(*lead, C, K, 1, -1).movedim(
+    tw = f32.matmul(series.view(-1, n_ticks), table)   # (G*C*K, ntrig*S)
+    # (..., C, K, ntrig, S) -> (..., ntrig, C, S, K)
+    return ids, tw.view(*lead, C, K, ntrig, -1).movedim(
         (-2, -4, -1, -3), (-4, -3, -2, -1)).contiguous()
 
 
@@ -544,11 +598,11 @@ def _staged_truth_res(ph_rows: np.ndarray, it_rows: np.ndarray,
 
 def _emit_truth(res, rows, ids, op_channel, C: int, K: int,
                 threshold: float, as_records: bool, digit_samples: int,
-                keep_override=None, event_id: int = 0):
+                keep_override=None, event_id: int = 0, trigger_id: int = 0):
     """Zero-suppress the (rows, S) truth values of the active contributor
-    rows (``rows`` = c * K + k, ascending) into records (TRUTH_DTYPE,
-    trigger_id 0) or a dict of columns.  Record order is (channel, tick,
-    contributor)."""
+    rows (``rows`` = c * K + k, ascending) of trigger ``trigger_id`` into
+    records (TRUTH_DTYPE) or a dict of columns.  Record order is (channel,
+    tick, contributor)."""
     if as_records:
         rows_k = (rows % K).astype(np.int32)
         c_starts = np.searchsorted(rows // K, np.arange(C + 1))
@@ -575,7 +629,7 @@ def _emit_truth(res, rows, ids, op_channel, C: int, K: int,
             keep_c = np.ascontiguousarray(keep_all[i0:i1].T)
             s_i, k_i = np.nonzero(keep_c)
             view = out_rec[o0:o1]
-            view['trigger_id'] = 0
+            view['trigger_id'] = trigger_id
             view['op_channel_id'] = op_channel[c]
             view['tick'] = s_i
             view['event_id'] = event_id
@@ -594,7 +648,7 @@ def _emit_truth(res, rows, ids, op_channel, C: int, K: int,
         keep = np.abs(dense) > threshold
     c_idx, s_idx, k_idx = np.nonzero(keep)
     return dict(
-        trig=np.zeros(len(c_idx), np.int32),
+        trig=np.full(len(c_idx), trigger_id, np.int32),
         op_channel=op_channel[c_idx].astype(np.int32),
         tick=s_idx.astype(np.int32),
         segment_id=ids[c_idx, k_idx].astype(np.int64),
@@ -609,12 +663,18 @@ def _host_smeared_truth_sparse(ids, contrib, t0_sel, vox,
                                digit_samples: int, pad_front: int,
                                pad_back: int, start_time: float, *,
                                as_records: bool = False,
-                               staged: bool = False, event_id: int = 0):
-    """LUT-smearing truth of the beam trigger recomputed on the host from
-    the (C, K) contributor metadata of ``ops.light.light_truth_select``:
-    each contributor's profile from the host LUT, placed on ticks as
+                               staged: bool = False, event_id: int = 0,
+                               trigger_idx=None):
+    """LUT-smearing truth recomputed on the host from the (C, K)
+    contributor metadata of ``ops.light.light_truth_select``: each
+    contributor's profile from the host LUT, placed on ticks as
     ``ops.light.light_truth_series`` places it (float32, ceil - 1 rule),
-    then the transfer table.
+    then the transfer table of each trigger.
+
+    ``trigger_idx``: the flat trigger ticks (default [0], the beam
+    trigger); several triggers (mode 0) take one transfer table each, and
+    the records come trigger-major, the reference's zero-suppression
+    order (light_sim.py:621-661).
 
     Each contributor's profile occupies ``nprof`` consecutive ticks, so the
     rows are bucketed by first tick and each bucket is one dense GEMM of
@@ -622,11 +682,14 @@ def _host_smeared_truth_sparse(ids, contrib, t0_sel, vox,
     to the columns the bucket can reach (:func:`_transfer_col_bounds`).
     The terms are those of the device route's product; only the grouping
     of the float32 sums differs.  ``staged`` runs the reference's staged
-    chain instead (:func:`_staged_truth_res`).
+    chain instead (:func:`_staged_truth_res`; the beam trigger only).
 
-    Returns TRUTH_DTYPE records (``as_records``; trigger_id 0) or a dict of
-    (trig, op_channel, tick, segment_id, pe_current) columns.
+    Returns TRUTH_DTYPE records (``as_records``; trigger_id counted from 0
+    within the batch) or a dict of (trig, op_channel, tick, segment_id,
+    pe_current) columns.
     """
+    trigger_idx = (np.zeros(1, np.int64) if trigger_idx is None
+                   else np.asarray(trigger_idx, np.int64))
     ids = np.asarray(ids)
     contrib = np.asarray(contrib).astype(np.float32)
     t0_sel = np.asarray(t0_sel).astype(np.float32)
@@ -663,6 +726,10 @@ def _host_smeared_truth_sparse(ids, contrib, t0_sel, vox,
     n_padded = n_ticks + pad_front + pad_back
 
     if staged:
+        if trigger_idx.shape[0] != 1 or int(trigger_idx[0]) != 0:
+            raise NotImplementedError(
+                'ref_exact_truth_staging supports only the beam trigger '
+                '(single trigger at tick 0)')
         if rows.size * n_ticks > 5e7:
             warnings.warn('ref_exact_truth_staging at production scale: '
                           f'{rows.size} rows x {n_ticks} ticks is a '
@@ -674,9 +741,6 @@ def _host_smeared_truth_sparse(ids, contrib, t0_sel, vox,
                            as_records, digit_samples, keep_override=keep,
                            event_id=event_id)
 
-    T = _transfer_table_host(light, conv_ticks, n_ticks, digit_samples,
-                             pad_front, n_padded)
-    first_col, last_col = _transfer_col_bounds(T)
     res = _scratch2d('res', rows.size, digit_samples, np.float32)
     row_lo = it_c.min(axis=1)
     row_hi = it_c.max(axis=1)
@@ -685,29 +749,40 @@ def _host_smeared_truth_sparse(ids, contrib, t0_sel, vox,
     win = max(2 * nprof + 8, 128, nprof + 2)
     order = np.argsort(row_lo, kind='stable')
     lo_sorted = row_lo[order]
-    i = 0
-    while i < rows.size:
-        t_lo = int(lo_sorted[i])
-        jend = int(np.searchsorted(lo_sorted, t_lo + win - nprof - 1,
-                                   side='right'))
-        blk = order[i:jend]
-        t_hi = min(int(row_hi[blk].max()) + 1, n_ticks)
-        ph_blk = np.zeros((len(blk), t_hi - t_lo), np.float32)
-        # duplicate (clipped) ticks of a row add, as the series scatter
-        np.add.at(ph_blk, (np.repeat(np.arange(len(blk)), nprof),
-                           (it_c[blk] - t_lo).reshape(-1)),
-                  ph_all[blk].reshape(-1))
-        s0 = int(first_col[t_lo])
-        s1 = int(last_col[t_hi - 1]) + 1
-        if s0 >= s1:
-            res[blk] = 0.0
-        else:
-            res[blk, :s0] = 0.0
-            res[blk, s1:] = 0.0
-            res[blk, s0:s1] = ph_blk @ T[t_lo:t_hi, s0:s1]
-        i = jend
-    return _emit_truth(res, rows, ids, op_channel, C, K, threshold,
-                       as_records, digit_samples, event_id=event_id)
+    parts = []
+    for t, offset in enumerate(trigger_idx):
+        T = _transfer_table_host(light, conv_ticks, n_ticks, digit_samples,
+                                 pad_front, n_padded, offset=int(offset))
+        first_col, last_col = _transfer_col_bounds(T)
+        i = 0
+        while i < rows.size:
+            t_lo = int(lo_sorted[i])
+            jend = int(np.searchsorted(lo_sorted, t_lo + win - nprof - 1,
+                                       side='right'))
+            blk = order[i:jend]
+            t_hi = min(int(row_hi[blk].max()) + 1, n_ticks)
+            ph_blk = np.zeros((len(blk), t_hi - t_lo), np.float32)
+            # duplicate (clipped) ticks of a row add, as the series scatter
+            np.add.at(ph_blk, (np.repeat(np.arange(len(blk)), nprof),
+                               (it_c[blk] - t_lo).reshape(-1)),
+                      ph_all[blk].reshape(-1))
+            s0 = int(first_col[t_lo])
+            s1 = int(last_col[t_hi - 1]) + 1
+            if s0 >= s1:
+                res[blk] = 0.0
+            else:
+                res[blk, :s0] = 0.0
+                res[blk, s1:] = 0.0
+                res[blk, s0:s1] = ph_blk @ T[t_lo:t_hi, s0:s1]
+            i = jend
+        parts.append(_emit_truth(res, rows, ids, op_channel, C, K, threshold,
+                                 as_records, digit_samples,
+                                 event_id=event_id, trigger_id=t))
+    if len(parts) == 1:
+        return parts[0]
+    if as_records:
+        return np.concatenate(parts)
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
 def _start_host_copy(tensors) -> 'callable':
@@ -747,8 +822,13 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
                          add_noise: bool = True,
                          truth_path: str = 'device',
                          truth_executor=None,
-                         event_id: int = 0) -> LightBatchResult:
-    """Run the light chain for one batch, beam trigger (mode 1).
+                         event_id: int = 0, *, t0_det=None,
+                         module_to_tpcs: dict | None = None,
+                         sim_window: tuple | None = None
+                         ) -> LightBatchResult:
+    """Run the light chain for one batch, in the configuration's trigger
+    mode: the beam trigger (1) or the threshold trigger (0, one event of
+    :func:`simulate_light_group_mode0`).
 
     Args:
         n_photons_det: (S, C) from calculate_light_incidence, on the LUT's
@@ -757,8 +837,9 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
         light_noise: (n_channels, n_bins) noise amplitude spectra (rows
             picked by channel id modulo their count).
         draw: the batch's random draws (:class:`ops.light.LightDraw`).
-        i_subbatch: 0 for an event's first batch; only that batch triggers
-            (light_sim.py:444-451).
+        i_subbatch: 0 for an event's first batch; in beam mode only that
+            batch triggers (light_sim.py:444-451).  Mode 0 triggers on
+            every batch.
         add_noise: False simulates without the detector noise.
         truth_path: the route of the LUT-smearing truth, ``'device'`` or
             ``'host'`` (module docstring).
@@ -766,14 +847,33 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
             recomputes the records (``truth_future``); None computes them
             here (``truth_sparse``).
         event_id: the records' event id on a worker.
+        t0_det: mode 0: (S, C) first arrivals from calculate_light_incidence
+            (they set the window).
+        module_to_tpcs: mode 0: the detector's module -> TPCs map (each
+            module triggers on its own channels).
+        sim_window: mode 0: (n_ticks, start_time) from :func:`mode0_window`
+            on host copies of the incidence; None computes it here from
+            ``n_photons_det`` and ``t0_det`` (copied to the host).
     """
     check_supported(light, truth_path)
+    if light.light_trig_mode == 0:
+        if sim_window is None:
+            if t0_det is None:
+                raise ValueError('the threshold trigger needs t0_det (or '
+                                 'sim_window) to size its window')
+            sim_window = mode0_window(n_photons_det, t0_det, light)
+        return simulate_light_group_mode0(
+            stack([segs]), light, sim, n_photons_det[None], voxels[None],
+            lut, light_noise, [draw], windows=[sim_window],
+            module_to_tpcs=module_to_tpcs, add_noise=add_noise,
+            truth_path=truth_path, truth_executor=truth_executor,
+            event_ids=[event_id])[0]
     if i_subbatch != 0:
         # the beam trigger fires on an event's first batch only: a later
         # batch has no trigger, and its waveforms would be discarded (the
         # JAX package computes and drops them; the outputs are the same)
         C = light.tpc_to_op_channel.numel()
-        n_ticks, start_time = light_ops.get_nticks(light)
+        n_ticks, start_time = light_ops.get_nticks(None, None, light)
         return LightBatchResult(
             np.empty(0, int), np.empty(0, int), np.empty((0, C), int),
             torch.zeros((0, C, digit_samples(light)),
@@ -812,21 +912,17 @@ def simulate_light_group(segs: Segments, light: LightParams, sim: SimParams,
         The other arguments are those of :func:`simulate_light_batch`.
     """
     check_supported(light, truth_path)
+    if light.light_trig_mode != 1:
+        raise ValueError('simulate_light_group runs the beam trigger; '
+                         'simulate_light_group_mode0 the threshold trigger')
     G = len(draws)
     event_ids = [0] * G if event_ids is None else event_ids
     dev = n_photons_det.device
-    # every channel of the module, in the TPCs' order
-    op_channel = light.tpc_to_op_channel.cpu().numpy().ravel()
     n_samples = digit_samples(light)
-    n_ticks, start_time = light_ops.get_nticks(light)
+    n_ticks, start_time = light_ops.get_nticks(None, None, light)
     n_ticks, conv_ticks = window(light, n_ticks)
-
-    op_channel_dev = torch.from_numpy(op_channel).to(dev)
-    gains = light.light_gain[op_channel_dev.long()]
-    noise_rows = None
-    if add_noise:
-        noise = torch.as_tensor(light_noise, dtype=torch.float32, device=dev)
-        noise_rows = noise[(op_channel_dev % noise.shape[0]).long()]
+    op_channel, op_channel_dev, gains, noise_rows = _channels(
+        light, light_noise, add_noise, dev)
 
     draw = group_draw(draws)
     response = _signal_stage(
@@ -839,12 +935,7 @@ def simulate_light_group(segs: Segments, light: LightParams, sim: SimParams,
     trigger_idx = np.zeros(1, int)
     trig_op = op_channel[None, :]
     trig_type = np.ones(1, int)
-    tick = light.light_tick_size
-    pre = int(np.ceil(light.light_trig_window[0] / tick))
-    post = int(np.ceil(light.light_trig_window[1] / tick))
-    pad_front = max(pre - int(trigger_idx.min()), 0)
-    pad_back = max(post + int(trigger_idx.max()) + pad_front
-                   - (n_ticks + pad_front), 0)
+    pad_front, pad_back = _pads(light, trigger_idx, n_ticks)
     k_truth = sim.max_mc_truth_ids
     points = k_truth > 0 and not light.enable_lut_smearing
     wvfms, truth_ids, amp, itick = _beam_digitize_stage(
@@ -869,12 +960,12 @@ def simulate_light_group(segs: Segments, light: LightParams, sim: SimParams,
             warnings.warn('ref_exact_truth_staging has no effect on the '
                           "device route; truth_path='host' runs the staged "
                           'chain')
-        T = _transfer_table_host(light, conv_ticks, n_ticks, n_samples,
-                                 pad_front, n_ticks + pad_front + pad_back)
+        table = _trigger_table(light, conv_ticks, n_ticks, n_samples,
+                               pad_front, n_ticks + pad_front + pad_back,
+                               trigger_idx, dev)
         ids, tw = _smeared_truth_stage(
             segs, voxels, n_photons_det, op_channel_dev, lut.time_dist,
-            start_time, light, _device_table(T, dev), n_ticks=n_ticks,
-            k_truth=k_truth)
+            start_time, light, table, n_ticks=n_ticks, k_truth=k_truth)
         with trace.phase('truth/pull', dev):
             truth_sparse = _pull_group_dense_truth(ids, tw, op_channel, thr)
     elif k_truth > 0:
@@ -900,3 +991,154 @@ def simulate_light_group(segs: Segments, light: LightParams, sim: SimParams,
         op_channel_idx=trig_op, waveforms=wvfms[g], start_time=start_time,
         n_ticks=n_ticks, truth_sparse=truth_sparse[g],
         truth_future=truth_future[g]) for g in range(G)]
+
+
+def _pads(light: LightParams, trigger_idx: np.ndarray, n_ticks: int):
+    """(pad_front, pad_back) ticks around the simulated window that hold
+    every trigger's digitized window (light_sim.sim_triggers, :545-619)."""
+    tick = light.light_tick_size
+    pre = int(np.ceil(light.light_trig_window[0] / tick))
+    post = int(np.ceil(light.light_trig_window[1] / tick))
+    pad_front = max(pre - int(trigger_idx.min()), 0)
+    return pad_front, max(post + int(trigger_idx.max()) + pad_front
+                          - (n_ticks + pad_front), 0)
+
+
+def simulate_light_group_mode0(segs: Segments, light: LightParams,
+                               sim: SimParams, n_photons_det, voxels,
+                               lut: light_ops.LightLUT,
+                               light_noise: torch.Tensor, draws: list, *,
+                               windows: list, module_to_tpcs: dict,
+                               add_noise: bool = True,
+                               truth_path: str = 'device',
+                               truth_executor=None,
+                               event_ids=None) -> list[LightBatchResult]:
+    """Run the light chain for G independent events' batches with the
+    threshold trigger (mode 0, light_sim.py:380-477): the signal, the
+    threshold groups and the dead-time scan over the group's leading axis,
+    one wait for the group's trigger tables (their counts set the shapes
+    that follow; the contributor-point truth comes in the same copy), then
+    each event's tail -- padding around its triggers, noise drawn at the
+    padded shape, digitization of every trigger, truth -- as its solo call
+    runs it (models/light.py:1538-1658, :2001-2129).
+
+    Each event's result equals its own :func:`simulate_light_batch` call
+    (the one-event case of this function): triggers, waveforms and truth
+    records, bit for bit.
+
+    Args:
+        segs: (G, S) stacked segments; n_photons_det: (G, S, C); voxels:
+            (G, S, 3).
+        draws: G :class:`ops.light.LightDraw`, event g's draws as its solo
+            call takes them.
+        windows: G (n_ticks, start_time) from :func:`mode0_window`; every
+            event of a group shares one n_ticks bucket.
+        module_to_tpcs: the detector's module -> TPCs map.
+        event_ids: (G,) the records' event ids on a worker.
+        The other arguments are those of :func:`simulate_light_batch`.
+    """
+    check_supported(light, truth_path)
+    if light.light_trig_mode != 0:
+        raise ValueError('simulate_light_group_mode0 runs the threshold '
+                         'trigger (light_trig_mode 0)')
+    if module_to_tpcs is None:
+        raise ValueError('the threshold trigger needs the detector\'s '
+                         'module_to_tpcs map')
+    G = len(draws)
+    event_ids = [0] * G if event_ids is None else event_ids
+    n_ticks = windows[0][0]
+    if any(w[0] != n_ticks for w in windows):
+        raise ValueError('grouped mode-0 events must share one n_ticks '
+                         f'bucket, not {[w[0] for w in windows]}')
+    conv_ticks = window(light, n_ticks)[1]
+    starts = [float(w[1]) for w in windows]
+    dev = n_photons_det.device
+    n_samples = digit_samples(light)
+    op_channel, op_channel_dev, gains, noise_rows = _channels(
+        light, light_noise, add_noise, dev)
+    C = len(op_channel)
+    tpc_to_module = {t: m for m, tpcs in module_to_tpcs.items() for t in tpcs}
+    gmasks, ops_per_mod = light_ops.mode0_module_masks(
+        op_channel, light, module_to_tpcs, tpc_to_module)
+    start = light_ops.upload(np.array(starts, np.float32).reshape(G, 1, 1),
+                             dev)
+    k_truth = sim.max_mc_truth_ids
+    thr = sim.mc_truth_threshold
+    points = k_truth > 0 and not light.enable_lut_smearing
+    smear_host = (k_truth > 0 and light.enable_lut_smearing
+                  and truth_path == 'host')
+
+    with trace.phase('light/mode0_scan', dev):
+        response = _signal_stage(
+            segs, voxels, n_photons_det, op_channel_dev, lut.time_dist,
+            lut.t0_avg, start, gains, group_draw(draws), light,
+            n_ticks=n_ticks, conv_ticks=conv_ticks,
+            lut_smearing=light.enable_lut_smearing)
+        pulled = list(light_ops.trigger_tables(
+            response, light_ops.mode0_group_threshold(op_channel, light),
+            gmasks, light))
+        if points:
+            pulled += light_ops.light_truth_points(
+                segs, voxels, n_photons_det, op_channel_dev, lut.t0_avg,
+                start, light, k_truth=k_truth)
+        fetches = []
+        if smear_host:
+            # each event's (C, K) contributor metadata, copied behind the
+            # group's work (light_ops.light_truth_select)
+            sel = light_ops.light_truth_select(segs, voxels, n_photons_det,
+                                               k_truth=k_truth)
+            fetches = [_start_host_copy([t[g] for t in sel])
+                       for g in range(G)]
+        # the one wait of the group
+        idx_h, counts_h, *points_h = _start_host_copy(pulled)()
+    trigs = light_ops.trigger_lists(idx_h, counts_h, ops_per_mod, C)
+    kernel = _combined_kernel_host(light, conv_ticks) if points else None
+    if sim.ref_exact_truth_staging and k_truth > 0 and not smear_host:
+        warnings.warn('ref_exact_truth_staging has no effect on this truth '
+                      "route; truth_path='host' with LUT smearing runs the "
+                      'staged chain')
+
+    out = []
+    for g in range(G):
+        trigger_idx, trig_op, trig_type = trigs[g]
+        res = LightBatchResult(trigger_idx, trig_type, trig_op,
+                               response.new_zeros((0, C, n_samples)),
+                               starts[g], n_ticks)
+        out.append(res)
+        if not len(trigger_idx):
+            continue
+        pad_front, pad_back = _pads(light, trigger_idx, n_ticks)
+        signal = torch.nn.functional.pad(response[g], (pad_front, pad_back))
+        if noise_rows is not None:
+            signal = signal + light_ops.gen_light_detector_noise(
+                tuple(signal.shape), noise_rows, draws[g], light)
+        res.waveforms = light_ops.digitize_signal(
+            signal, light_ops.upload(trigger_idx + pad_front, dev), light,
+            digit_samples=n_samples, ref_exact=sim.ref_exact_light_digitize)
+        if points:
+            res.truth_sparse = _host_truth_sparse(
+                *(a[g] for a in points_h), kernel, trigger_idx, light,
+                n_samples, op_channel, thr)
+        elif k_truth > 0 and truth_path == 'device':
+            table = _trigger_table(
+                light, conv_ticks, n_ticks, n_samples, pad_front,
+                n_ticks + pad_front + pad_back, trigger_idx, dev)
+            ids, tw = _smeared_truth_stage(
+                segs.event(g), voxels[g], n_photons_det[g], op_channel_dev,
+                lut.time_dist, starts[g], light, table, n_ticks=n_ticks,
+                k_truth=k_truth, ntrig=len(trigger_idx))
+            with trace.phase('truth/pull', dev):
+                res.truth_sparse = _pull_dense_truth(ids, tw, op_channel, thr)
+        elif k_truth > 0:
+            args = (lut.time_dist_host, op_channel, light, thr, conv_ticks,
+                    n_ticks, n_samples, pad_front, pad_back, starts[g])
+            kw = dict(staged=sim.ref_exact_truth_staging,
+                      trigger_idx=trigger_idx)
+            if truth_executor is not None:
+                res.truth_future = truth_executor.submit(
+                    _worker_smeared_truth, fetches[g], *args,
+                    as_records=True, event_id=int(event_ids[g]), **kw)
+            else:
+                res.truth_sparse = _host_smeared_truth_sparse(
+                    *fetches[g](), *args, **kw)
+    return out

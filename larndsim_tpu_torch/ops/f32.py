@@ -19,10 +19,24 @@ def div(x: torch.Tensor, v: float) -> torch.Tensor:
 def div_const(x: torch.Tensor, v: float) -> torch.Tensor:
     """``x / v`` for a constant ``v`` as the JAX package's jitted ops
     compute it: XLA folds the division by a constant into a multiplication
-    by its float32 reciprocal, ``float32(1) / float32(v)``."""
+    by its float32 reciprocal, ``float32(1) / float32(v)``.  The
+    reciprocal is a float32 value, so multiplying by it as a Python number
+    (which the float32 kernels take as float32) gives the same bits as a
+    float32 tensor would, and copies nothing to the device."""
     with np.errstate(divide='ignore'):
         inv = np.float32(1.0) / np.float32(v)
-    return x * torch.tensor(inv, dtype=torch.float32, device=x.device)
+    return x * float(inv)
+
+
+def fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for float32 ``a`` and ``c``, rounded once to float32,
+    as XLA's CPU backend computes the JAX package's multiply-adds (it
+    contracts them into fused multiply-adds).  The product of two float32
+    values is exact in float64 and the sum is rounded to float64 and then
+    to float32, so both devices give the same bits (a single rounding but
+    for ties of the two roundings, about one case in 2^29)."""
+    b32 = float(np.float32(b))
+    return (a.double() * b32 + c.double()).float()
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

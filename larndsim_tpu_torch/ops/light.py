@@ -1,8 +1,9 @@
-"""Light readout: LUT visibility, waveform synthesis and digitization.
+"""Light readout: LUT visibility, waveform synthesis, triggers and
+digitization.
 
-Counterpart of the beam-trigger part of ``larndsim_tpu.ops.light``
-(reference lightLUT.py and light_sim.py).  Plain PyTorch on every device;
-the JAX module has no Pallas kernel.
+Counterpart of ``larndsim_tpu.ops.light`` (reference lightLUT.py and
+light_sim.py).  Plain PyTorch on every device; the JAX module has no
+Pallas kernel.
 
 * Photon arrival series are sums over (segment, channel[, profile bin]);
   they are added in a fixed order (:func:`ordered_sum`), the order of the
@@ -20,14 +21,24 @@ the JAX module has no Pallas kernel.
   or on the host from :func:`light_truth_select`'s metadata).
 * Random draws are explicit: a :class:`LightDraw` supplies the Poisson
   counts, the normals and the noise phases.
-* The beam chain's ops also take a stacked group of independent events
-  on a leading axis (``models.light.simulate_light_group``); each event's
-  values are those of a call with that event alone.
+* The chain's ops also take a stacked group of independent events on a
+  leading axis (``models.light.simulate_light_group`` and
+  ``simulate_light_group_mode0``); each event's values are those of a call
+  with that event alone.
+* The threshold trigger (mode 0) sums each channel group and averages
+  each ADC sample's ticks in a fixed float32 order, so a tick at the
+  threshold falls on the same side on every device, and walks the dead
+  time by table lookups (:func:`dead_time_trigger_scan`); its trigger
+  tables reach the host in one copy.
 * The JAX ops run jitted, where XLA turns a division by a constant (a
   tick size, a window length) into a multiplication by the constant's
   float32 reciprocal; ``ops.f32.div_const`` does the same on every device,
   so each photon lands on the same tick as in the JAX package.  A
-  division by a tensor leaf stays a true division.
+  division by a tensor leaf stays a true division.  XLA's CPU backend
+  also contracts the arrival times' multiply-adds (LUT delay [ns] x 1e-3
+  + segment time) into fused multiply-adds; ``ops.f32.fma`` rounds them
+  once too, which matters where an arrival sits at a tick's edge, as the
+  first arrival of a mode-0 window does.
 """
 from __future__ import annotations
 
@@ -157,7 +168,8 @@ def calculate_light_incidence(segs: Segments, det: DetectorParams,
     n_det = torch.where(in_tpc[:, None] & same_tpc,
                         eff[None, :] * vis * segs.n_photons[:, None], 0.0)
     # t0 in us: lut t0 [ns] + segment t0 [us] (lightLUT.py:135)
-    t0_det = torch.where(in_tpc[:, None], t1 * 1e-3 + segs.t0[:, None], 0.0)
+    t0_det = torch.where(in_tpc[:, None],
+                         f32.fma(t1, 1e-3, segs.t0[:, None]), 0.0)
     return n_det.float(), t0_det.float(), vox
 
 
@@ -165,10 +177,51 @@ def calculate_light_incidence(segs: Segments, det: DetectorParams,
 # Waveform synthesis (light_sim.py)
 # --------------------------------------------------------------------------
 
-def get_nticks(light: LightParams) -> tuple[int, float]:
-    """(n_ticks, start_time) of the beam trigger's window
-    (light_sim.get_nticks, :24-41; the threshold mode's sizing by the
-    arrival times is not ported).  Host-side."""
+_HOST_COPIES: dict = {}
+
+
+def host_array(t) -> np.ndarray:
+    """A numpy copy of ``t``.  Tensors are copied once each, so host code
+    reads a card's parameter tables without waiting for the card again."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    hit = _HOST_COPIES.get(id(t))
+    if hit is not None and hit[0] is t:
+        return hit[1]
+    if len(_HOST_COPIES) > 64:
+        _HOST_COPIES.clear()
+    arr = t.detach().cpu().numpy()
+    _HOST_COPIES[id(t)] = (t, arr)
+    return arr
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """Host data as a tensor on ``device``.  To the card it goes through
+    pinned memory, copied behind the stream's queued work, so the host does
+    not wait for the card (a copy from pageable memory waits for the
+    stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != 'cuda':
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def get_nticks(n_photons_det, t0_det, light: LightParams) -> tuple[int, float]:
+    """(n_ticks, start_time) of the simulated window (light_sim.get_nticks,
+    :24-41): in the threshold mode (0) from the first to the last arrival
+    of a detected photon, widened by the light window; the beam window
+    otherwise, or when nothing is lit.  Host-side: ``n_photons_det`` and
+    ``t0_det`` (S, C) are numpy arrays (tensors are copied to the host)."""
+    if light.light_trig_mode == 0:
+        n = np.asarray(n_photons_det.cpu() if isinstance(
+            n_photons_det, torch.Tensor) else n_photons_det)
+        mask = n > 0
+        if mask.any():
+            t0 = np.asarray(t0_det.cpu() if isinstance(t0_det, torch.Tensor)
+                            else t0_det)
+            start = float(t0[mask].min()) - light.light_window[0]
+            end = float(t0[mask].max()) + light.light_window[1]
+            return int(np.ceil((end - start) / light.light_tick_size)), start
     return int((light.light_window[1] + light.light_window[0])
                / light.light_tick_size), 0.0
 
@@ -233,7 +286,8 @@ def sum_light_signals(segs: Segments, voxels, n_photons_det, op_channel,
         op_channel: (C,) absolute channel index of each output row.
         lut_time_dist: (nx, ny, nz, ndet_tpc, nprof) normalized profiles.
         lut_t0_avg: (nx, ny, nz, ndet_tpc) mean arrival delay [ns].
-        start_time: window start [us].
+        start_time: window start [us]; a (G, 1, 1) float32 tensor gives
+            each event of a group its own.
 
     Returns:
         (C, n_ticks) photons/us.  A stacked group of events (segments
@@ -271,7 +325,7 @@ def sum_light_signals(segs: Segments, voxels, n_photons_det, op_channel,
         out = ordered_sum(keys, rows, G * n_ticks)
         return out.view(*lead, n_ticks, C).transpose(-1, -2).contiguous()
     t0_avg = _at_voxels(lut_t0_avg, voxels, lut_idx)           # (..., S, C)
-    t_arr = track_time[..., None] + t0_avg * 1e-3              # ns -> us
+    t_arr = f32.fma(t0_avg, 1e-3, track_time[..., None])       # ns -> us
     tick_f = f32.div_const(t_arr - start_time, tick)
     itick = torch.ceil(tick_f).to(torch.int32) - 1
     ok = (tick_f > itick) & (itick >= 0) & (itick < n_ticks)
@@ -331,7 +385,7 @@ def light_truth_points(segs: Segments, voxels, n_photons_det, op_channel,
     vox = _take_voxels(voxels, order)                          # (K, C, 3)
     t0_avg = lut_t0_avg[vox[..., 0], vox[..., 1], vox[..., 2],
                         lut_idx]                               # (K, C)
-    t_arr = _take(segs.t0, order) + t0_avg * 1e-3
+    t_arr = f32.fma(t0_avg, 1e-3, _take(segs.t0, order))
     tick_f = f32.div_const(t_arr - start_time, tick)
     itick = torch.ceil(tick_f).to(torch.int32) - 1             # (K, C)
     amp = torch.where(has & (tick_f > itick), f32.div_const(contrib, tick),
@@ -601,6 +655,248 @@ def gen_light_detector_noise(shape, light_det_noise: torch.Tensor,
     # device but at ties
     return noise_from_spectrum(spectrum.double(), phase.double(), shape[-1],
                                light)
+
+
+# --------------------------------------------------------------------------
+# Threshold trigger (mode 0)
+# --------------------------------------------------------------------------
+
+def sample_factor(light: LightParams) -> int:
+    """Simulation ticks per ADC sample."""
+    return round(light.light_digit_sample_spacing / light.light_tick_size)
+
+
+def digit_ticks(light: LightParams) -> int:
+    """Dead time after a trigger: the digitized window, in ticks."""
+    return int(np.ceil((light.light_trig_window[1]
+                        + light.light_trig_window[0])
+                       / light.light_tick_size))
+
+
+def group_above_threshold(signal: torch.Tensor, group_threshold: torch.Tensor,
+                          *, per_trig: int, sample_factor: int) -> torch.Tensor:
+    """Per-trigger-group threshold comparison at the ADC sample rate
+    (light_sim.py:394-409): each group of ``per_trig`` channels summed,
+    the sum averaged over blocks of ``sample_factor`` ticks (the last block
+    zero-padded) and repeated back, compared with the group's threshold
+    by ``<``: the pulses are negative-going (light_sim.py:407).
+
+    The sums are float32 adds in a fixed order, the JAX op's on the CPU
+    (:func:`_lane_sum`), so a tick at the threshold falls on the same side
+    on every device and in both packages.
+
+    Args:
+        signal: (C, T) response; (G, C, T) for a stacked group.
+        group_threshold: (n_grp,) thresholds [ADC].
+
+    Returns:
+        (n_grp, T) bool; (G, n_grp, T) for a group.
+    """
+    *lead, C, T = signal.shape
+    n_grp = C // per_trig
+    grouped = signal[..., :n_grp * per_trig, :].reshape(*lead, n_grp,
+                                                        per_trig, T)
+    s = grouped[..., 0, :]
+    for j in range(1, per_trig):
+        s = s + grouped[..., j, :]
+    pad = (-T) % sample_factor
+    if pad:
+        s = torch.nn.functional.pad(s, (0, pad))
+    b = _lane_sum(s.reshape(*lead, n_grp, -1, sample_factor))
+    above = f32.div_const(b, sample_factor) < group_threshold[:, None]
+    return above.repeat_interleave(sample_factor, dim=-1)[..., :T]
+
+
+#: vector lanes of the JAX op's block sum on the CPU
+_LANES = 8
+
+
+def _lane_sum(blocks: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order XLA's CPU backend adds a block
+    of :func:`group_above_threshold` (the block sum fused behind the
+    groups' sum): over 8 vector lanes, lane L adding ticks L, L + 8, ...
+    one after another, then the lanes pairwise by halves (lane i + lane
+    i + 4, then i + 2, then i + 1; absent lanes hold 0)."""
+    f = blocks.shape[-1]
+    lanes = []
+    for lane in range(min(f, _LANES)):
+        acc = blocks[..., lane]
+        for t in range(lane + _LANES, f, _LANES):
+            acc = acc + blocks[..., t]
+        lanes.append(acc)
+    lanes += [torch.zeros_like(lanes[0])] * (_LANES - len(lanes))
+    while len(lanes) > 1:
+        half = len(lanes) // 2
+        lanes = [lanes[i] + lanes[i + half] for i in range(half)]
+    return lanes[0]
+
+
+def dead_time_trigger_scan(above: torch.Tensor, *, digit_ticks: int,
+                           max_trig: int):
+    """The sequential dead-time trigger walk (light_sim.py:430-443) as
+    table lookups: each row's first above-threshold tick at or after 0,
+    then the first at or after each trigger + ``digit_ticks``.
+
+    A next-above table (the least above tick ``t' >= t``, by a reversed
+    cumulative minimum) answers each step, so the walk is ``max_trig``
+    gathers, integer work that gives the same result on every device, and
+    nothing waits for it.
+
+    Args:
+        above: (M, T) bool, per-module above-threshold flags; (G, M, T)
+            for a stacked group.
+        max_trig: output slots (``T // digit_ticks + 1`` is an exact
+            bound).
+
+    Returns:
+        idx: (M, max_trig) int32 trigger ticks, ascending, -1 padded.
+        counts: (M,) int32 triggers per row.
+        (Each with the group's leading axis.)
+    """
+    T = above.shape[-1]
+    ticks = torch.arange(T, device=above.device)
+    first = torch.where(above, ticks, T)
+    # next_above[..., t] for t in [0, T]; T: none left
+    next_above = torch.flip(torch.cummin(torch.flip(first, (-1,)), -1).values,
+                            (-1,))
+    next_above = torch.nn.functional.pad(next_above, (0, 1), value=T)
+    step = max(digit_ticks, 1)
+    t = next_above[..., :1]
+    idx = [t]
+    for _ in range(max_trig - 1):
+        t = torch.gather(next_above, -1, torch.clamp(t + step, max=T))
+        idx.append(t)
+    idx = torch.cat(idx, dim=-1)
+    fired = idx < T
+    return (torch.where(fired, idx, -1).to(torch.int32),
+            fired.sum(-1).to(torch.int32))
+
+
+def mode0_module_masks(op_channel_idx: np.ndarray, light: LightParams,
+                       module_to_tpcs, tpc_to_module):
+    """Per-module trigger-group membership for the mode-0 scan
+    (light_sim.py:418-428): which threshold groups belong to each module
+    sharing channels with ``op_channel_idx``.  Host numpy.
+
+    Returns (gmasks (n_mod, n_grp) bool, ops_per_mod list of channel-id
+    arrays) in ascending module-id order: the trigger emission order the
+    solo and grouped paths share.
+    """
+    n_grp = len(op_channel_idx) // light.op_channel_per_trig
+    op_to_tpc = host_array(light.op_channel_to_tpc)
+    tpc_to_op = host_array(light.tpc_to_op_channel)
+    tpc_ids = np.unique(op_to_tpc[op_channel_idx])
+    mod_ids = np.unique([tpc_to_module[t] for t in tpc_ids])
+    gmasks, ops_per_mod = [], []
+    for mod_id in mod_ids:
+        op_channels = tpc_to_op[module_to_tpcs[mod_id]].ravel()
+        mask = np.isin(op_channel_idx, op_channels)
+        gmasks.append(mask.reshape(n_grp,
+                                   light.op_channel_per_trig).any(axis=1))
+        ops_per_mod.append(op_channels)
+    return np.stack(gmasks), ops_per_mod
+
+
+def mode0_group_threshold(op_channel_idx: np.ndarray,
+                          light: LightParams) -> np.ndarray:
+    """Per-trigger-group thresholds for the simulated channels
+    (light_sim.py:399-404).  Host numpy."""
+    thr = np.repeat(host_array(light.light_trig_threshold)[:, None],
+                    light.op_channel_per_trig, axis=-1).ravel()
+    return thr[op_channel_idx].reshape(-1, light.op_channel_per_trig)[:, 0]
+
+
+def trigger_tables(signal: torch.Tensor, group_threshold: np.ndarray,
+                   gmasks: np.ndarray, light: LightParams):
+    """Mode 0's trigger tables on the signal's device: the groups' flags
+    (:func:`group_above_threshold`), each module's as any of its groups',
+    then the scan.  (idx (M, max_trig), counts (M,)); each with the
+    group's leading axis for a (G, C, T) signal."""
+    dev = signal.device
+    above = group_above_threshold(
+        signal, upload(np.asarray(group_threshold, np.float32), dev),
+        per_trig=light.op_channel_per_trig,
+        sample_factor=sample_factor(light))                   # (.., n_grp, T)
+    gm = upload(np.asarray(gmasks, bool), dev)
+    module_above = (gm[:, :, None] & above.unsqueeze(-3)).any(-2)  # (.., M, T)
+    T = signal.shape[-1]
+    dt = digit_ticks(light)
+    return dead_time_trigger_scan(module_above, digit_ticks=dt,
+                                  max_trig=T // max(dt, 1) + 1)
+
+
+def trigger_lists(idx: np.ndarray, counts: np.ndarray, ops_per_mod,
+                  n_channels: int) -> list:
+    """Each event's (trigger_idx, trigger_op_channel_idx, trigger_type)
+    from host copies of the trigger tables, idx (G, M, max_trig) and
+    counts (G, M), in module order (light_sim.get_triggers' emission
+    order)."""
+    out = []
+    for idx_g, counts_g in zip(idx, counts):
+        trigger_idx, trig_op = [], []
+        for m, ops in enumerate(ops_per_mod):
+            n = int(counts_g[m])
+            trigger_idx += [int(t) for t in idx_g[m, :n]]
+            trig_op += [ops] * n
+        out.append(_trigger_arrays(trigger_idx, trig_op,
+                                   [0] * len(trigger_idx), n_channels))
+    return out
+
+
+def _trigger_arrays(trigger_idx, trig_op, trig_type, n_channels: int):
+    if trigger_idx:
+        return (np.array(trigger_idx), np.array(trig_op), np.array(trig_type))
+    return (np.empty((0,), int), np.empty((0, n_channels), int),
+            np.empty((0,), int))
+
+
+def get_triggers(signal: torch.Tensor, group_threshold: np.ndarray,
+                 op_channel_idx: np.ndarray, i_subbatch: int,
+                 light: LightParams, module_to_tpcs, tpc_to_module,
+                 device_scan: bool = True):
+    """Trigger scan (light_sim.get_triggers, :380-477) of one (C, T)
+    signal.  Mode 0: the threshold groups and the dead-time walk on the
+    signal's device, one pull of the trigger tables; ``device_scan=False``
+    pulls the groups' flags and walks them on the host as the reference
+    does (the oracle the tests hold the scan to).  Mode 1: one forced
+    trigger at tick 0 on an event's first batch (``i_subbatch`` 0).
+
+    Returns (trigger_idx, trigger_op_channel_idx, trigger_type) numpy
+    arrays.
+    """
+    C = len(op_channel_idx)
+    if light.light_trig_mode == 0:
+        gmasks, ops_per_mod = mode0_module_masks(
+            op_channel_idx, light, module_to_tpcs, tpc_to_module)
+        if device_scan:
+            idx, counts = trigger_tables(signal, group_threshold, gmasks,
+                                         light)
+            table = torch.cat([idx, counts[:, None]], dim=-1).cpu().numpy()
+            return trigger_lists(table[None, :, :-1], table[None, :, -1],
+                                 ops_per_mod, C)[0]
+        grp_above = group_above_threshold(
+            signal, upload(np.asarray(group_threshold, np.float32),
+                           signal.device),
+            per_trig=light.op_channel_per_trig,
+            sample_factor=sample_factor(light)).cpu().numpy()
+        dt = digit_ticks(light)
+        trigger_idx, trig_op = [], []
+        for gmask, op_channels in zip(gmasks, ops_per_mod):
+            module_above = np.any(grp_above[gmask], axis=0)
+            last_trigger = 0
+            while module_above.any():
+                next_idx = int(np.nonzero(module_above)[0].min()
+                               + last_trigger)
+                trigger_idx.append(next_idx)
+                trig_op.append(op_channels)
+                module_above = module_above[next_idx - last_trigger + dt:]
+                last_trigger = next_idx + dt
+        return _trigger_arrays(trigger_idx, trig_op, [0] * len(trigger_idx),
+                               C)
+    if light.light_trig_mode == 1 and i_subbatch == 0:
+        # beam mode: one forced trigger per event (light_sim.py:444-451)
+        return _trigger_arrays([0], [np.asarray(op_channel_idx)], [1], C)
+    return _trigger_arrays([], [], [], C)
 
 
 def digitize_signal(signal: torch.Tensor, padded_trigger_idx: torch.Tensor,

@@ -8,7 +8,8 @@ On the card they are held against their own CPU run: a batch the CLI gave
 CPU, each time with draws made on the CPU from one seed and moved to the
 batch's device (the Poisson counts at the rates each run computed).
 
-Tolerances: waveforms within one quantum (2^(16 - light_nbit) ADC) with
+Tolerances: trigger tables (ticks, types, channels), window start and
+length equal; waveforms within one quantum (2^(16 - light_nbit) ADC) with
 >= 99.9% of samples equal (cuFFT and pocketfft round differently, and a
 rate a last bit apart can draw another Poisson count); contributor-point
 truth records (trigger, channel, tick, segment id) equal with pe_current
@@ -117,6 +118,8 @@ def rerun(args: tuple, kwargs: dict, device, seed: int, *,
     if threshold is not None:
         sim = dataclasses.replace(sim, mc_truth_threshold=threshold)
     kwargs = dict(kwargs, truth_executor=None)
+    if kwargs.get('t0_det') is not None:        # mode 0's arrivals
+        kwargs['t0_det'] = kwargs['t0_det'].to(device)
     if truth_path is not None:
         kwargs['truth_path'] = truth_path
     res = light_model.simulate_light_batch(
@@ -149,10 +152,14 @@ def records_agree(got, want, threshold: float,
 
 
 def compare(got, want, light, *, smeared_at: float | None = None) -> dict:
-    """``got`` (card) against ``want`` (CPU) at the tolerances above;
-    raises AssertionError outside them.  ``smeared_at``: the record
-    threshold of LUT-smearing truth (:func:`records_agree`); None holds
-    the records equal."""
+    """``got`` (card) against ``want`` (CPU) at the tolerances above, the
+    trigger tables equal; raises AssertionError outside them.
+    ``smeared_at``: the record threshold of LUT-smearing truth
+    (:func:`records_agree`); None holds the records equal."""
+    for name in ('trigger_idx', 'trigger_type', 'op_channel_idx'):
+        assert np.array_equal(getattr(got, name), getattr(want, name)), \
+            f'{name} differs: {getattr(got, name)} vs {getattr(want, name)}'
+    assert (got.start_time, got.n_ticks) == (want.start_time, want.n_ticks)
     quant = 2.0 ** (16 - light.light_nbit)
     a, b = got.waveforms.astype(np.float64), want.waveforms.astype(np.float64)
     assert a.shape == b.shape, (a.shape, b.shape)
@@ -174,7 +181,8 @@ def compare(got, want, light, *, smeared_at: float | None = None) -> dict:
                                        rtol=1e-4, atol=1e-6)
             n_rec = len(w['tick'])
     return dict(max_abs_err=err, equal_share=equal, records=n_rec,
-                near=near, peak=float(np.abs(b).max()) if b.size else 0.0)
+                near=near, peak=float(np.abs(b).max()) if b.size else 0.0,
+                triggers=len(want.trigger_idx))
 
 
 def identical(a, b) -> bool:

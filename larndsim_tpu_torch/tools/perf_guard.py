@@ -25,6 +25,9 @@ channels, 16 us beam window: 16384 ticks, FFTs of 32768; the synthetic
   light_sipm           the SiPM response convolution (FFT) x gains
   light_noise          the noise synthesis (inverse FFT), draws included
   light_digitize       the beam trigger's 256 ADC samples per channel
+  light_trigger_scan   the threshold trigger's scan (mode 0): the groups'
+                       threshold flags, each module's, the dead-time walk
+                       and the copy of the trigger tables to the host
 
 and the whole beam stage of ``models.light`` (LUT smearing on, truth off)
 on the batch cut into 4 events of S / 4 segments each:
@@ -319,11 +322,11 @@ def build_light_workload(w: dict) -> dict:
     lut = light_ops.LightLUT.from_structured(
         load_light_lut(None, n_det_tpc=light.n_op_channel // 2), dev)
     segs = w['stage'].segs
-    n_det, _, vox = light_ops.calculate_light_incidence(
+    n_det, t0_det, vox = light_ops.calculate_light_incidence(
         segs, w['det'], light, lut.vis, lut.t0,
         n_channels=light.n_op_channel)
     n_ticks, conv_ticks = light_model.window(
-        light, light_ops.get_nticks(light)[0])
+        light, light_ops.get_nticks(n_det, t0_det, light)[0])
     C = light.n_op_channel
     shapes = dict(pad_n=segs.size, n_op_channel=C, n_ticks=n_ticks,
                   conv_ticks=conv_ticks,
@@ -336,7 +339,8 @@ def build_light_workload(w: dict) -> dict:
                          device=dev)
     return dict(light=light, lut=lut, segs=segs, n_det=n_det, vox=vox,
                 op_channel=torch.arange(C, device=dev), noise=noise,
-                shapes=shapes, generator=w['generator'])
+                shapes=shapes, generator=w['generator'],
+                module_to_tpcs=w['det_model'].module_to_tpcs)
 
 
 def causal_convolve_f32(signal: torch.Tensor,
@@ -358,6 +362,27 @@ def light_noise_f32(shape, light_det_noise, draw, light) -> torch.Tensor:
     spectrum = lo.noise_spectrum(shape[1], light_det_noise, light)
     phase = (2 * math.pi) * draw.uniform(tuple(spectrum.shape))
     return lo.noise_from_spectrum(spectrum, phase, shape[1], light)
+
+
+def trigger_scan(response: torch.Tensor, group_threshold: np.ndarray,
+                 gmasks: np.ndarray, light) -> np.ndarray:
+    """Mode 0's trigger tables of one (C, T) response, copied to the host
+    (``ops.light.trigger_tables`` and the copy ``models.light`` makes)."""
+    from ..models.light import _start_host_copy
+    from ..ops import light as lo
+    return _start_host_copy(list(lo.trigger_tables(
+        response, group_threshold, gmasks, light)))()
+
+
+def trigger_scan_args(lw: dict, response: torch.Tensor) -> tuple:
+    """The scan's inputs for the module's every channel."""
+    from ..ops import light as lo
+    light = lw['light']
+    op = lo.host_array(light.tpc_to_op_channel).ravel()
+    modules = lw['module_to_tpcs']
+    t2m = {t: m for m, tpcs in modules.items() for t in tpcs}
+    gmasks, _ = lo.mode0_module_masks(op, light, modules, t2m)
+    return (response, lo.mode0_group_threshold(op, light), gmasks, light)
 
 
 def light_op_calls(lw: dict) -> dict:
@@ -394,6 +419,7 @@ def light_op_calls(lw: dict) -> dict:
                      (tuple(signal.shape), lw['noise'], draw, light), {}),
         light_digitize=(lo.digitize_signal, (signal, trig, light),
                         dict(digit_samples=sh['digit_samples'])),
+        light_trigger_scan=(trigger_scan, trigger_scan_args(lw, resp), {}),
         light_scintillation_f32=(
             lambda x: causal_convolve_f32(
                 x, lo.scintillation_kernel(light, ctk)), (inc,), {}),
@@ -422,10 +448,23 @@ def light_op_costs(lw: dict) -> dict:
         light_sipm=dict(bytes=2 * series + C * 4, ops=0),
         light_noise=dict(bytes=nbytes(lw['noise'])
                          + C * (T + sh['pad_front']) * 4, ops=0),
-        light_digitize=dict(bytes=3 * C * sh['digit_samples'] * 4, ops=0))
+        light_digitize=dict(bytes=3 * C * sh['digit_samples'] * 4, ops=0),
+        # the response read once, thresholds and group masks in, the
+        # (M, max_trig) ticks and (M,) counts out
+        light_trigger_scan=dict(bytes=series + scan_io_bytes(lw), ops=0))
     for name in ('light_scintillation', 'light_sipm', 'light_noise'):
         costs[name + '_f32'] = costs[name]
     return costs
+
+
+def scan_io_bytes(lw: dict) -> int:
+    """Bytes of the trigger scan's small inputs and outputs."""
+    from ..ops import light as lo
+    sh, light = lw['shapes'], lw['light']
+    _, _, gmasks, _ = trigger_scan_args(lw, None)
+    n_grp, M = gmasks.shape[1], gmasks.shape[0]
+    max_trig = sh['n_ticks'] // max(lo.digit_ticks(light), 1) + 1
+    return n_grp * 4 + gmasks.size + M * (max_trig + 1) * 4
 
 
 def _group_inputs(lw: dict, n_events: int) -> tuple:

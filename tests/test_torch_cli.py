@@ -98,16 +98,42 @@ def test_clis_agree(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('what', ['mode0', 'smearing_truth'])
 def test_cli_refuses_what_it_does_not_run(tmp_path, what):
-    """The threshold light trigger (mode 0) is refused before the input is
-    read, and so is a route of the MC truth with LUT smearing other than
-    its two (tests/test_torch_light_cli.py runs those)."""
+    """The threshold light trigger (mode 0) runs on the tiny tree
+    (tests/test_torch_mode0_cli.py holds it to the JAX CLI), and a trigger
+    mode the reference does not have is refused before the input is read;
+    so is a route of the MC truth with LUT smearing other than its two
+    (tests/test_torch_light_cli.py runs those)."""
     paths = tpa.write_tree(
-        tmp_path / 'tree', light=dict(light_trig_mode=0) if what == 'mode0'
-        else True, sim_overrides=dict(max_light_truth_ids=3))
+        tmp_path / 'tree', light=dict(light_trig_mode=0, n_op_channel=12,
+                                      light_window=(0.0, 2.0))
+        if what == 'mode0' else True,
+        sim_overrides=dict(max_light_truth_ids=3))
     inp = tmp_path / 'in.h5'
     inp.write_bytes(b'')
     error, kw = ((NotImplementedError, {}) if what == 'mode0'
                  else (ValueError, dict(truth_path='tunnel')))
+    if what == 'mode0':
+        from larndsim_tpu_torch.assets.make_input import write_input
+        run = str(tmp_path / 'run.h5')
+        write_input(run, tpa.load_port(paths).tpc_borders, n_events=2,
+                    tracks_per_event=3, segments_per_track=6,
+                    segment_length=0.4, dEdx=8.0, seed=7)
+        tcli.run_simulation(
+            run, str(tmp_path / 'out.h5'),
+            detector_properties=paths['detector_properties'],
+            pixel_layout=paths['pixel_layout'],
+            simulation_properties=paths['simulation_properties'],
+            response_file=str(tmp_path / 'r.npy'), rand_seed=7,
+            step_scale=4.0, device='cpu')
+        with h5py.File(tmp_path / 'out.h5', 'r') as f:
+            trig = np.array(f['light_trig'])
+            assert len(trig) == len(f['light_wvfm']) > 2
+            assert len(f['light_wvfm_mc_assn']) > 0
+        with open(paths['detector_properties']) as f:
+            text = f.read().replace('light_trig_mode: 0',
+                                    'light_trig_mode: 2')
+        with open(paths['detector_properties'], 'w') as f:
+            f.write(text)
     with pytest.raises(error):
         tcli.run_simulation(
             str(inp), str(tmp_path / 'o.h5'),

@@ -28,7 +28,12 @@ bit, the device route's records at the truth tolerance above: the batched
 float64 FFTs and the one product are where the bits could move), and the
 grouped CLI on the card gives the ungrouped run's packets and
 ``light_wvfm``.  Phase tracing records device time on the card; the
-memory log reads the card's memory.
+memory log reads the card's memory.  The threshold trigger (mode 0): a
+mode-0 batch on the card against the CPU with the same draws (trigger
+tables equal, the rest as above, every truth route), the smearing truth's
+routes with several triggers against each other, the trigger scan on the
+card against the host walk (forced and random triggers), and three events
+as one mode-0 group call against their solo calls, bit for bit.
 """
 from __future__ import annotations
 
@@ -579,3 +584,150 @@ def test_memlog_reads_the_card(cuda, tmp_path):
     rec = read_memlog(str(tmp_path / 'mem.h5'))['loading']
     assert float(np.asarray(rec['gpu_mem_used'])[0]) >= x.numel() * 4
     assert float(np.asarray(rec['gpu_mem_free'])[0]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the threshold trigger (mode 0)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def mode0_batch(cuda, tmp_path_factory):
+    """The first light batch of a CLI run on the card in mode 0: the small
+    tree with one module's light keys (96 channels, 16 us window) and the
+    threshold trigger (groups of 6 at -2000 ADC)."""
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    from larndsim_tpu_torch.tools import light_check
+    tmp = tmp_path_factory.mktemp('mode0')
+    paths = tpa.write_tree(tmp / 'tree', light=dict(light_trig_mode=0))
+    inp = str(tmp / 'in.h5')
+    write_input(inp, tpa.load_port(paths).tpc_borders, n_events=2,
+                tracks_per_event=3, segments_per_track=6, segment_length=0.4,
+                dEdx=8.0, seed=7)
+    with light_check.first_batch() as seen:
+        run_simulation(inp, str(tmp / 'out.h5'),
+                       detector_properties=paths['detector_properties'],
+                       pixel_layout=paths['pixel_layout'],
+                       simulation_properties=paths['simulation_properties'],
+                       response_file=str(tmp / 'r.npy'), rand_seed=7,
+                       step_scale=2.0, device='cuda')
+    assert len(seen) == 1 and 't0_det' in seen[0][1]
+    return seen[0]
+
+
+@pytest.mark.parametrize('route', list(LIGHT_ROUTES))
+def test_mode0_batch_on_card_matches_cpu(mode0_batch, route):
+    """The mode-0 batch on the card against the CPU with the same draws:
+    trigger tables equal, waveforms and records at light_check's
+    tolerances; two card runs identical."""
+    from larndsim_tpu_torch.tools import light_check
+    args, kw = mode0_batch
+    opts = LIGHT_ROUTES[route]
+    card = light_check.rerun(args, kw, 'cuda', 5, **opts)
+    again = light_check.rerun(args, kw, 'cuda', 5, **opts)
+    cpu = light_check.rerun(args, kw, 'cpu', 5, **opts)
+    assert len(card.trigger_idx) >= 2 and (card.trigger_type == 0).all()
+    assert card.waveforms.shape == (len(card.trigger_idx), 96, 256)
+    assert light_check.identical(card, again)
+    rec = light_check.compare(card, cpu, args[1],
+                              smeared_at=opts.get('threshold'))
+    assert rec['peak'] > 64
+    assert (rec['records'] > 0) == (opts['truth_ids'] > 0)
+    if opts['truth_ids']:
+        assert len(np.unique(card.truth_sparse['trig'])) > 1
+
+
+def test_mode0_smearing_routes_agree_on_card(mode0_batch):
+    """The device route's one product with every trigger's table against
+    the host route's per-trigger tables, on the card."""
+    from larndsim_tpu_torch.tools import light_check
+    args, kw = mode0_batch
+    dev, host = (light_check.rerun(args, kw, 'cuda', 5,
+                                   **LIGHT_ROUTES[f'smearing_truth_{r}'])
+                 for r in ('device', 'host'))
+    rec = light_check.compare(dev, host, args[1], smeared_at=0.1)
+    assert rec['records'] > 0 and rec['max_abs_err'] == 0
+    assert rec['triggers'] >= 2
+
+
+@pytest.mark.parametrize('signal', ['forced', 'pulses'])
+def test_mode0_scan_on_card_matches_host_walk(cuda, tmp_path, signal):
+    """The scan on the card against the host walk on the CPU: a threshold
+    of 1e30 (every tick above: a trigger every dead time) and random
+    pulses within and past the dead time, on one module and on two."""
+    from larndsim_tpu_torch.ops import light as lo
+    from larndsim_tpu_torch.params import load_light
+    paths = tpa.write_tree(tmp_path, light=dict(light_trig_mode=0))
+    light = load_light(paths['detector_properties'], device='cpu')
+    light_card = load_light(paths['detector_properties'], device='cuda')
+    dt = lo.digit_ticks(light)
+    T = 4 * dt + 500
+    rng = np.random.default_rng(9)
+    n_trig = 0
+    for modules in ({1: [0, 1]}, {1: [0], 2: [1]}):
+        t2m = {t: m for m, tpcs in modules.items() for t in tpcs}
+        for trial in range(3):
+            sig = np.zeros((96, T), np.float32)
+            if signal == 'pulses':
+                for _ in range(10):
+                    g = int(rng.integers(0, 16))
+                    t = int(rng.integers(0, T - 120))
+                    sig[g * 6:(g + 1) * 6, t:t + 100] = -400.0
+                thr = np.full(16, -1500.0)
+            else:
+                sig += rng.standard_normal(sig.shape).astype(np.float32)
+                thr = np.full(16, 1e30)
+            got = lo.get_triggers(torch.from_numpy(sig).to(cuda), thr,
+                                  np.arange(96), 0, light_card, modules, t2m)
+            want = lo.get_triggers(torch.from_numpy(sig), thr,
+                                   np.arange(96), 0, light, modules, t2m,
+                                   device_scan=False)
+            for g, w in zip(got, want):
+                assert np.array_equal(g, w)
+            n_trig += len(want[0])
+    assert n_trig > (20 if signal == 'forced' else 10)
+
+
+@pytest.mark.parametrize('route', list(LIGHT_ROUTES))
+def test_mode0_group_on_card_equals_solo(mode0_batch, route):
+    """Three events (the batch and copies 0.3 and 0.6 us later: one window
+    bucket) as one simulate_light_group_mode0 call against their solo
+    calls on the card."""
+    from larndsim_tpu_torch.models import light as light_model
+    from larndsim_tpu_torch.segments import stack
+    from larndsim_tpu_torch.tools import light_check
+    (segs, light, sim, n_det, vox, lut, noise, _), kw = mode0_batch
+    opts = LIGHT_ROUTES[route]
+    light = light.replace(enable_lut_smearing=opts['smearing'])
+    sim = dataclasses.replace(sim, max_mc_truth_ids=opts['truth_ids'],
+                              mc_truth_threshold=opts.get('threshold', 0.1))
+    path = opts.get('truth_path', 'device')
+    events = [segs.replace(t0=segs.t0 + 0.3 * g) for g in range(3)]
+    t0s = [kw['t0_det'] + 0.3 * g for g in range(3)]
+    windows = [light_model.mode0_window(n_det.cpu(), t.cpu(), light)
+               for t in t0s]
+    assert len({w[0] for w in windows}) == 1
+
+    def draws():
+        return [light_check.cpu_draw(10 + g, segs.t0.device)
+                for g in range(3)]
+    mods = kw['module_to_tpcs']
+    solos = [light_model.simulate_light_batch(
+        e, light, sim, n_det, vox, lut, noise, d, truth_path=path,
+        module_to_tpcs=mods, sim_window=w)
+        for e, d, w in zip(events, draws(), windows)]
+    group = light_model.simulate_light_group_mode0(
+        stack(events), light, sim, torch.stack([n_det] * 3),
+        torch.stack([vox] * 3), lut, noise, draws(), windows=windows,
+        module_to_tpcs=mods, truth_path=path)
+    n_records = 0
+    for s, g in zip(solos, group):
+        assert np.array_equal(g.trigger_idx, s.trigger_idx)
+        assert len(s.trigger_idx) >= 2
+        assert torch.equal(g.waveforms, s.waveforms)
+        if s.truth_sparse is None:
+            assert g.truth_sparse is None
+            continue
+        for k in s.truth_sparse:
+            assert np.array_equal(g.truth_sparse[k], s.truth_sparse[k])
+        n_records += len(s.truth_sparse['tick'])
+    assert (n_records > 0) == (opts['truth_ids'] > 0)

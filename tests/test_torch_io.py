@@ -252,3 +252,33 @@ def test_light_exports_equal_and_read_in_h5py(tmp_path):
         assert ft['light_trig'].dtype['op_channel'].shape == (96,)
         np.testing.assert_array_equal(ft['light_trig']['op_channel'][2], op)
         assert ft['light_wvfm'].dtype == np.float32
+
+
+def test_appends_grow_in_place(tmp_path):
+    """A dataset appended to in many pieces (the truth records of a run)
+    holds the pieces in order, new rows zero, shrinks and regrows with
+    zeros, and its buffer at least doubles, so each append copies a
+    bounded share of the rows; h5py reads what was written."""
+    rng = np.random.default_rng(3)
+    pieces = [rng.integers(0, 100, (int(n), 3)).astype(np.int32)
+              for n in rng.integers(1, 50, 40)]
+    f = h5.File(tmp_path / 'a.h5', 'w')
+    ds = f.create_dataset('x', data=pieces[0], maxshape=(None, 3))
+    grows = 0
+    for p in pieces[1:]:
+        n0, buf = len(ds), ds._buf
+        ds.resize(n0 + len(p), axis=0)
+        assert (ds[n0:] == 0).all()
+        ds[n0:] = p
+        grows += ds._buf is not buf
+    assert grows <= 8
+    want = np.concatenate(pieces)
+    np.testing.assert_array_equal(np.asarray(ds), want)
+    ds.resize(5)
+    ds.resize(9)
+    np.testing.assert_array_equal(ds[:5], want[:5])
+    assert (ds[5:] == 0).all()
+    f.close()
+    with h5py.File(tmp_path / 'a.h5', 'r') as g:
+        np.testing.assert_array_equal(g['x'][:5], want[:5])
+        assert g['x'].shape == (9, 3)

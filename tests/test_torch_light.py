@@ -391,15 +391,31 @@ def test_simulate_light_batch(setup, i_sub, noise, smear, truth):
 
 @pytest.mark.parametrize('what', ['mode0', 'smearing_truth'])
 def test_refuses_what_it_does_not_run(setup, what):
-    """Mode 0 is not ported; the truth with LUT smearing runs by its two
-    routes (tests/test_torch_light_truth.py), and another route is
+    """Mode 0 runs on the tiny tree (tests/test_torch_mode0.py holds it to
+    JAX), given the arrivals that size its window and the module map; a
+    mode-0 call without the arrivals, and a trigger mode the reference
+    does not have, are refused.  The truth with LUT smearing runs by its
+    two routes (tests/test_torch_light_truth.py), and another route is
     refused."""
     s = setup
     sim = tpa.load_port_sim(s['paths'])
     tl = s['tl']
     if what == 'mode0':
         tl = tl.replace(light_trig_mode=0)
-        error, kw = NotImplementedError, {}
+        args = (s['ts'], tl, sim, torch.from_numpy(s['n_ph']),
+                torch.from_numpy(s['vox']), s['tlut'], s['noise'],
+                jax_draw(jax.random.PRNGKey(0)))
+        res = tmodel.simulate_light_batch(
+            *args, t0_det=torch.from_numpy(s['t0_det']),
+            module_to_tpcs=s['dm'].module_to_tpcs)
+        assert len(res.trigger_idx) > 0 and (res.trigger_type == 0).all()
+        assert res.waveforms.shape == (len(res.trigger_idx), 12, 256)
+        with pytest.raises(ValueError, match='t0_det'):
+            tmodel.simulate_light_batch(*args)
+        with pytest.raises(NotImplementedError):
+            tmodel.simulate_light_batch(
+                *args[:1], tl.replace(light_trig_mode=2), *args[2:])
+        return
     else:
         tl = tl.replace(enable_lut_smearing=True)
         sim = dataclasses.replace(sim, max_mc_truth_ids=3)

@@ -141,7 +141,8 @@ def test_timing_needs_no_card_to_be_imported_but_main_needs_one(
 
 def test_light_ops_run_and_have_a_bound(workload):
     """The light ops on the guard's batch (tiny here): each runs, has its
-    byte count, and the shapes are the chain's (96 channels, 16 us)."""
+    byte count, and the shapes are the chain's (96 channels, 16 us); the
+    trigger scan's tables are those of the host walk."""
     lw = pg.build_light_workload(workload)
     assert lw['shapes'] == dict(pad_n=32, n_op_channel=96, n_ticks=16384,
                                 conv_ticks=16000, fft_len=32768, nprof=100,
@@ -150,12 +151,26 @@ def test_light_ops_run_and_have_a_bound(workload):
     f64 = ('light_scintillation', 'light_sipm', 'light_noise')
     assert set(calls) == set(costs) == {
         'light_sum_t0avg', 'light_sum_smearing', 'light_stat',
-        'light_digitize', *f64, *(n + '_f32' for n in f64)}
+        'light_digitize', 'light_trigger_scan', *f64,
+        *(n + '_f32' for n in f64)}
     outs = {}
     for name, (fn, args, kw) in calls.items():
         if name.startswith('light_noise'):   # the same phases for both
             lw['generator'].manual_seed(5)
         outs[name] = out = fn(*args, **kw)
+        if name == 'light_trigger_scan':
+            from larndsim_tpu_torch.ops import light as lo
+            resp, thr, _, light = args
+            t2m = {t: m for m, tpcs in lw['module_to_tpcs'].items()
+                   for t in tpcs}
+            walk = lo.get_triggers(resp, thr, np.arange(96), 0,
+                                   light.replace(light_trig_mode=0),
+                                   lw['module_to_tpcs'], t2m,
+                                   device_scan=False)[0]
+            idx, counts = out
+            assert idx.shape == (1, 16384 // 2560 + 1)
+            np.testing.assert_array_equal(idx[0, :counts[0]], walk)
+            continue
         assert torch.isfinite(out).all(), name
         assert costs[name]['bytes'] > 0 and costs[name]['ops'] == 0, name
     # the float32 variants: the JAX ops' arithmetic, within the JAX
@@ -172,6 +187,9 @@ def test_light_ops_run_and_have_a_bound(workload):
     assert costs['light_sum_smearing']['bytes'] == \
         costs['light_sum_t0avg']['bytes'] + 32 * 96 * 99 * 4
     assert costs['light_digitize']['bytes'] == 3 * 96 * 256 * 4
+    # the response, 16 thresholds and masks, 7 ticks and a count
+    assert costs['light_trigger_scan']['bytes'] == \
+        series + 16 * 4 + 16 + (7 + 1) * 4
 
 
 def test_light_truth_rows_run_and_have_a_bound(workload):
