@@ -6,7 +6,8 @@
 Phases, one line each; any failure exits non-zero with nothing caught:
 
 1. device: torch / CUDA versions and the card's name and power limit;
-2. build: compile the CUDA kernels of ``larndsim_tpu_torch/csrc``;
+2. build: compile the CUDA kernels of ``larndsim_tpu_torch/csrc`` and the
+   LZF codec of ``csrc/host`` (host C++);
 3. reference: the port's CLI on a tiny noise-free geometry, on the card
    (kernels) and on the CPU (plain versions, which tests/test_torch_*.py
    hold against the JAX package): data packets must agree; then four
@@ -62,27 +63,37 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    memory log: the charge-only slice with ``save_memory``, read back
    through ``utils.memlog.read_memlog``: the phases ``loading``,
    ``quench_drift_mod-1`` and ``loop_mod-1`` with the card's memory;
-10. mode0: the slice's input with Module-0's light keys in the threshold
+10. io: the charge-only slice from its input rewritten chunked (gzip and
+   shuffle, 1024 rows a chunk, as edep-sim files are appended), timed as
+   the slice: data packets equal to the contiguous input's run;
+11. mode0: the slice's input with Module-0's light keys in the threshold
    mode (96 channels in groups of 6 at -2000 ADC, the loader's default
    [1, 10] us window, no LUT smearing, bench.py's module0 truth: contributor
-   points, K 50, threshold 0.1): the warm-up's first light batch run again
-   on the card (twice) and on the CPU with CPU-made draws (trigger tables,
-   window, waveforms and truth records as in the light phase); then the
-   run timed ungrouped and at ``event_group_size`` 4 with the launch
-   counters and the plain versions forbidden: data packets equal to the
-   charge-only slice's, at least one batch with two triggers, grouped
-   ``light_wvfm`` and ``light_trig`` equal to ungrouped; triggers per
-   event, ``n_ticks`` per batch, the light datasets' rows, trigger packets
-   per io group, truth records, wall, launches, peak device memory and
-   the phase tables;
-11. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
-   (``probe_folded``): cases a-g, each in its own process, each OK and
-   importing nothing of JAX; each of its three kernels against its plain
-   version.  P2 / P3 (``probe_fee`` / ``probe_fee2``): every variant timed
+   points, K 50, threshold 0.1): a warm-up of the first spill keeps its
+   first light batch, run again on the card (twice) and on the CPU with
+   CPU-made draws (trigger tables, window, waveforms and truth records as
+   in the light phase); then the run timed at ``event_group_size`` 4 in
+   this process, and ungrouped in processes of their own
+   (``tools/slice_run.py``), with the light truth shuffled and LZF'd
+   (``truth_compression`` 'lzf', the default) and plain ('none'), each
+   with the launch counters and the plain versions forbidden: data
+   packets equal to the charge-only slice's, at least one batch with two
+   triggers, grouped ``light_wvfm`` and ``light_trig`` equal to
+   ungrouped, every dataset of the 'lzf' and 'none' outputs equal bit for
+   bit through the port's reader; triggers per event, ``n_ticks`` per
+   batch, the light datasets' rows, trigger packets per io group, truth
+   records, wall, ``truth/h5``, peak host RSS, file and truth bytes,
+   launches, peak device memory and the phase tables; the LZF codec's
+   decode MB/s (the read-back of the 'lzf' truth) and encode MB/s (a few
+   of its chunks);
+12. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
+   (``probe_folded``): cases a-g, each in its own process (all started
+   together), each OK and importing nothing of JAX; each of its three
+   kernels against its plain version.  P2 / P3 (``probe_fee`` / ``probe_fee2``): every variant timed
    at the probe shapes beside the FSM kernel (the entry points, launch
    counters set to 0 before and read after), then every variant equal to
    its plain version at the same shapes on a random signal;
-12. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
+13. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
    and the light truth) at production shapes, with each one's bound on
    this card and the share reached.
 By the end neither JAX nor the JAX package ``larndsim_tpu`` may have been
@@ -106,9 +117,12 @@ import time
 
 import numpy as np
 
-#: the slice's input: bench.py's per-spill tracks, Module-0 occupancy 4
-SPILLS = dict(n_events=8, tracks_per_event=16, segments_per_track=42,
-              segment_length=0.4, dEdx=8.0, seed=2)
+# the slice's input (SPILLS) and the mode-0 slice's keys (MODE0_LIGHT,
+# MODE0_TRUTH), shared with the I/O measurement tool
+from larndsim_tpu_torch.tools import slice_run
+from larndsim_tpu_torch.tools.slice_run import (MODE0_LIGHT, MODE0_TRUTH,
+                                                SPILLS)
+
 K1_SOURCE = 'larndsim_tpu_torch/csrc/induced_current.cu'
 K2_SOURCE = 'larndsim_tpu_torch/csrc/fee_fsm.cu'
 K1_REPLACES = 'larndsim_tpu/ops/current_pallas.py:608'
@@ -126,13 +140,6 @@ LIGHT_TRUTH_IDS = 64
 SMEAR_TRUTH = dict(max_light_truth_ids=50, mc_truth_threshold=0.1)
 #: bench.py's event_group_size (bench.py:216-217)
 GROUP = 4
-#: the mode-0 phase's light keys: Module-0's (light_properties with
-#: light_trig_mode 0: 96 channels in groups of 6 at -2000 ADC), the
-#: loader's default [1, 10] us light window, no LUT smearing; and bench.py's
-#: module0 truth (bench.py:147-150: contributor points, K 50, 0.1 pe/us)
-MODE0_LIGHT = dict(light_trig_mode=0, light_window=(1.0, 10.0),
-                   enable_lut_smearing=False)
-MODE0_TRUTH = dict(max_light_truth_ids=50, mc_truth_threshold=0.1)
 
 
 def log(phase: str, msg: str) -> None:
@@ -410,7 +417,8 @@ def compare_k2(args, det) -> dict:
 
 def p1_entries() -> list[dict]:
     """P1: the seven cases, each in its own process (as the JAX probe runs
-    them), then each kernel against its plain version on the card."""
+    them; all started together), then each kernel against its plain
+    version on the card."""
     import torch
     from larndsim_tpu_torch.tools import perf_guard as pg
     from larndsim_tpu_torch.tools import probe_folded as p1
@@ -776,12 +784,14 @@ def memlog_phase(tmp: str, inp: str, kw: dict) -> None:
 def mode0_phase(tmp: str, inp: str, kw: dict, n_seg: int,
                 charge_only_out: str, main_path) -> dict:
     """The slice with Module-0's light keys in the threshold mode
-    (MODE0_LIGHT, MODE0_TRUTH): a warm-up keeps its first light batch,
-    which is run again on the card (twice) and on the CPU with CPU-made
-    draws (trigger tables equal, waveforms and truth records as in the
-    light phase); then the run timed ungrouped and at event_group_size
-    GROUP, launch counters set to 0 before and read after, with every
-    mode-0 light call's window and triggers recorded."""
+    (MODE0_LIGHT, MODE0_TRUTH): a warm-up of the first spill keeps its first
+    light batch, which is run again on the card (twice) and on the CPU with
+    CPU-made draws (trigger tables equal, waveforms and truth records as in
+    the light phase); then the run timed at event_group_size GROUP here,
+    and ungrouped in processes of their own (:func:`io_mode0`), launch
+    counters set to 0 before and read after and the plain versions
+    forbidden, with every mode-0 light call's window and triggers
+    recorded."""
     import torch
     from larndsim_tpu_torch.assets.geometry import write_module0
     from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
@@ -794,9 +804,10 @@ def mode0_phase(tmp: str, inp: str, kw: dict, n_seg: int,
                simulation_properties=paths['simulation_properties'])
     t0 = time.perf_counter()
     with light_check.first_batch() as seen:
-        run_simulation(inp, os.path.join(tmp, 'warm_mode0.h5'), **kw0)
+        run_simulation(inp, os.path.join(tmp, 'warm_mode0.h5'), n_events=1,
+                       **kw0)
     torch.cuda.synchronize()
-    log('mode0', f'warm-up {time.perf_counter() - t0:.2f} s')
+    log('mode0', f'warm-up (first spill) {time.perf_counter() - t0:.2f} s')
     assert len(seen) == 1, 'the warm-up ran no light batch'
     args, bkw = seen[0]
     card = light_check.rerun(args, bkw, 'cuda', 5)
@@ -824,20 +835,18 @@ def mode0_phase(tmp: str, inp: str, kw: dict, n_seg: int,
         calls.append([(int(e), r.n_ticks, len(r.trigger_idx))
                       for e, r in zip(k['event_ids'], out)])
         return out
-    runs = {}
+    out = os.path.join(tmp, f'slice_mode0_g{GROUP}.h5')
     light_model.simulate_light_group_mode0 = spy
     try:
-        for g in (1, GROUP):
-            out = os.path.join(tmp, f'slice_mode0_g{g}.h5')
-            calls.clear()
-            wall, launches, peak = main_path(out, dict(kw0,
-                                                       event_group_size=g))
-            runs[g] = dict(out=out, wall=wall, launches=launches, peak=peak,
-                           calls=list(calls), table=phase_table(
-                               f'mode-0 slice, event_group_size {g}'))
+        wall, launches, peak = main_path(out, dict(kw0,
+                                                   event_group_size=GROUP))
     finally:
         light_model.simulate_light_group_mode0 = orig
-    solo = runs[1]
+    runs = {GROUP: dict(out=out, wall=wall, launches=launches, peak=peak,
+                        calls=list(calls), table=phase_table(
+                            f'mode-0 slice, event_group_size {GROUP}'))}
+    io = io_mode0(tmp, inp, kw0)
+    solo = runs[1] = dict(io['lzf'], peak=io['lzf']['peak_device_gib'])
     assert data_packets(solo['out']) == data_packets(charge_only_out), \
         'mode 0: packets differ from the charge-only slice'
     with File(solo['out'], 'r') as f, File(runs[GROUP]['out'], 'r') as h:
@@ -851,7 +860,7 @@ def mode0_phase(tmp: str, inp: str, kw: dict, n_seg: int,
     assert wv.shape[1:] == (96, 256) and len(wv) == len(trig)
     assert len(rec) > 0 and (np.abs(rec['pe_current'])
                              > MODE0_TRUTH['mc_truth_threshold']).all()
-    batches = [b for c in solo['calls'] for b in c]
+    batches = [tuple(b) for c in solo['calls'] for b in c]
     per_event = collections.Counter()
     for ev, _, n in batches:
         per_event[ev] += n
@@ -870,15 +879,148 @@ def mode0_phase(tmp: str, inp: str, kw: dict, n_seg: int,
         f'light_wvfm {wv.shape}; trigger packets per io group '
         f'{dict(sorted(io_trig.items()))}; {len(rec)} truth records '
         f'({rec.nbytes / 1e6:.3f} MB)')
-    for g, r in runs.items():
-        log('mode0', f'event_group_size {g}: wall {r["wall"]:.3f} s, '
-            f'{n_seg / r["wall"]:.1f} segments/s; light calls per group '
-            f'{[len(c) for c in r["calls"]]}; K1 / K2 launches '
-            f'{r["launches"]["induced_current"]} / '
+    for g, r in sorted(runs.items()):
+        where = ('its own process, truth lzf' if g == 1 else 'this process')
+        log('mode0', f'event_group_size {g} ({where}): wall '
+            f'{r["wall"]:.3f} s, {n_seg / r["wall"]:.1f} segments/s; light '
+            f'calls per group {[len(c) for c in r["calls"]]}; K1 / K2 '
+            f'launches {r["launches"]["induced_current"]} / '
             f'{r["launches"]["fee_fsm"]}; peak device memory '
             f'{r["peak"]:.2f} GiB')
     log('mode0', 'data packets equal to the charge-only slice\'s; grouped '
         'light_wvfm and light_trig equal to the ungrouped run\'s')
+    return runs
+
+
+def io_phase(tmp: str, inp: str, kw: dict, charge_only_out: str,
+             main_path) -> None:
+    """The charge-only slice from its input rewritten chunked (gzip and
+    shuffle, 1024 rows a chunk, as edep-sim files are appended), launch
+    counters set to 0 before and read after: data packets equal to the
+    contiguous input's run."""
+    from larndsim_tpu_torch.io.h5 import File
+    chunked = os.path.join(tmp, 'spills_chunked.h5')
+    with File(inp, 'r') as f, File(chunked, 'w') as g:
+        for name in f.keys():
+            data = np.asarray(f[name])
+            g.create_dataset(name, data=data, maxshape=(None,),
+                             chunks=(1024,), compression='gzip', shuffle=True)
+    with File(chunked, 'r') as f:
+        seg = f['segments']
+        assert seg.chunks == (1024,) and seg.compression == 'gzip', \
+            (seg.chunks, seg.compression)
+        layout = (f'segments {seg.shape[0]} rows in {seg.chunks} chunks, '
+                  f'{seg.storage_size()} bytes stored (gzip + shuffle) of '
+                  f'{seg.dtype.itemsize * seg.shape[0]}')
+    out = os.path.join(tmp, 'slice_chunked_input.h5')
+    wall, launches, _ = main_path(out, kw, inp=chunked)
+    n_data = slice_checks(out)
+    assert data_packets(out) == data_packets(charge_only_out), \
+        'chunked input: packets differ from the contiguous input\'s run'
+    log('io', f'charge-only slice from a chunked input ({layout}): wall '
+        f'{wall:.3f} s, {n_data} data packets equal to the contiguous '
+        f'input\'s run; launches {launches}')
+
+
+def _datasets(g, prefix=''):
+    """name -> dataset, every dataset under the group ``g``."""
+    from larndsim_tpu_torch.io.h5 import Group
+    out = {}
+    for name, obj in g.members.items():
+        if isinstance(obj, Group):
+            out.update(_datasets(obj, prefix + name + '/'))
+        else:
+            out[prefix + name] = obj
+    return out
+
+
+def _bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    """Equal dtype, shape and bits, field by field."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.names is None:
+        return a.tobytes() == b.tobytes()
+    return all(_bits_equal(np.ascontiguousarray(a[n]),
+                           np.ascontiguousarray(b[n])) for n in a.dtype.names)
+
+
+def io_mode0(tmp: str, inp: str, kw0: dict) -> dict:
+    """The mode-0 slice ungrouped, with the light truth shuffled and LZF'd
+    ('lzf', the default) and plain ('none'), each in a process of its own
+    (``tools/slice_run.py``: a warm-up of the first spill, then the timed
+    run, launch counters set to 0 before and read after, plain versions
+    forbidden): every dataset of the two outputs equal bit for bit through
+    the port's reader; each run's wall, ``truth/h5``, peak host RSS, file
+    bytes and truth bytes stored; the codec's decode MB/s from the 'lzf'
+    truth's read-back (one thread) and its encode MB/s on a few of the
+    run's truth chunks (every core, as the writer encodes)."""
+    from larndsim_tpu_torch.io import lzf
+    from larndsim_tpu_torch.io.export import TRUTH_CHUNK
+    from larndsim_tpu_torch.io.h5 import File
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    for comp in ('lzf', 'none'):
+        out = os.path.join(tmp, f'slice_mode0_{comp}.h5')
+        res = slice_run.run(root, inp, out, dict(kw0,
+                                                 truth_compression=comp))
+        assert res['launches']['induced_current'] > 0, res['launches']
+        assert res['launches']['fee_fsm'] > 0, res['launches']
+        table = res['stdout'].rsplit('Phase breakdown:\n', 1)[1].split(
+            'RESULT ')[0]
+        assert 'ms device' in table, f'mode 0, {comp}: no device time'
+        log('phases', f'mode-0 slice, ungrouped, truth {comp}, its own '
+            'process (label, self wall s, self thread-CPU s, self device '
+            'ms, calls):')
+        for row in table.strip().splitlines():
+            print(f'    {row}', flush=True)
+        runs[comp] = dict(res, out=out)
+    with File(runs['lzf']['out'], 'r') as a, \
+            File(runs['none']['out'], 'r') as b:
+        sa, sb = _datasets(a), _datasets(b)
+        assert sorted(sa) == sorted(sb), (sorted(sa), sorted(sb))
+        # the first access decodes the whole dataset: the decoder's rate
+        t0 = time.perf_counter()
+        rec_lzf = np.asarray(sa['light_wvfm_mc_assn'])
+        t_dec = time.perf_counter() - t0
+        for name in sa:
+            assert _bits_equal(np.asarray(sa[name]), np.asarray(sb[name])), \
+                f'truth lzf vs none: {name} differs'
+        ta, tb = sa['light_wvfm_mc_assn'], sb['light_wvfm_mc_assn']
+        assert ta.compression == 'lzf' and ta.shuffle
+        assert tb.compression is None and not tb.shuffle
+        stored = {'lzf': ta.storage_size(), 'none': tb.storage_size()}
+        rec = np.asarray(tb)
+    for comp, r in runs.items():
+        log('io', f'mode-0 slice, truth {comp}: wall {r["wall"]:.3f} s, '
+            f'truth/h5 {r["phases"].get("truth/h5", 0.0):.3f} s; the run\'s '
+            f'peak host RSS {r["peak_rss_gib"]:.3f} GiB ('
+            f'{r["rss_before_gib"]:.3f} GiB resident at its start, the '
+            f'process\'s peak {r["process_peak_rss_gib"]:.3f} GiB); file '
+            f'{r["file_bytes"]} bytes, truth '
+            f'{stored[comp]} bytes stored; peak device memory '
+            f'{r["peak_device_gib"]:.2f} GiB')
+    log('io', f'every dataset of the lzf and none outputs equal bit for bit; '
+        f'{len(rec)} truth records, {rec.nbytes} bytes: stored lzf / none '
+        f'{stored["lzf"] / stored["none"]:.4f}')
+    # the encoder on two rounds of chunks for every core, as the writer
+    # encodes them (the whole truth went through it in the run)
+    cb = TRUTH_CHUNK * rec.dtype.itemsize
+    n_enc = min(len(rec) // TRUTH_CHUNK, 2 * lzf.threads())
+    assert n_enc, 'fewer truth records than one chunk'
+    raw = rec[:n_enc * TRUTH_CHUNK].view(np.uint8).reshape(n_enc, cb)
+    t0 = time.perf_counter()
+    streams, sizes, _ = lzf.encode_chunks(raw, rec.dtype.itemsize)
+    t_enc = time.perf_counter() - t0
+    for i in range(n_enc):
+        assert np.array_equal(lzf.decode(streams[i, :sizes[i]], cb,
+                                         rec.dtype.itemsize), raw[i]), \
+            f'codec chunk {i}'
+    log('io', f'LZF codec: decode (LZF + unshuffle, 1 thread, the read-back '
+        f'of the lzf truth: {rec_lzf.nbytes} bytes from '
+        f'{stored["lzf"]}) {rec_lzf.nbytes / t_dec / 1e6:.1f} MB/s; encode '
+        f'(shuffle + LZF, {lzf.threads()} threads, {n_enc} chunks of the '
+        f'run\'s truth, {raw.nbytes} bytes) {raw.nbytes / t_enc / 1e6:.1f} '
+        f'MB/s, ratio {raw.nbytes / sizes.sum():.3f}; round trip equal')
     return runs
 
 
@@ -919,6 +1061,14 @@ def main(argv=None) -> int:
     ap.add_argument('--profile', default=None,
                     help='directory for host and device profiles of the slice')
     opts = ap.parse_args(argv)
+    t_start = time.perf_counter()
+    spans, t_mark = [], [t_start]
+
+    def mark(name):
+        """The seconds since the last mark, kept under ``name``."""
+        now = time.perf_counter()
+        spans.append(f'{name} {now - t_mark[0]:.1f}')
+        t_mark[0] = now
 
     import torch
     if not torch.cuda.is_available():
@@ -934,6 +1084,7 @@ def main(argv=None) -> int:
     from larndsim_tpu_torch.assets.geometry import write_module0
     from larndsim_tpu_torch.assets.make_input import write_input
     from larndsim_tpu_torch.cli import simulate_pixels as cli
+    from larndsim_tpu_torch.io import lzf
     from larndsim_tpu_torch.kernels import binding, build
     from larndsim_tpu_torch.models import light as light_model
     from larndsim_tpu_torch.ops import current, fee
@@ -945,9 +1096,15 @@ def main(argv=None) -> int:
     log('build', f'{len(build.sources())} CUDA sources -> '
         f'{os.path.basename(build.library_path())} in '
         f'{time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds:.2f} s)')
+    t0 = time.perf_counter()
+    lzf.library()
+    log('build', f'LZF codec ({lzf.SOURCES[0].split("larndsim_tpu_torch/")[1]}'
+        f', host C++) in {time.perf_counter() - t0:.2f} s')
 
+    mark('start+build')
     with tempfile.TemporaryDirectory() as tmp:
         reference_phase(tmp)
+        mark('reference')
 
         paths = write_module0(os.path.join(tmp, 'module0'))
         dm = load_detector(paths['detector_properties'],
@@ -1000,7 +1157,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f'{name} ran on the main path')
             return plain
 
-        def main_path(out, run_kw):
+        def main_path(out, run_kw, inp=inp):
             """One timed slice run: launch counters set to 0 before, read
             after; the plain kernel versions forbidden."""
             plains = (current.current_plain, fee.fee_fsm_plain)
@@ -1034,6 +1191,7 @@ def main(argv=None) -> int:
             f'{cost["profiler_range"]:.1f} us, an NVTX range '
             f'{cost["nvtx_range"]:.1f} us, two timing events created, '
             f'recorded and read {cost["event_pair"]:.1f} us')
+        mark('slice')
 
         # ---- charge + light ----
         paths_l = write_module0(os.path.join(tmp, 'module0_light'),
@@ -1088,21 +1246,30 @@ def main(argv=None) -> int:
             f'{len(trig_ms)} batches), {np.mean(rest_ms):.3f} ms per later '
             f'batch ({len(rest_ms)}); launches {launches_l}, peak device '
             f'memory {peak_l:.2f} GiB')
+        mark('light')
 
         solo = truth_phase(tmp, out_l, kw_l, n_seg, light_slice,
                            light_model)
+        mark('truth')
         grouped = grouped_phase(
             tmp, solo, dict(kw=kw, out=out, wall=wall, launches=launches),
             n_seg, main_path)
+        mark('grouped')
         memlog_phase(tmp, inp, kw)
+        mark('memlog')
+        io_phase(tmp, inp, kw, out, main_path)
+        mark('io')
         mode0_phase(tmp, inp, kw, n_seg, out, main_path)
+        mark('mode0')
 
         if opts.profile:
             profile_slice(inp, os.path.join(tmp, 'profiled.h5'), kw,
                           opts.profile, cli)
 
     probes = p1_entries() + p23_entries()
+    mark('probes')
     guard = guard_phase()
+    mark('guard')
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'flax', 'larndsim_tpu'))
     assert not foreign, f'the port imported {foreign}'
@@ -1128,6 +1295,8 @@ def main(argv=None) -> int:
              launches_grouped=grouped['launches']['fee_fsm'], **k2,
              **at_production('fee_fsm')),
     ] + probes
+    log('time', 'seconds by phase: ' + ', '.join(spans))
+    log('done', f'every phase passed in {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(f'card: {smi}')
     print(json.dumps({'ok': True, 'device': {

@@ -25,6 +25,7 @@ timestamps match it.  The run ends with the phase table
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 import warnings
@@ -37,9 +38,9 @@ import torch
 from ..assets.light_lut import load_light_lut, make_light_noise
 from ..assets.response import load_response
 from ..config import get_config
-from ..io import edep, export
+from ..io import edep, export, lzf
 from ..io.edep import swap_coordinates
-from ..io.h5 import File
+from ..io.h5 import File, partial_path
 from ..models import light as light_model
 from ..models.charge import bucket, generator_draw, simulate_charge_batch
 from ..ops import light as light_ops
@@ -93,6 +94,22 @@ def light_draw(rand_seed: int, i_mod: int, event: int, i_subbatch: int,
     return light_model.generator_draw(gen, device)
 
 
+def _no_output_on_error(run):
+    """A run that fails removes the partial output file it began (the
+    output is moved onto its path only when it is complete)."""
+    @functools.wraps(run)
+    def wrapped(input_filename, output_filename, *args, **kwargs):
+        try:
+            return run(input_filename, output_filename, *args, **kwargs)
+        except BaseException:
+            part = partial_path(output_filename)
+            if os.path.lexists(part):
+                os.remove(part)
+            raise
+    return wrapped
+
+
+@_no_output_on_error
 def run_simulation(input_filename: str,
                    output_filename: str,
                    config: str = 'module0',
@@ -114,7 +131,8 @@ def run_simulation(input_filename: str,
                    device: str = 'cuda',
                    truth_path: str = 'device',
                    truth_workers: int = 1,
-                   unique_guard: int = 65536):
+                   unique_guard: int = 65536,
+                   truth_compression: str = 'lzf'):
     """Simulate the charge and light readout of a pixelated LArTPC.
 
     ``light_simulated`` None follows the configuration and the detector
@@ -135,7 +153,10 @@ def run_simulation(input_filename: str,
     group also closes before it would pass ``sim.batch_size`` segments, or
     ``unique_guard`` unique pixels at the largest unique-pixel-per-segment
     ratio seen so far (0: no guard).  ``save_memory`` names the memory
-    log's file (HDF5 for .h5 / .hdf5, else npz).
+    log's file (HDF5 for .h5 / .hdf5, else npz).  ``truth_compression``
+    is the light truth's filter after the byte shuffle ('lzf', 'gzip', or
+    'none': neither).  Appended datasets are written a chunk at a time as
+    they fill, the rest of the file when the run ends.
     """
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
@@ -175,6 +196,12 @@ def run_simulation(input_filename: str,
                                  and light_loaded.light_simulated)
     if light.light_simulated:
         light_model.check_supported(light, truth_path)
+    if truth_compression not in export.TRUTH_COMPRESSION:
+        raise ValueError(f'truth_compression {truth_compression!r}, not one '
+                         f'of {export.TRUTH_COMPRESSION}')
+    if light.light_simulated and sim.max_mc_truth_ids > 0 \
+            and truth_compression == 'lzf':
+        lzf.library()               # a codec that cannot build fails here
     memlog = MemoryLogger(save_memory is None, device)
     memlog.start()
     t_sim0 = time.time()
@@ -294,7 +321,7 @@ def run_simulation(input_filename: str,
         print(f'Light incidence: {time.time() - t0:.2f} s')
 
     # ---- batching loop ----
-    # the output lives in memory and is written once, at the end
+    # appended datasets go to disk a chunk at a time; the rest at close
     out = File(output_filename, 'w')
     results_acc = defaultdict(list)
     clock_period = det.clock_reset_period * det.clock_cycle
@@ -383,7 +410,8 @@ def run_simulation(input_filename: str,
             else:   # a worker's records, trigger ids counted from 0
                 truth['trigger_id'] += trig_t
             with trace.phase('truth/h5'):
-                export.export_light_truth_to_hdf5(out, truth)
+                export.export_light_truth_to_hdf5(out, truth,
+                                                  truth_compression)
 
     def accumulate_light(ievd_l, lres):
         """One light batch's rows (cli:761-799); its truth records are

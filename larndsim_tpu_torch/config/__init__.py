@@ -94,6 +94,10 @@ def asset_root() -> str | None:
     return str(local) if local.is_dir() else None
 
 
+def list_config_keys():
+    return CONFIG_MAP.keys()
+
+
 def _resolve_one(category: str, name: str) -> str:
     if not name or '/' in name:
         return name

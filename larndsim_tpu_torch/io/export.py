@@ -7,8 +7,10 @@ writers of light_sim.py:663-745): the packet stream is assembled from dense
 index arrays in numpy and written through ``io.larpix_packets`` into an
 open ``io.h5.File`` (the caller opens the output once and closes it at the
 end of the run).  The light parameters the packet writers read reduce to
-the light-trigger mode.  Every dataset is contiguous and uncompressed (the
-reference's own layout for the light truth, light_sim.py:710).
+the light-trigger mode.  Appended datasets are chunked and go to disk a
+chunk at a time as they grow; the light truth is shuffled and compressed
+(LZF by default) in chunks of :data:`TRUTH_CHUNK` records, as the JAX
+package writes it.
 """
 from __future__ import annotations
 
@@ -151,15 +153,15 @@ def _pad_to(arr: np.ndarray, width: int, fill):
 
 
 def _append_dataset(f, name: str, data: np.ndarray):
+    """Append rows to a chunked dataset of the open file, created at the
+    first rows (full chunks are written as they fill)."""
     if data.shape[0] == 0:
         return
     if name not in f:
         maxshape = (None,) + data.shape[1:]
         f.create_dataset(name, data=data, maxshape=maxshape)
     else:
-        n0 = f[name].shape[0]
-        f[name].resize(n0 + data.shape[0], axis=0)
-        f[name][n0:] = data
+        f[name].append(data)
 
 
 _BAD_CHANNELS_CACHE: dict = {}
@@ -516,10 +518,34 @@ def truth_sparse_to_records(sparse: dict, event_id: int,
     return out
 
 
-def export_light_truth_to_hdf5(f, truth_data: np.ndarray):
-    """Append light_wvfm_mc_assn records (uncompressed, as the reference
-    creates the dataset, light_sim.py:710)."""
-    _append_dataset(f, 'light_wvfm_mc_assn', truth_data)
+#: records per chunk of light_wvfm_mc_assn: 1 MiB of TRUTH_DTYPE (JAX
+#: io/export.py:554)
+TRUTH_CHUNK = 1 << 15
+TRUTH_COMPRESSION = ('lzf', 'gzip', 'none')
+
+
+def export_light_truth_to_hdf5(f, truth_data: np.ndarray,
+                               compression: str = 'lzf'):
+    """Append light_wvfm_mc_assn records to the open file ``f``.
+
+    The dataset is created at the first records with the JAX package's
+    layout (io/export.py:652-687): chunks of :data:`TRUTH_CHUNK` records,
+    shuffled and compressed with ``compression`` ('lzf', the default;
+    'gzip', as h5py takes it; or 'none': neither shuffled nor compressed,
+    as the reference creates the dataset, light_sim.py:710).  Each full
+    chunk is compressed and written as soon as it fills."""
+    if compression not in TRUTH_COMPRESSION:
+        raise ValueError(f'truth compression {compression!r}, not one of '
+                         f'{TRUTH_COMPRESSION}')
+    if truth_data.shape[0] == 0:
+        return
+    if 'light_wvfm_mc_assn' not in f:
+        kw = {} if compression == 'none' else dict(compression=compression,
+                                                    shuffle=True)
+        f.create_dataset('light_wvfm_mc_assn', shape=(0,),
+                         dtype=truth_data.dtype, maxshape=(None,),
+                         chunks=(TRUTH_CHUNK,), **kw)
+    f['light_wvfm_mc_assn'].append(truth_data)
 
 
 def export_light_wvfm_to_hdf5(event_id, waveforms, f, sim: SimParams,

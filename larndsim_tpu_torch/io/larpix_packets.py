@@ -136,6 +136,4 @@ def to_file(f, packets: np.ndarray) -> None:
     if 'packets' not in f:
         f.create_dataset('packets', data=packets, maxshape=(None,))
     else:
-        n0 = f['packets'].shape[0]
-        f['packets'].resize(n0 + packets.shape[0], axis=0)
-        f['packets'][n0:] = packets
+        f['packets'].append(packets)

@@ -138,19 +138,27 @@ def _foreign_modules() -> list[str]:
 
 
 def run_isolated(device: str = 'cuda', cases=CASES) -> list[dict]:
-    """Each case in its own process; one record per case: ok, the
-    process's launch counts, and the foreign modules it imported."""
+    """Each case in its own process, all started together; one record per
+    case, in the order of ``cases``: ok, the process's launch counts, and
+    the foreign modules it imported."""
+    procs = [subprocess.Popen(
+        [sys.executable, '-m', 'larndsim_tpu_torch.tools.probe_folded',
+         case, '--device', device], cwd=_ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for case in cases]
     records = []
-    for case in cases:
-        proc = subprocess.run(
-            [sys.executable, '-m', 'larndsim_tpu_torch.tools.probe_folded',
-             case, '--device', device],
-            cwd=_ROOT, capture_output=True, text=True, timeout=300)
-        lines = proc.stdout.strip().splitlines()
+    for case, proc in zip(cases, procs):
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            raise
+        lines = stdout.strip().splitlines()
         try:
             rec = json.loads(lines[-1])
         except (IndexError, json.JSONDecodeError):
-            tail = (proc.stdout + proc.stderr).strip().splitlines()
+            tail = (stdout + stderr).strip().splitlines()
             rec = dict(case=case, ok=False, device=device,
                        error=tail[-1][:200] if tail else '(no output)')
         rec['rc'] = proc.returncode

@@ -2,9 +2,10 @@
 the JAX package's h5py-based I/O.
 
 The port reads and writes HDF5 with its own numpy implementation, on every
-machine.  Here h5py reads what it writes, it reads what h5py writes (and
-refuses chunked datasets), and the CLI's output copied through h5py reads
-back equal.  Tolerance: every array and attribute equal.
+machine.  Here h5py reads what it writes, it reads what h5py writes
+(chunked datasets too; tests/test_torch_h5_chunked.py has the filters),
+and the CLI's output copied through h5py reads back equal.  Tolerance:
+every array and attribute equal.
 """
 from __future__ import annotations
 
@@ -103,8 +104,14 @@ def test_reads_h5py_file(tmp_path):
     assert got['configs'].attrs['drift'] == 30.27
     with h5py.File(str(tmp_path / 'chunked.h5'), 'w') as f:
         f.create_dataset('packets', data=tables['packets'], maxshape=(None,))
-    with pytest.raises(NotImplementedError, match='chunked'):
-        h5.File(str(tmp_path / 'chunked.h5'), 'r')
+    got = h5.File(str(tmp_path / 'chunked.h5'), 'r')
+    np.testing.assert_array_equal(np.array(got['packets']), tables['packets'])
+    assert got['packets'].maxshape == (None,)
+    # a layout this reader does not take still raises
+    with h5py.File(str(tmp_path / 'latest.h5'), 'w', libver='latest') as f:
+        f.create_dataset('packets', data=tables['packets'], maxshape=(None,))
+    with pytest.raises(NotImplementedError):
+        h5.File(str(tmp_path / 'latest.h5'), 'r')
 
 
 def test_packet_makers_equal():
