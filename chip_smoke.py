@@ -86,14 +86,32 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    launches, peak device memory and the phase tables; the LZF codec's
    decode MB/s (the read-back of the 'lzf' truth) and encode MB/s (a few
    of its chunks);
-12. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
+12. mod2mod: the 2x2 with module variation at full width
+   (``assets.geometry.write_2x2``: 4 modules, 8 TPCs, 70x70 tiles at 4.434
+   mm on modules 1, 2 and 4 and 80x80 tiles at 3.87975 mm with their own
+   response on module 3, two light LUTs, 384 channels; the ``2x2``
+   configuration; the 2x2 production truth, LUT smearing, K 50, threshold
+   0.1, device route), on bench.py's 2x2 occupancy with every TPC hit
+   (SPILLS_2X2): a truth-off run (the warm-up, following the module loop
+   with ``tools/module_tracker.py``) keeps the first K1 / K2 inputs of
+   modules 1 and 3, each held to its plain version bit for bit and timed,
+   and module 3's first light batch, run again on the card (twice) and on
+   the CPU with CPU-made draws; then the truth-on run, ungrouped and at
+   ``event_group_size`` 4, as the slice (launch counters per module):
+   data packets on all 8 io groups, equal to the truth-off run's; a
+   merged ``light_wvfm`` of (8, 384, 256) with no per-module dataset left,
+   every module's channels lit, equal to the truth-off and the grouped
+   runs'; ``light_dat/light_dat_module0-3``; truth records (grouped equal);
+   wall, segments/s, peak device memory and the phase tables;
+13. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
    (``probe_folded``): cases a-g, each in its own process (all started
    together), each OK and importing nothing of JAX; each of its three
-   kernels against its plain version.  P2 / P3 (``probe_fee`` / ``probe_fee2``): every variant timed
+   kernels against its plain version.  P2 / P3 (``probe_fee`` /
+   ``probe_fee2``): every variant timed
    at the probe shapes beside the FSM kernel (the entry points, launch
    counters set to 0 before and read after), then every variant equal to
    its plain version at the same shapes on a random signal;
-13. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
+14. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
    and the light truth) at production shapes, with each one's bound on
    this card and the share reached.
 By the end neither JAX nor the JAX package ``larndsim_tpu`` may have been
@@ -140,6 +158,10 @@ LIGHT_TRUTH_IDS = 64
 SMEAR_TRUTH = dict(max_light_truth_ids=50, mc_truth_threshold=0.1)
 #: bench.py's event_group_size (bench.py:216-217)
 GROUP = 4
+#: the 2x2 phase's input: bench.py's 2x2 occupancy (8 spills x 24 tracks x
+#: 42 segments, bench.py:76-95), every TPC with tracks in every spill (3
+#: each), so that the four modules trigger alike
+SPILLS_2X2 = dict(SPILLS, tracks_per_event=24, every_tpc=True)
 
 
 def log(phase: str, msg: str) -> None:
@@ -201,7 +223,8 @@ def reference_phase(tmp: str) -> None:
                                    paths['pixel_layout']).tpc_borders,
                 n_events=2, tracks_per_event=3, segments_per_track=6,
                 segment_length=0.4, dEdx=8.0, seed=2)
-    kw = dict(detector_properties=paths['detector_properties'],
+    kw = dict(config='module0',
+              detector_properties=paths['detector_properties'],
               pixel_layout=paths['pixel_layout'],
               simulation_properties=paths['simulation_properties'],
               response_file=os.path.join(tmp, 'tiny_response.npy'),
@@ -341,7 +364,7 @@ def packet_events(path: str):
     return collections.Counter(ev[data].tolist()), hits
 
 
-def compare_k1(args) -> dict:
+def compare_k1(args, label: str = 'first batch') -> dict:
     import torch
     from larndsim_tpu_torch.ops import current
     from larndsim_tpu_torch.tools import perf_guard as pg
@@ -350,14 +373,14 @@ def compare_k1(args) -> dict:
     torch.cuda.synchronize()
     peak = float(want.abs().max())
     err = float((got - want).abs().max())
-    assert peak > 0, 'first batch induced no current'
-    assert err == 0.0, f'K1 disagrees: max |err| {err} (peak {peak})'
+    assert peak > 0, f'{label}: no induced current'
+    assert err == 0.0, f'K1 {label} disagrees: max |err| {err} (peak {peak})'
     ms = cuda_ms(lambda: current.induced_current(*args), reps=5)
     plain_ms = cuda_ms(lambda: current.current_plain(*args), reps=1)
     c = pg.k1_costs(args)
     b = pg.bound(c['bytes'], c['ops'], ms)
     S, n_steps = args[0].shape
-    log('K1', f'induced current (S={S}, P={args[4].shape[1]}, '
+    log('K1', f'induced current, {label} (S={S}, P={args[4].shape[1]}, '
         f't_sig={args[9].shape[1]}, n_steps={n_steps}): max |err| {err:.3e} '
         f'(peak {peak:.4e}, tolerance 0); kernel {ms:.3f} ms, plain '
         f'{plain_ms:.3f} ms, bound {b["bound_ms"]:.4f} ms by {b["bound_by"]}')
@@ -892,6 +915,164 @@ def mode0_phase(tmp: str, inp: str, kw: dict, n_seg: int,
     return runs
 
 
+def mod2mod_phase(tmp: str, main_path) -> dict:
+    """The 2x2 with module variation at full width (``assets.geometry.
+    write_2x2``: 4 modules, 8 TPCs, the 2.4.16 and 2.5.16 layouts, module
+    3 on the second layout and response, two light LUTs, 384 channels) with
+    the 2x2 production truth (LUT smearing, SMEAR_TRUTH, device route), on
+    bench.py's 2x2 occupancy (SPILLS_2X2): a truth-off run (the warm-up)
+    keeps K1's and K2's first inputs of modules 1 and 3, each held to its
+    plain version, and module 3's first light batch, run again on the card
+    (twice) and on the CPU; then the run with truth, ungrouped and at
+    event_group_size GROUP, launch counters set to 0 before and read after
+    (per module), the plain versions forbidden."""
+    import torch
+    import yaml
+    from larndsim_tpu_torch.assets.geometry import (simulation_properties,
+                                                    write_2x2)
+    from larndsim_tpu_torch.assets.make_input import write_input
+    from larndsim_tpu_torch.cli import simulate_pixels as cli
+    from larndsim_tpu_torch.io.h5 import File
+    from larndsim_tpu_torch.params import load_detector
+    from larndsim_tpu_torch.tools import light_check
+    from larndsim_tpu_torch.tools.module_tracker import module_tracker
+    t0 = time.perf_counter()
+    paths = write_2x2(os.path.join(tmp, '2x2'), sim_overrides=SMEAR_TRUTH)
+    sim_off = os.path.join(tmp, '2x2', 'truth_off.yaml')
+    with open(sim_off, 'w') as f:
+        yaml.safe_dump(simulation_properties(), f)
+    geo = load_detector(paths['detector_properties'],
+                        paths['pixel_layout'][0])
+    inp = os.path.join(tmp, 'spills_2x2.h5')
+    n_seg = write_input(inp, geo.tpc_borders, **SPILLS_2X2)
+    dets = {m: load_detector(paths['detector_properties'],
+                             [paths['pixel_layout'][i] for i in (0, 0, 1, 0)],
+                             i_module=m).params for m in (1, 3)}
+    log('mod2mod', f'tree and input in {time.perf_counter() - t0:.2f} s: '
+        f'{n_seg} segments in {SPILLS_2X2["n_events"]} spills; module 1 '
+        f'n_pixels {dets[1].n_pixels} at {dets[1].host["pixel_pitch"]} cm, '
+        f'module 3 {dets[3].n_pixels} at {dets[3].host["pixel_pitch"]} cm '
+        f'(bin {dets[3].host["response_bin_size"]} cm), {dets[1].n_tpcs} '
+        'TPCs, 384 optical channels')
+    kw = dict(config='2x2', detector_properties=paths['detector_properties'],
+              pixel_layout=paths['pixel_layout'],
+              simulation_properties=sim_off,
+              response_file=paths['response_file'],
+              light_lut_filename=paths['light_lut_filename'],
+              light_det_noise_filename=os.path.join(tmp, 'noise_2x2.npy'),
+              rand_seed=7, step_scale=1.0, device='cuda')
+    out_off = os.path.join(tmp, 'slice_2x2_truth_off.h5')
+    t0 = time.perf_counter()
+    with module_tracker(capture=True) as t, light_check.first_batch(
+            keep=lambda a, k: t['module'] == 3) as seen:
+        cli.run_simulation(inp, out_off, **kw)
+    torch.cuda.synchronize()
+    per = {m: (n['induced_current'], n['fee_fsm'])
+           for m, n in sorted(t['launches'].items())}
+    log('mod2mod', f'truth-off run (the warm-up) '
+        f'{time.perf_counter() - t0:.2f} s; K1 / K2 launches per module '
+        f'{per}')
+    k1 = {m: compare_k1(t['k1'][m], f'module {m} batch') for m in (3, 1)}
+    k2 = {m: _fsm_case(t['k2'][m], f'module {m} batch') for m in (3, 1)}
+
+    assert len(seen) == 1, 'module 3 ran no light batch'
+    args, bkw = seen[0]
+    thr = SMEAR_TRUTH['mc_truth_threshold']
+    opts = dict(smearing=True, truth_ids=SMEAR_TRUTH['max_light_truth_ids'],
+                truth_path='device', threshold=thr)
+    card = light_check.rerun(args, bkw, 'cuda', 5, **opts)
+    again = light_check.rerun(args, bkw, 'cuda', 5, **opts)
+    cpu = light_check.rerun(args, bkw, 'cpu', 5, **opts)
+    assert light_check.identical(card, again), 'mod2mod: two card runs differ'
+    rec = light_check.compare(card, cpu, args[1], smeared_at=thr)
+    assert rec['peak'] > 0 and rec['records'] > 0, rec
+    assert card.waveforms.shape[1] == 96, card.waveforms.shape
+    log('mod2mod', f'module 3\'s first light batch (S={args[0].size}, C='
+        f'{card.waveforms.shape[1]}, channels '
+        f'{int(card.op_channel_idx.min())}-{int(card.op_channel_idx.max())}'
+        f', LUT 1, n_ticks {card.n_ticks}): card vs CPU, same draws: max '
+        f'|err| {rec["max_abs_err"]:.1f} ADC (peak {rec["peak"]:.1f}, '
+        f'tolerance one quantum 64), {100 * rec["equal_share"]:.3f}% of '
+        f'samples equal (>= 99.9%), {rec["records"]} smearing truth records '
+        f'equal ({rec["near"][0]} / {rec["near"][1]} within 1e-3 of the '
+        'threshold); two card runs identical')
+
+    kw_on = dict(kw, simulation_properties=paths['simulation_properties'])
+    runs = {}
+    for g in (1, GROUP):
+        out = os.path.join(tmp, f'slice_2x2_g{g}.h5')
+        with module_tracker() as t:
+            wall, launches, peak = main_path(out, dict(kw_on,
+                                                       event_group_size=g),
+                                             inp=inp)
+        runs[g] = dict(out=out, wall=wall, launches=launches, peak=peak,
+                       per_module=t['launches'], table=phase_table(
+                           f'2x2 with module variation, truth on, '
+                           f'event_group_size {g}'))
+    solo, grouped = runs[1], runs[GROUP]
+    assert data_packets(solo['out']) == data_packets(out_off), \
+        'mod2mod: packets differ from the truth-off run'
+    with File(solo['out'], 'r') as f, File(out_off, 'r') as h, \
+            File(grouped['out'], 'r') as q:
+        names = sorted(_datasets(f))
+        assert not any('light_wvfm_mod' in n for n in names), names
+        assert [n for n in names if n.startswith('light_dat/')] == [
+            f'light_dat/light_dat_module{i}' for i in range(4)], names
+        wv = np.array(f['light_wvfm'])
+        assert np.array_equal(wv, np.array(h['light_wvfm'])), \
+            'mod2mod: light_wvfm differs from the truth-off run'
+        assert np.array_equal(wv, np.array(q['light_wvfm'])), \
+            'mod2mod: grouped light_wvfm differs from the ungrouped run'
+        rec, rec_g = (np.array(x['light_wvfm_mc_assn']) for x in (f, q))
+        dat = [f[f'light_dat/light_dat_module{i}'].shape for i in range(4)]
+        trig = np.array(f['light_trig'])
+        pk = np.array(f['packets'])
+    n_spills = SPILLS_2X2['n_events']
+    assert wv.shape == (n_spills, 384, 256), wv.shape
+    assert trig.shape == (n_spills,) and trig['op_channel'].shape[1] == 384
+    lit = [float(np.abs(wv[:, 96 * m:96 * (m + 1)]).max()) for m in range(4)]
+    assert np.isfinite(wv).all() and min(lit) > 0, lit
+    assert sum(d[0] for d in dat) == n_seg and all(d[1] == 96 for d in dat)
+    assert len(rec) > 0 and (np.abs(rec['pe_current']) > thr).all()
+    agree = light_check.records_agree(
+        rec_g, rec, thr, keys=('trigger_id', 'op_channel_id', 'tick',
+                               'event_id', 'segment_id'))
+    data = pk[pk['packet_type'] == 0]
+    per_io = collections.Counter(data['io_group'].tolist())
+    assert sorted(per_io) == list(range(1, 9)), per_io
+    assert (data['dataword'] <= 255).all()
+    _, hits = packet_events(solo['out'])
+    _, hits_g = packet_events(grouped['out'])
+    overlap = len(hits & hits_g) / max(len(hits | hits_g), 1)
+    assert overlap >= 0.7, overlap
+    for name in ('induced_current', 'fee_fsm'):
+        assert grouped['launches'][name] < solo['launches'][name], name
+        for r in runs.values():
+            assert all(r['per_module'][m][name] > 0 for m in (1, 2, 3, 4)), \
+                (name, r['per_module'])
+    log('mod2mod', f'light_wvfm {wv.shape} merged from 4 modules (no '
+        f'light_wvfm_mod* left; each module\'s 96 channels peak at '
+        f'{[round(x, 1) for x in lit]} ADC), light_trig {trig.shape} x '
+        f'{trig["op_channel"].shape[1]} channels, light_dat_module0-3 rows '
+        f'{[d[0] for d in dat]}; data packets {len(data)} on io groups '
+        f'{dict(sorted(per_io.items()))}, equal to the truth-off run\'s; '
+        f'{len(rec)} truth records ({rec.nbytes / 1e6:.3f} MB); light_wvfm '
+        f'equal to the truth-off run\'s')
+    for g, r in sorted(runs.items()):
+        per = {m: (n['induced_current'], n['fee_fsm'])
+               for m, n in sorted(r['per_module'].items())}
+        log('mod2mod', f'event_group_size {g}: wall {r["wall"]:.3f} s, '
+            f'{n_seg / r["wall"]:.1f} segments/s; K1 / K2 launches '
+            f'{r["launches"]["induced_current"]} / '
+            f'{r["launches"]["fee_fsm"]}, per module {per}; peak device '
+            f'memory {r["peak"]:.2f} GiB')
+    log('mod2mod', f'grouped: light_wvfm equal to the ungrouped run\'s, '
+        f'{agree["records"]} truth records equal ({agree["near"][0]} / '
+        f'{agree["near"][1]} within 1e-3 of the threshold), hit-set overlap '
+        f'{overlap:.3f} (>= 0.7; other charge draws)')
+    return dict(k1=k1, k2=k2, runs=runs)
+
+
 def io_phase(tmp: str, inp: str, kw: dict, charge_only_out: str,
              main_path) -> None:
     """The charge-only slice from its input rewritten chunked (gzip and
@@ -1261,6 +1442,8 @@ def main(argv=None) -> int:
         mark('io')
         mode0_phase(tmp, inp, kw, n_seg, out, main_path)
         mark('mode0')
+        m2m = mod2mod_phase(tmp, main_path)
+        mark('mod2mod')
 
         if opts.profile:
             profile_slice(inp, os.path.join(tmp, 'profiled.h5'), kw,
@@ -1273,6 +1456,14 @@ def main(argv=None) -> int:
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'flax', 'larndsim_tpu'))
     assert not foreign, f'the port imported {foreign}'
+
+    def on_2x2(name, k):
+        """The kernel on the 2x2 path: launches per module (ungrouped and
+        grouped) and its check on a module-1 and a module-3 batch."""
+        return dict(launches_2x2={
+            f'g{g}': {m: n[name] for m, n in sorted(r['per_module'].items())}
+            for g, r in m2m['runs'].items()}, **{
+                f'module{m}_batch': k[m] for m in (1, 3)})
 
     def at_production(name):
         return dict(guard_ms=guard['ops_ms'][name]['min_ms'],
@@ -1288,12 +1479,13 @@ def main(argv=None) -> int:
              replaces=K1_REPLACES, launches=launches['induced_current'],
              launches_charge_light=launches_l['induced_current'],
              launches_grouped=grouped['launches']['induced_current'],
-             **k1, **at_production('induced_current')),
+             **k1, **at_production('induced_current'),
+             **on_2x2('induced_current', m2m['k1'])),
         dict(name='fee_fsm', route='cuda', source=K2_SOURCE,
              replaces=K2_REPLACES, launches=launches['fee_fsm'],
              launches_charge_light=launches_l['fee_fsm'],
              launches_grouped=grouped['launches']['fee_fsm'], **k2,
-             **at_production('fee_fsm')),
+             **at_production('fee_fsm'), **on_2x2('fee_fsm', m2m['k2'])),
     ] + probes
     log('time', 'seconds by phase: ' + ', '.join(spans))
     log('done', f'every phase passed in {time.perf_counter() - t_start:.1f} s')

@@ -13,6 +13,12 @@ Smaller arguments give the small trees the CPU tests use.
 Asked for (``light=``), the detector properties also carry the light keys
 of one DUNE 2x2 module (:func:`light_properties`): 96 optical channels, 48
 per TPC, the beam trigger and a 16 us window with LUT smearing.
+
+:func:`write_2x2` writes the four-module tree of the 2x2 configuration
+with module-to-module variation: eight TPCs, two pixel layouts (the
+``2.4.16`` tiles of 70 x 70 pixels at 4.434 mm and the ``2.5.16`` tiles of
+80 x 80 pixels at 3.87975 mm, both 310.38 mm wide), per-module detector
+values, 384 optical channels and two light LUTs.
 """
 from __future__ import annotations
 
@@ -28,10 +34,14 @@ _UNUSED_CHANNELS = (6, 7, 8, 9, 22, 23, 24, 25, 38, 39, 40, 54, 55, 56, 57)
 def pixel_layout(tiles=(2, 4), pixels_per_tile: int = 70,
                  chip_pixels: int = 7, pitch_mm: float = 4.434,
                  anode_z_mm: float = 304.31) -> dict:
-    """Pixel-layout YAML content (the keys geometry/tiles.py reads)."""
+    """Pixel-layout YAML content (the keys geometry/tiles.py reads).  A
+    chip of up to 7 x 7 pixels leaves 15 of its 64 channels unconnected;
+    one of 8 x 8 (the v2b tiles) uses all 64."""
     if pixels_per_tile % chip_pixels:
         raise ValueError('pixels_per_tile must be a multiple of chip_pixels')
     channels = [c for c in range(64) if c not in _UNUSED_CHANNELS]
+    if chip_pixels == 8:
+        channels = list(range(64))
     if chip_pixels ** 2 > len(channels):
         raise ValueError(f'a chip has at most {len(channels)} channels')
     n_chip = pixels_per_tile // chip_pixels
@@ -74,21 +84,21 @@ def pixel_layout(tiles=(2, 4), pixels_per_tile: int = 70,
 
 def light_properties(n_op_channel: int = 96, light_window=(0.0, 16.0),
                      enable_lut_smearing: bool = True,
-                     light_trig_mode: int = 1) -> dict:
+                     light_trig_mode: int = 1, n_tpcs: int = 2) -> dict:
     """Light keys of one 2x2 module (the keys params/light.py reads).
 
-    96 channels (module0.yaml; 2x2.yaml has 384 over 4 modules), the
-    first half on TPC 0 and the second on TPC 1; the beam trigger (mode 1)
+    96 channels (module0.yaml; 2x2.yaml has 384 over 4 modules, ``n_tpcs``
+    8), an equal share on each TPC in order; the beam trigger (mode 1)
     with a [0, 16] us window (2x2.yaml) and LUT smearing (2x2 production).
     The per-group thresholds are read by the threshold trigger only (mode
     0): 6 channels a group, -2000 ADC each.  Keys not written stay at the
     loader defaults.
     """
-    half = n_op_channel // 2
+    per = n_op_channel // n_tpcs
     return dict(
         n_op_channel=n_op_channel,
-        tpc_to_op_channel=[list(range(half)),
-                           list(range(half, n_op_channel))],
+        tpc_to_op_channel=[list(range(t * per, (t + 1) * per))
+                           for t in range(n_tpcs)],
         light_trig_mode=light_trig_mode,
         light_window=[float(light_window[0]), float(light_window[1])],
         enable_lut_smearing=bool(enable_lut_smearing),
@@ -165,4 +175,96 @@ def write_module0(directory: str, *, tiles=(2, 4), pixels_per_tile: int = 70,
         with open(path, 'w') as f:
             yaml.safe_dump(doc, f, default_flow_style=None)
         paths[name] = path
+    return paths
+
+
+#: the 2x2 configuration's indirection of its two layouts and responses
+#: (PIXEL_LAYOUT_ID, RESPONSE_ID) over the four modules
+LAYOUT_ID_2X2 = (0, 0, 1, 0)
+#: electron lifetime per module [us]: module 3 apart, so that a per-module
+#: value of the detector YAML is seen to act
+LIFETIME_2X2 = (2.2e3, 2.2e3, 2.0e3, 2.2e3)
+
+
+def write_2x2(directory: str, *, tiles=(2, 4), pixels_per_tile=(70, 80),
+              chip_pixels=(7, 8), pitch_mm=(4.434, 3.87975),
+              drift_length: float = 30.27, time_interval=(0.0, 200.0),
+              time_padding: float = 190.0, time_window: float = 189.1,
+              light=True, lut_kw: dict | None = None,
+              detector_overrides: dict | None = None,
+              sim_overrides: dict | None = None) -> dict:
+    """Write a four-module 2x2 tree into ``directory``.
+
+    Modules 1-4 hold TPCs (0, 1) ... (6, 7) and io groups (1, 2) ...
+    (7, 8), on a 2 x 2 grid of ``tpc_offsets`` 5 cm apart.  Two pixel
+    layouts of equal tile width: ``pixels_per_tile``, ``chip_pixels`` and
+    ``pitch_mm`` give each one's (the defaults are the published 2.4.16 and
+    2.5.16 widths).  Module ``m`` takes layout ``LAYOUT_ID_2X2[m - 1]`` in
+    the 2x2 configuration, so the detector YAML lists per module a
+    ``response_bin_size`` of a tenth of that layout's pitch and a
+    ``lifetime`` (:data:`LIFETIME_2X2`); ``detector_overrides`` adds or
+    replaces keys.  ``light`` adds the light keys of 384 channels, 96 a
+    module and 48 a TPC (:func:`light_properties` with ``n_tpcs`` 8; a
+    dict passes its arguments), and writes two light LUTs
+    (``assets.light_lut.make_light_lut`` with ``lut_kw``): the second for a
+    TPC of other dimensions, so that the two tables differ (the generator's
+    ``seed`` changes nothing in them).
+
+    Returns a dict of paths: ``detector_properties``, ``pixel_layout`` (the
+    two layouts), ``simulation_properties``, ``response_file`` (two absent
+    files: each module's synthetic response comes from its own pitch and
+    bin size) and, with light, ``light_lut_filename`` (the two LUTs).
+    """
+    import numpy as np
+    from .light_lut import make_light_lut
+    os.makedirs(directory, exist_ok=True)
+    anode_z_mm = drift_length * 10.0 + 3.4
+    widths = [n * p for n, p in zip(pixels_per_tile, pitch_mm)]
+    if abs(widths[0] - widths[1]) > 1e-6 * widths[0]:
+        raise ValueError(f'the two layouts\' tiles differ in width: {widths}')
+    # a module's footprint across the drift (x) and along it (z), in cm
+    span = max(tiles[0] * widths[0] / 10.0, 2 * anode_z_mm / 10.0)
+    half = (span + 5.0) / 2
+    light_keys = {}
+    if light:
+        light_keys = dict(n_op_channel=384, n_tpcs=8)
+        light_keys.update(light if isinstance(light, dict) else {})
+    keys = dict(
+        module_to_io_groups={m: [2 * m - 1, 2 * m] for m in range(1, 5)},
+        module_to_tpcs={m: [2 * m - 2, 2 * m - 1] for m in range(1, 5)},
+        tpc_offsets=[[sx * half, 0.0, sz * half]
+                     for sx in (1.0, -1.0) for sz in (-1.0, 1.0)],
+        response_bin_size=[round(pitch_mm[i] / 100.0, 9)
+                           for i in LAYOUT_ID_2X2],
+        lifetime=list(LIFETIME_2X2))
+    keys.update(detector_overrides or {})
+    det = detector_properties(tiles, drift_length, time_interval,
+                              time_padding, time_window, light_keys or False,
+                              **keys)
+    docs = dict(
+        detector_properties=det,
+        simulation_properties=simulation_properties(**(sim_overrides or {})))
+    paths = {}
+    for name, doc in docs.items():
+        paths[name] = os.path.join(directory, f'{name}.yaml')
+        with open(paths[name], 'w') as f:
+            yaml.safe_dump(doc, f, default_flow_style=None)
+    paths['pixel_layout'] = []
+    for i in range(2):
+        path = os.path.join(directory, f'pixel_layout_{i}.yaml')
+        with open(path, 'w') as f:
+            yaml.safe_dump(pixel_layout(tiles, pixels_per_tile[i],
+                                        chip_pixels[i], pitch_mm[i],
+                                        anode_z_mm), f,
+                           default_flow_style=None)
+        paths['pixel_layout'].append(path)
+    paths['response_file'] = [os.path.join(directory, f'__missing_{c}__.npy')
+                              for c in 'ab']
+    if light:
+        paths['light_lut_filename'] = []
+        kw = dict(n_det_tpc=48, **(lut_kw or {}))
+        for i, size in enumerate(((30.0, 60.0, 30.0), (31.0, 62.0, 31.0))):
+            path = os.path.join(directory, f'light_lut_{i}.npz')
+            np.savez(path, arr=make_light_lut(tpc_size=size, seed=i, **kw))
+            paths['light_lut_filename'].append(path)
     return paths

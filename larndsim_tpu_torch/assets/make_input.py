@@ -46,8 +46,10 @@ def make_tracks(tpc_borders: np.ndarray, n_events: int = 2,
                 tracks_per_event: int = 3, segments_per_track: int = 20,
                 segment_length: float = 0.5, dEdx: float = 2.1,
                 spill_period: float = 1.2e6, seed: int = 42,
-                is_spill: bool = True):
-    """Generate straight tracks inside random TPCs.
+                is_spill: bool = True, every_tpc: bool = False):
+    """Generate straight tracks inside random TPCs (``every_tpc``: track
+    k of an event inside TPC k modulo their number, so that every TPC has
+    tracks in every event once ``tracks_per_event`` reaches it).
 
     NOTE: positions are produced in the *edep-sim convention* (z = beam
     axis): the segments' drift coordinate is written to `x`, since
@@ -61,7 +63,8 @@ def make_tracks(tpc_borders: np.ndarray, n_events: int = 2,
         t_spill = ev * spill_period if is_spill else 0.0
         vert_rows.append((ev, ev, ev, 0, 0, 0, 0.0, 0.0))
         for trk in range(tracks_per_event):
-            tpc = rng.integers(len(tpc_borders))
+            tpc = (trk % len(tpc_borders) if every_tpc
+                   else rng.integers(len(tpc_borders)))
             b = np.sort(tpc_borders[tpc], axis=-1)
             lo, hi = b[:, 0], b[:, 1]
             start = lo + rng.uniform(0.2, 0.8, 3) * (hi - lo)

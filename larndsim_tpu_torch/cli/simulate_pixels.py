@@ -1,11 +1,14 @@
 """Simulation entry point: edep-sim HDF5 in -> LArPix packets + light
 waveforms out.
 
-Counterpart of ``larndsim_tpu.cli.simulate_pixels.run_simulation`` for one
-module (no module-to-module variation) and one device; the light chain runs
-in the configuration's trigger mode, the beam trigger (1) or the threshold
-trigger (0).  Flag names match the JAX CLI for every flag supported here,
-plus ``--device``, ``--truth_path`` and ``--unique_guard``.
+Counterpart of ``larndsim_tpu.cli.simulate_pixels.run_simulation`` on one
+device; the light chain runs in the configuration's trigger mode, the beam
+trigger (1) or the threshold trigger (0).  With module-to-module variation
+(the ``2x2`` configuration) the modules run in turn, each with its own
+layout, response, light LUT, thresholds, gains, tracks and channels, as
+the JAX CLI's sequential module loop runs them.  Flag names match the JAX
+CLI for every flag supported here, plus ``--device``, ``--truth_path`` and
+``--unique_guard``.
 ``event_group_size`` G runs up to G independent (event, TPC) batches as one
 charge call (pixel keys offset per event) and their first batches' light
 as one group call (in mode 0, one per window bucket).  The charge chain's
@@ -25,6 +28,7 @@ timestamps match it.  The run ends with the phase table
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import time
@@ -64,14 +68,35 @@ def gen_event_times(nevents: int, event_rate: float, t0: float = 0.0,
                                      size=int(nevents))) + t0
 
 
-def _single(value, what: str):
-    if isinstance(value, list):
-        if len(value) > 1:
-            raise NotImplementedError(
-                f'several {what} files need module variation, which this '
-                'port does not run')
-        return value[0]
-    return value
+def _as_list(val, n_modules, cfg, id_name, ids=None):
+    """A scalar-or-list configuration entry resolved per module through its
+    ``*_ID`` indirection (cli/simulate_pixels.py:106-122)."""
+    if val is None or not isinstance(val, list):
+        return val
+    if ids is None:
+        ids = cfg.get(id_name)
+    if ids is not None:
+        if len(ids) != n_modules or max(ids) >= len(val):
+            raise KeyError(f'Bad {id_name} indirection')
+        return [val[i] for i in ids]
+    if len(val) != n_modules:
+        raise KeyError(f'Expected {n_modules} entries for {id_name}')
+    return val
+
+
+def _scalar(val):
+    """One file where module variation is off: several raise."""
+    if isinstance(val, list):
+        if len(val) > 1:
+            raise KeyError('Multiple config files provided without module '
+                           'variation')
+        return val[0]
+    return val
+
+
+def _of_module(val, i_mod: int):
+    """Module ``i_mod``'s entry of a per-module list, or the one value."""
+    return val[i_mod - 1] if isinstance(val, list) else val
 
 
 def batch_generator(rand_seed: int, i_mod: int, event: int, seq: int,
@@ -112,18 +137,24 @@ def _no_output_on_error(run):
 @_no_output_on_error
 def run_simulation(input_filename: str,
                    output_filename: str,
-                   config: str = 'module0',
+                   config: str = '2x2',
+                   mod2mod_variation: bool | None = None,
                    pixel_layout=None,
+                   pixel_layout_id=None,
                    detector_properties: str | None = None,
                    simulation_properties: str | None = None,
                    response_file=None,
+                   response_id=None,
                    light_simulated: bool | None = None,
                    light_lut_filename=None,
+                   light_lut_id=None,
                    light_det_noise_filename: str | None = None,
                    bad_channels: str | None = None,
                    n_events: int | None = None,
                    pixel_thresholds_file=None,
+                   pixel_thresholds_id=None,
                    pixel_gains_file=None,
+                   pixel_gains_id=None,
                    rand_seed: int | None = None,
                    save_memory: str | None = None,
                    step_scale: float = 1.0,
@@ -135,6 +166,13 @@ def run_simulation(input_filename: str,
                    truth_compression: str = 'lzf'):
     """Simulate the charge and light readout of a pixelated LArTPC.
 
+    ``mod2mod_variation`` None follows the configuration; with it on (and
+    more than one module), each module runs in turn with its own pixel
+    layout, response, light LUT, thresholds and gains, picked from lists
+    by the ``*_id`` arguments or the configuration's ``*_ID`` entries, its
+    own tracks (those inside its two TPCs) and its share of the optical
+    channels; the light waveforms are merged along the channel axis at the
+    end.  Without it, a list of several files raises KeyError.
     ``light_simulated`` None follows the configuration and the detector
     YAML (no light keys: no light); ``step_scale`` coarsens the MC
     charge-sampling density (1.0 is the reference MIN_STEP_SIZE density);
@@ -148,15 +186,16 @@ def run_simulation(input_filename: str,
     card, kept records pulled; 'host': the card's top-K contributors,
     records recomputed on ``truth_workers`` worker threads); the records
     are written in batch order, and a worker's error fails the run.
-    ``event_group_size`` G groups up to G (event, TPC) batches into one
-    charge call and their events' first batches into one light call; a
-    group also closes before it would pass ``sim.batch_size`` segments, or
-    ``unique_guard`` unique pixels at the largest unique-pixel-per-segment
-    ratio seen so far (0: no guard).  ``save_memory`` names the memory
-    log's file (HDF5 for .h5 / .hdf5, else npz).  ``truth_compression``
-    is the light truth's filter after the byte shuffle ('lzf', 'gzip', or
-    'none': neither).  Appended datasets are written a chunk at a time as
-    they fill, the rest of the file when the run ends.
+    ``event_group_size`` G groups up to G (event, TPC) batches of a module
+    into one charge call and their events' first batches into one light
+    call; a group also closes before it would pass ``sim.batch_size``
+    segments, or ``unique_guard`` unique pixels at the largest
+    unique-pixel-per-segment ratio seen so far in the module (0: no
+    guard).  ``save_memory`` names the memory log's file (HDF5 for .h5 /
+    .hdf5, else npz).  ``truth_compression`` is the light truth's filter
+    after the byte shuffle ('lzf', 'gzip', or 'none': neither).  Appended
+    datasets are written a chunk at a time as they fill, the rest of the
+    file when the run ends.
     """
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
@@ -171,25 +210,49 @@ def run_simulation(input_filename: str,
         raise FileExistsError(output_filename)
 
     cfg = get_config(config)
-    pixel_layout = _single(pixel_layout or cfg['PIXEL_LAYOUT'], 'layout')
+    pixel_layout = pixel_layout or cfg['PIXEL_LAYOUT']
     detector_properties = detector_properties or cfg['DET_PROPERTIES']
     simulation_properties = simulation_properties or cfg['SIM_PROPERTIES']
-    response_file = _single(response_file or cfg['RESPONSE'], 'response')
+    response_file = response_file or cfg['RESPONSE']
+    if light_simulated is None:
+        light_simulated = cfg.get('LIGHT_SIMULATED', True)
+    if light_lut_filename is None:
+        light_lut_filename = cfg.get('LIGHT_LUT')
+    if light_det_noise_filename is None:
+        light_det_noise_filename = cfg.get('LIGHT_DET_NOISE')
     if pixel_thresholds_file is None:
         pixel_thresholds_file = cfg.get('PIXEL_THRESHOLDS_FILE')
     if pixel_gains_file is None:
         pixel_gains_file = cfg.get('PIXEL_GAINS_FILE')
-    pixel_thresholds_file = _single(pixel_thresholds_file, 'threshold')
-    pixel_gains_file = _single(pixel_gains_file, 'gain')
-    if light_simulated is None:
-        light_simulated = cfg.get('LIGHT_SIMULATED', True)
-    light_lut_filename = _single(light_lut_filename or cfg.get('LIGHT_LUT'),
-                                 'light LUT')
-    if light_det_noise_filename is None:
-        light_det_noise_filename = cfg.get('LIGHT_DET_NOISE')
-    get_module_ids(detector_properties)  # validates module_to_tpcs
 
-    sim = load_sim(simulation_properties)
+    mod_ids_all = get_module_ids(detector_properties)
+    n_modules = len(mod_ids_all)
+    if mod2mod_variation is None:
+        mod2mod_variation = cfg.get('MOD2MOD_VARIATION', False)
+    if mod2mod_variation and n_modules == 1:
+        warnings.warn('Single module with module variation: deactivating.')
+        mod2mod_variation = False
+    if mod2mod_variation:
+        pixel_layout = _as_list(pixel_layout, n_modules, cfg,
+                                'PIXEL_LAYOUT_ID', ids=pixel_layout_id)
+        response_file = _as_list(response_file, n_modules, cfg,
+                                 'RESPONSE_ID', ids=response_id)
+        light_lut_filename = _as_list(light_lut_filename, n_modules, cfg,
+                                      'LIGHT_LUT_ID', ids=light_lut_id)
+        pixel_thresholds_file = _as_list(
+            pixel_thresholds_file, n_modules, cfg, 'PIXEL_THRESHOLDS_ID',
+            ids=pixel_thresholds_id)
+        pixel_gains_file = _as_list(pixel_gains_file, n_modules, cfg,
+                                    'PIXEL_GAINS_ID', ids=pixel_gains_id)
+    else:
+        pixel_layout = _scalar(pixel_layout)
+        response_file = _scalar(response_file)
+        light_lut_filename = _scalar(light_lut_filename)
+        pixel_thresholds_file = _scalar(pixel_thresholds_file)
+        pixel_gains_file = _scalar(pixel_gains_file)
+
+    sim = dataclasses.replace(load_sim(simulation_properties),
+                              mod2mod_variation=bool(mod2mod_variation))
     light_loaded = load_light(detector_properties, asset_root=os.path.dirname(
         os.path.dirname(detector_properties)), device=device)
     light = light_loaded.replace(light_simulated=bool(light_simulated)
@@ -222,9 +285,10 @@ def run_simulation(input_filename: str,
     memlog.take_snapshot()
     memlog.archive('loading')
 
-    det_model = load_detector(detector_properties, pixel_layout,
-                              device=device)
-    det = det_model.params
+    # the first layout's geometry for the event times and the active
+    # volume (cli:261-265)
+    geo = load_detector(detector_properties, _of_module(pixel_layout, 1),
+                        device=device)
     trig_mode = light.light_trig_mode
 
     num_evids = int(tracks[sim.event_separator].max()
@@ -232,8 +296,9 @@ def run_simulation(input_filename: str,
     if sim.is_spill_sim:
         event_times = np.arange(num_evids) * sim.spill_period
     else:
-        event_times = gen_event_times(num_evids, det.event_rate,
-                                      t0=det.non_beam_event_gap, rng=np_rng)
+        event_times = gen_event_times(num_evids, geo.params.event_rate,
+                                      t0=geo.params.non_beam_event_gap,
+                                      rng=np_rng)
 
     # event times into vertices/mc_hdr (cli:616-642)
     if vertices is not None and not sim.is_spill_sim:
@@ -255,422 +320,485 @@ def run_simulation(input_filename: str,
                  mc_hdr), flatten=True)
         mc_hdr['t_event'] = vertices['t_event']
 
-    active_mask = select_active_volume(tracks, det_model.tpc_borders)
+    active_mask = select_active_volume(tracks, geo.tpc_borders)
     all_mod_tracks = tracks[active_mask]
-    segment_ids = inp.segment_ids[active_mask]
-    traj_ids = inp.trajectory_ids[active_mask]
-    i_mod = -1
+    all_mod_segment_ids = inp.segment_ids[active_mask]
+    all_mod_traj_ids = inp.trajectory_ids[active_mask]
 
-    n_resp_t = int(round(det.f32('time_window')
-                         / det.f32('response_sampling')))
-    response = torch.from_numpy(load_response(
-        response_file, n_t=n_resp_t,
-        bin_size=det.f32('response_bin_size'),
-        sampling=det.f32('response_sampling'),
-        pixel_pitch=det.f32('pixel_pitch'))).to(device)
-    thresholds_lut = (PixelLUT.load(pixel_thresholds_file)
-                      if pixel_thresholds_file else None)
-    gains_lut = PixelLUT.load(pixel_gains_file) if pixel_gains_file else None
-
-    io_groups = np.array(list(det_model.module_to_io_groups.values()))
-    trig_module = int(np.argwhere(
-        io_groups == export.get_trig_io(trig_mode))[0][0]) + 1 \
-        if io_groups.size else 1
-
-    # ---- quench + drift over the whole module ----
-    t0 = time.time()
-    segs_all = from_structured(all_mod_tracks,
-                               pad_to=bucket(len(all_mod_tracks), lo=64),
-                               device=device)
-    segs_all = drift(quench(segs_all, det, physics.BIRKS), det)
-    tracks_mod = to_structured(segs_all, dtype=all_mod_tracks.dtype)
-    print(f'Quenching and drifting: {time.time() - t0:.2f} s')
-    memlog.take_snapshot()
-    memlog.archive(f'quench_drift_mod{i_mod}')
-
-    # ---- light incidence over the module (cli:398-441) ----
-    if light.light_simulated:
-        t0 = time.time()
-        n_light_channel = light.n_op_channel
-        lut = light_ops.LightLUT.from_structured(load_light_lut(
-            light_lut_filename, n_det_tpc=max(n_light_channel // 2, 1)),
-            device)
-        if light_det_noise_filename and \
-                os.path.isfile(light_det_noise_filename):
-            light_noise = np.load(light_det_noise_filename)
-        else:
-            light_noise = make_light_noise(light.n_op_channel)
-        light_noise = torch.as_tensor(light_noise, dtype=torch.float32,
-                                      device=device)
-        light_inc, light_t0, light_vox = light_ops.calculate_light_incidence(
-            segs_all, det, light, lut.vis, lut.t0, n_channels=n_light_channel)
-        # per-segment light summary for the output file (cli:758-760)
-        valid = segs_all.valid.cpu().numpy()
-        light_dat = np.zeros((int(valid.sum()), n_light_channel),
-                             dtype=[('segment_id', 'u4'),
-                                    ('n_photons_det', 'f4'),
-                                    ('t0_det', 'f4')])
-        # host copies: light_dat, and mode 0's windows (mode0_window)
-        light_inc_h = light_inc.cpu().numpy()[valid]
-        light_t0_h = light_t0.cpu().numpy()[valid]
-        light_dat['segment_id'] = segment_ids[:, None]
-        light_dat['n_photons_det'] = light_inc_h
-        light_dat['t0_det'] = light_t0_h
-        op_channel_sim = light.tpc_to_op_channel.cpu().numpy().ravel()
-        op_channel_tpc = light.op_channel_to_tpc.cpu().numpy()
-        print(f'Light incidence: {time.time() - t0:.2f} s')
-
-    # ---- batching loop ----
     # appended datasets go to disk a chunk at a time; the rest at close
     out = File(output_filename, 'w')
-    results_acc = defaultdict(list)
-    clock_period = det.clock_reset_period * det.clock_cycle
-    sync_start = (event_times[0] // clock_period * clock_period
-                  + clock_period)
-    light_done_events: set = set()
-    i_light_trig = 0  # global light-trigger counter for truth records
-    # the host route's workers; records of every route are written in
-    # accumulate order through the FIFO of (future, event, first trigger)
-    truth_executor = ThreadPoolExecutor(max(int(truth_workers), 1)) \
-        if light.light_simulated and truth_path == 'host' \
-        and sim.max_mc_truth_ids > 0 and light.enable_lut_smearing else None
-    pending_truth: deque = deque()
 
     def _host(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) \
             else np.asarray(x)
 
-    def flush_results():
-        """Write the accumulated rows (cli:639-724): packets, and the light
-        waveforms (mode 0: and their light_trig rows); without charge rows,
-        the light rows alone."""
-        nonlocal results_acc
-        light_only = not results_acc.get('event_pix')
-        if light_only and not results_acc.get('light_event_id'):
-            results_acc = defaultdict(list)
-            return
-        res = {k: np.concatenate([_host(x) for x in v], axis=0)
-               for k, v in results_acc.items() if len(v)}
-        has_light = len(res.get('light_event_id', []))
-        if not light_only:
-            uniq_events = np.unique(res['event_pix'])
-            uniq_event_times = event_times[uniq_events
-                                           % sim.max_events_per_file]
-            if has_light:
-                if trig_mode == 1:
-                    # beam mode: the trigger type stands in for the module
-                    light_trig_modules = res['trigger_type']
-                else:
-                    # each trigger's module, by its first channel's TPC
-                    op0 = res['light_op_channel_idx'][:, 0]
-                    light_trig_modules = np.array(
-                        [det_model.tpc_to_module[t]
-                         for t in op_channel_tpc[op0]])
-                light_trigger_times = (res['light_start_time']
-                                       + res['light_trigger_idx']
-                                       * light.light_tick_size)
-                light_trigger_event_ids = res['light_event_id']
-            else:
-                light_trig_modules = np.ones(len(uniq_events))
-                light_trigger_times = np.zeros_like(uniq_event_times)
-                light_trigger_event_ids = uniq_events
-            export.export_to_hdf5(
-                res['event_pix'], res['hit_row'], res['hit_adc'],
-                res['hit_ticks'], res['hit_frac'], res['unique_pix'],
-                res['track_pixel_map'], res['traj_pixel_map'],
-                out, uniq_event_times, det_model, trig_mode, sim,
-                light_trigger_times=light_trigger_times,
-                light_trigger_event_id=light_trigger_event_ids,
-                light_trigger_modules=light_trig_modules,
-                bad_channels=bad_channels, i_mod=i_mod)
-        if has_light:
-            if trig_mode == 0:
-                # the event times of the light rows' own events (a flush
-                # can hold light rows of events without charge rows)
-                uniq_l = np.unique(res['light_event_id'])
-                export.export_light_trig_to_hdf5(
-                    res['light_event_id'], res['light_start_time'],
-                    res['light_trigger_idx'], res['light_op_channel_idx'],
-                    out, event_times[uniq_l % sim.max_events_per_file],
-                    det_model, light)
-            export.export_light_wvfm_to_hdf5(
-                res['light_event_id'], res['light_waveforms'], out, sim,
-                light, i_mod=i_mod)
-        results_acc = defaultdict(list)
+    def run_module(i_mod: int):
+        """One module's simulation (cli:323-441, the reference's module
+        loop body), its output appended to ``out``; ``i_mod`` -1 without
+        module variation.  Returns its drifted tracks, its light_dat rows
+        (None without light) and its detector model."""
+        det_model = load_detector(detector_properties, pixel_layout,
+                                  i_module=i_mod, device=device)
+        det = det_model.params
+        n_resp_t = int(round(det.f32('time_window')
+                             / det.f32('response_sampling')))
+        response = torch.from_numpy(load_response(
+            _of_module(response_file, i_mod), n_t=n_resp_t,
+            bin_size=det.f32('response_bin_size'),
+            sampling=det.f32('response_sampling'),
+            pixel_pitch=det.f32('pixel_pitch'))).to(device)
+        thresholds_lut = (PixelLUT.load(_of_module(pixel_thresholds_file,
+                                                   i_mod))
+                          if pixel_thresholds_file else None)
+        gains_lut = (PixelLUT.load(_of_module(pixel_gains_file, i_mod))
+                     if pixel_gains_file else None)
 
-    def drain_truth(block: bool = False):
-        """Write the pending truth records in order, as far as they are
-        done (all of them with ``block``); a worker's error is raised
-        here."""
-        while pending_truth and (block or pending_truth[0][0].done()):
-            fut, ievd_t, trig_t = pending_truth.popleft()
-            truth = fut.result()
-            if isinstance(truth, dict):
-                truth = export.truth_sparse_to_records(truth, ievd_t, trig_t)
-            else:   # a worker's records, trigger ids counted from 0
-                truth['trigger_id'] += trig_t
-            with trace.phase('truth/h5'):
-                export.export_light_truth_to_hdf5(out, truth,
-                                                  truth_compression)
+        if mod2mod_variation:
+            # the module's own tracks: those inside its two TPCs
+            module_borders = det_model.tpc_borders[(i_mod - 1) * 2:i_mod * 2]
+            mask = select_active_volume(all_mod_tracks, module_borders)
+            tracks_sel = all_mod_tracks[mask]
+            segment_ids = all_mod_segment_ids[mask]
+            traj_ids = all_mod_traj_ids[mask]
+        else:
+            module_borders = det_model.tpc_borders
+            tracks_sel = all_mod_tracks
+            segment_ids = all_mod_segment_ids
+            traj_ids = all_mod_traj_ids
 
-    def accumulate_light(ievd_l, lres):
-        """One light batch's rows (cli:761-799); its truth records are
-        queued behind those of earlier batches."""
-        nonlocal i_light_trig
-        drain_truth()
-        ntrig = lres.trigger_idx.shape[0]
-        if not ntrig:
-            return
-        results_acc['light_event_id'].append(np.full(ntrig, ievd_l))
-        results_acc['light_start_time'].append(np.full(ntrig,
-                                                       lres.start_time))
-        results_acc['light_trigger_idx'].append(lres.trigger_idx)
-        results_acc['trigger_type'].append(lres.trigger_type)
-        results_acc['light_op_channel_idx'].append(lres.op_channel_idx)
-        results_acc['light_waveforms'].append(lres.waveforms)
-        fut = lres.truth_future
-        if lres.truth_sparse is not None:
-            fut = Future()
-            fut.set_result(lres.truth_sparse)
-        if fut is not None:
-            pending_truth.append((fut, int(ievd_l), i_light_trig))
-        i_light_trig += ntrig
+        io_groups = np.array(list(det_model.module_to_io_groups.values()))
+        trig_module = int(np.argwhere(
+            io_groups == export.get_trig_io(trig_mode))[0][0]) + 1 \
+            if io_groups.size else 1
 
-    def light_rows(sels, pad):
-        """The incidence, first arrivals and voxels of each batch's
-        segments, (G, pad, C), (G, pad, C) and (G, pad, 3), zero past each
-        batch's length."""
-        inc = light_inc.new_zeros((len(sels), pad, light_inc.shape[1]))
-        t0 = light_t0.new_zeros((len(sels), pad, light_t0.shape[1]))
-        vox = light_vox.new_zeros((len(sels), pad, 3))
-        for g, sel in enumerate(sels):
-            rows = light_ops.upload(sel, device)    # nothing waits for it
-            inc[g, :len(sel)] = light_inc[rows]
-            t0[g, :len(sel)] = light_t0[rows]
-            vox[g, :len(sel)] = light_vox[rows]
-        return inc, t0, vox
-
-    def mode0_window(sel):
-        """Mode 0's (n_ticks, start_time) of a batch, from the host
-        copies of its incidence."""
-        return light_model.mode0_window(light_inc_h[sel], light_t0_h[sel],
-                                        light)
-
-    def light_batch(ievd, sel, i_sub, segs=None):
-        if segs is None:
-            segs = from_structured(tracks_mod[sel],
-                                   pad_to=bucket(len(sel), lo=32),
+        # ---- quench + drift over the whole module ----
+        t0 = time.time()
+        segs_all = from_structured(tracks_sel,
+                                   pad_to=bucket(len(tracks_sel), lo=64),
                                    device=device)
-        inc, t0, vox = light_rows([sel], segs.size)
-        mode0 = dict(t0_det=t0[0], module_to_tpcs=det_model.module_to_tpcs,
-                     sim_window=mode0_window(sel)) if trig_mode == 0 else {}
-        return light_model.simulate_light_batch(
-            segs, light, sim, inc[0], vox[0], lut, light_noise,
-            light_draw(rand_seed, i_mod, ievd, i_sub, device),
-            i_subbatch=i_sub, truth_path=truth_path,
-            truth_executor=truth_executor, event_id=int(ievd), **mode0)
-
-    def light_group(firsts):
-        """Two or more events' first batches as one group call, each with
-        its own draws."""
-        sels = [sel for _, sel in firsts]
-        pad = bucket(max(len(sel) for sel in sels), lo=32)
-        inc, _, vox = light_rows(sels, pad)
-        args = (from_structured_group([tracks_mod[sel] for sel in sels],
-                                      pad, device=device),
-                light, sim, inc, vox, lut, light_noise,
-                [light_draw(rand_seed, i_mod, ievd, 0, device)
-                 for ievd, _ in firsts])
-        kw = dict(truth_path=truth_path, truth_executor=truth_executor,
-                  event_ids=[int(ievd) for ievd, _ in firsts])
-        if trig_mode == 0:
-            return light_model.simulate_light_group_mode0(
-                *args, windows=[mode0_window(sel) for sel in sels],
-                module_to_tpcs=det_model.module_to_tpcs, **kw)
-        return light_model.simulate_light_group(*args, **kw)
-
-    def process_light(items, segs):
-        """The light of a group's batches (cli:1033-1054, :866-917): an
-        event's first batch runs with i_subbatch 0, a later one alone with
-        i_subbatch 1 (in beam mode it adds nothing; in mode 0 it triggers
-        as any batch).  Two or more first batches run as one group call
-        (mode 0: one per window bucket, a bucket of one alone).  The rows
-        are accumulated in the group's order.  ``segs``: the charge call's
-        segments when it holds one batch."""
-        firsts, later = [], []
-        for i, (ievd, sel) in enumerate(items):
-            (later if ievd in light_done_events else firsts).append(i)
-            light_done_events.add(ievd)
-        lres = {}
-        with trace.phase('light_batch', device):
-            buckets = defaultdict(list)
-            for i in firsts:
-                key = mode0_window(items[i][1])[0] if trig_mode == 0 else 0
-                buckets[key].append(i)
-            for group_i in buckets.values():
-                if len(group_i) > 1:
-                    lres.update(zip(group_i, light_group(
-                        [items[i] for i in group_i])))
-                else:
-                    lres[group_i[0]] = light_batch(*items[group_i[0]], 0,
-                                                   segs)
-            for i in later:
-                lres[i] = light_batch(*items[i], 1, segs)
-        for i, (ievd, _) in enumerate(items):
-            accumulate_light(ievd, lres[i])
-
-    def accumulate_charge(items, cat, res):
-        """One charge call's rows (cli:953-998): events and pixels decoded
-        from the keys, batch-local track indices made global ids."""
-        nonlocal uniq_ratio
-        uniq_ratio = max(uniq_ratio, res.n_unique / len(cat))
-        uniq = res.unique_pix
-        valid_u = uniq >= 0
-        events = np.array([ievd for ievd, _ in items], dtype=np.int64)
-        if len(items) > 1:
-            event_u = events[np.where(valid_u, uniq // n_pix_total, 0)]
-            pid_u = np.where(valid_u, uniq % n_pix_total, -1)
-        else:
-            event_u = np.full(len(uniq), events[0])
-            pid_u = uniq
-        tmap = res.track_pixel_map
-        tmap_seg = np.where(tmap >= 0,
-                            segment_ids[cat][np.clip(tmap, 0, None)], -1)
-        tmap_trj = np.where(tmap >= 0,
-                            traj_ids[cat][np.clip(tmap, 0, None)], -1)
-        row_offset = sum(len(x) for x in results_acc['unique_pix'])
-        new_row = np.cumsum(valid_u) - 1
-        keep_h = valid_u[res.hit_row]
-        results_acc['event_pix'].append(event_u[valid_u])
-        results_acc['unique_pix'].append(pid_u[valid_u])
-        results_acc['track_pixel_map'].append(tmap_seg[valid_u])
-        results_acc['traj_pixel_map'].append(tmap_trj[valid_u])
-        results_acc['hit_row'].append(
-            new_row[res.hit_row[keep_h]] + row_offset)
-        results_acc['hit_adc'].append(res.hit_adc[keep_h])
-        results_acc['hit_ticks'].append(res.hit_ticks[keep_h])
-        results_acc['hit_frac'].append(res.hit_fractions[keep_h])
-        if len(results_acc['event_pix']) >= sim.write_batch_size:
-            with trace.phase('export'):
-                flush_results()
-
-    def process_group():
-        """One charge call for the buffered batches, with their light."""
-        nonlocal group_seq
-        if not group:
-            return
-        group_seq += 1
-        items = list(group)
-        group.clear()
-        sels = [sel for _, sel in items]
-        cat = np.concatenate(sels)
-        selected = tracks_mod[cat]
-        segs = from_structured(selected, pad_to=bucket(len(cat), lo=32),
-                               device=device)
-        if light.light_simulated:
-            process_light(items, segs if len(items) == 1 else None)
-        slot = None
-        if len(items) > 1:
-            slot = np.zeros(segs.size, np.int32)
-            slot[:len(cat)] = np.repeat(np.arange(len(items)),
-                                        [len(sel) for sel in sels])
-        gen = batch_generator(rand_seed, i_mod, items[0][0], group_seq,
-                              device)
-        with trace.phase('charge_batch', device):
-            res = simulate_charge_batch(
-                segs, det_model, sim, generator_draw(gen, device), response,
-                pixel_thresholds=thresholds_lut, pixel_gains=gains_lut,
-                already_drifted=True, step_scale=step_scale,
-                host_segs=selected, event_slot=slot)
-        if res.overflow:
-            warnings.warn('More segments per pixel than MAX_TRACKS_PER_PIXEL '
-                          f'({sim.max_tracks_per_pixel}); backtracking may '
-                          'be incomplete')
-        accumulate_charge(items, cat, res)
-
-    batcher = TPCBatcher(all_mod_tracks, tracks_mod, sim.event_separator,
-                         tpc_batch_size=sim.event_batch_size,
-                         tpc_borders=det_model.tpc_borders)
-
-    nx, ny = det.n_pixels
-    n_pix_total = nx * ny * det.n_tpcs
-    group_cap = max(int(event_group_size), 1)
-    if n_pix_total * (group_cap + 1) >= 2 ** 31:
-        warnings.warn('event_group_size reduced to 1: pixel keys would '
-                      'overflow int32 for this geometry')
-        group_cap = 1
-    group: list = []       # buffered (event, segment rows) of one call
-    group_seq = 0          # calls so far: each one's draws of its own
-    uniq_ratio = 0.0       # the largest unique pixels per segment so far
-
-    event_id_buffer = -1
-    for ievd, batch_mask in batcher:
-        this_event_time = event_times[int(ievd) % sim.max_events_per_file]
-        if ievd > event_id_buffer:
-            event_id_buffer = ievd
-            if this_event_time - sync_start >= 0:
-                sync_times = np.arange(sync_start, this_event_time + 1,
-                                       clock_period)
-                if len(sync_times):
-                    export.export_sync_to_hdf5(
-                        out, np.full(sync_times.shape,
-                                                 clock_period),
-                        det_model, sim, i_mod)
-                    sync_start = sync_times[-1] + clock_period
-            if i_mod == trig_module or i_mod == -1:
-                export.export_timestamp_trigger_to_hdf5(
-                    out, [this_event_time], det_model,
-                    trig_mode, sim, i_mod)
-        idx = np.nonzero(batch_mask)[0]
-        if len(idx) == 0:
-            process_group()
-            if light.light_simulated:
-                # an empty batch still gets its event a zero waveform row,
-                # float64 (cli:1103-1132)
-                results_acc['light_event_id'].append(np.full(1, ievd))
-                results_acc['light_start_time'].append(np.zeros(1))
-                results_acc['light_trigger_idx'].append(np.zeros(1, int))
-                results_acc['trigger_type'].append(
-                    np.full(1, light.light_trig_mode))
-                results_acc['light_op_channel_idx'].append(
-                    op_channel_sim[None, :])
-                results_acc['light_waveforms'].append(
-                    np.zeros((1, len(op_channel_sim),
-                              light_model.digit_samples(light))))
-                flush_results()
-            continue
-        if len(idx) > sim.batch_size:
-            # an oversized batch: the pending group first, then its
-            # sub-batches, each a call of its own (cli:1136-1147)
-            process_group()
-            warnings.warn('Entered sub-batch loop; consider increasing '
-                          f'batch_size (currently {sim.batch_size})')
-            for i0 in range(0, len(idx), sim.batch_size):
-                group.append((ievd, idx[i0:i0 + sim.batch_size]))
-                process_group()
-        else:
-            # the group is capped by its segments too: one call holds an
-            # (S, P, T) signals tensor (cli:1149-1160)
-            would = sum(len(sel) for _, sel in group) + len(idx)
-            if group and (would > sim.batch_size
-                          or (unique_guard and uniq_ratio
-                              and would * uniq_ratio > unique_guard)):
-                process_group()
-            group.append((ievd, idx))
-            if len(group) >= group_cap:
-                process_group()
+        segs_all = drift(quench(segs_all, det, physics.BIRKS), det)
+        tracks_mod = to_structured(segs_all, dtype=tracks_sel.dtype)
+        print(f'Quenching and drifting: {time.time() - t0:.2f} s')
         memlog.take_snapshot()
-    process_group()
-    with trace.phase('export/flush'):
-        flush_results()
-    with trace.phase('truth/drain'):
-        drain_truth(block=True)
-    if truth_executor is not None:
-        truth_executor.shutdown()
-    memlog.archive(f'loop_mod{i_mod}')
+        memlog.archive(f'quench_drift_mod{i_mod}')
+
+        # ---- light incidence over the module (cli:398-441) ----
+        light_dat = None
+        if light.light_simulated:
+            t0 = time.time()
+            n_light_channel = (light.n_op_channel // n_modules
+                               if mod2mod_variation else light.n_op_channel)
+            lut = light_ops.LightLUT.from_structured(load_light_lut(
+                _of_module(light_lut_filename, i_mod),
+                n_det_tpc=max(n_light_channel // 2, 1)), device)
+            if light_det_noise_filename and \
+                    os.path.isfile(light_det_noise_filename):
+                light_noise = np.load(light_det_noise_filename)
+            else:
+                light_noise = make_light_noise(light.n_op_channel)
+            channel_offset = 0
+            # the module's channels simulate as the first module's ids,
+            # with their own noise rows (cli:419-424, :633-637)
+            op_channel = light.tpc_to_op_channel.reshape(-1)
+            if mod2mod_variation:
+                channel_offset = n_light_channel * (i_mod - 1)
+                light_noise = light_noise[
+                    channel_offset:channel_offset + n_light_channel]
+                op_channel = light.tpc_to_op_channel[:2].reshape(-1)
+            op_channel_sim = light_ops.host_array(op_channel)
+            light_noise = torch.as_tensor(light_noise, dtype=torch.float32,
+                                          device=device)
+            light_inc, light_t0, light_vox = \
+                light_ops.calculate_light_incidence(
+                    segs_all, det, light, lut.vis, lut.t0,
+                    n_channels=n_light_channel,
+                    channel_offset=channel_offset)
+            # per-segment light summary for the output file (cli:758-760)
+            valid = segs_all.valid.cpu().numpy()
+            light_dat = np.zeros((int(valid.sum()), n_light_channel),
+                                 dtype=[('segment_id', 'u4'),
+                                        ('n_photons_det', 'f4'),
+                                        ('t0_det', 'f4')])
+            # host copies: light_dat, and mode 0's windows (mode0_window)
+            light_inc_h = light_inc.cpu().numpy()[valid]
+            light_t0_h = light_t0.cpu().numpy()[valid]
+            light_dat['segment_id'] = segment_ids[:, None]
+            light_dat['n_photons_det'] = light_inc_h
+            light_dat['t0_det'] = light_t0_h
+            op_channel_tpc = light_ops.host_array(light.op_channel_to_tpc)
+            print(f'Light incidence: {time.time() - t0:.2f} s')
+
+        # ---- batching loop ----
+        results_acc = defaultdict(list)
+        clock_period = det.clock_reset_period * det.clock_cycle
+        sync_start = (event_times[0] // clock_period * clock_period
+                      + clock_period)
+        light_done_events: set = set()
+        i_light_trig = 0  # the module's light-trigger counter (cli:446)
+        # the host route's workers; records of every route are written in
+        # accumulate order through the FIFO of (future, event, first
+        # trigger)
+        truth_executor = ThreadPoolExecutor(max(int(truth_workers), 1)) \
+            if light.light_simulated and truth_path == 'host' \
+            and sim.max_mc_truth_ids > 0 and light.enable_lut_smearing \
+            else None
+        pending_truth: deque = deque()
+
+        def flush_results():
+            """Write the accumulated rows (cli:639-724): packets, and the
+            light waveforms (mode 0: and their light_trig rows); without
+            charge rows, the light rows alone."""
+            nonlocal results_acc
+            light_only = not results_acc.get('event_pix')
+            if light_only and not results_acc.get('light_event_id'):
+                results_acc = defaultdict(list)
+                return
+            res = {k: np.concatenate([_host(x) for x in v], axis=0)
+                   for k, v in results_acc.items() if len(v)}
+            has_light = len(res.get('light_event_id', []))
+            if not light_only:
+                uniq_events = np.unique(res['event_pix'])
+                uniq_event_times = event_times[uniq_events
+                                               % sim.max_events_per_file]
+                if has_light:
+                    if trig_mode == 1:
+                        # beam mode: the trigger type stands in for the
+                        # module
+                        light_trig_modules = res['trigger_type']
+                    else:
+                        # each trigger's module, by its first channel's TPC
+                        op0 = res['light_op_channel_idx'][:, 0]
+                        light_trig_modules = np.array(
+                            [det_model.tpc_to_module[t]
+                             for t in op_channel_tpc[op0]])
+                    light_trigger_times = (res['light_start_time']
+                                           + res['light_trigger_idx']
+                                           * light.light_tick_size)
+                    light_trigger_event_ids = res['light_event_id']
+                else:
+                    light_trig_modules = np.ones(len(uniq_events))
+                    light_trigger_times = np.zeros_like(uniq_event_times)
+                    light_trigger_event_ids = uniq_events
+                export.export_to_hdf5(
+                    res['event_pix'], res['hit_row'], res['hit_adc'],
+                    res['hit_ticks'], res['hit_frac'], res['unique_pix'],
+                    res['track_pixel_map'], res['traj_pixel_map'],
+                    out, uniq_event_times, det_model, trig_mode, sim,
+                    light_trigger_times=light_trigger_times,
+                    light_trigger_event_id=light_trigger_event_ids,
+                    light_trigger_modules=light_trig_modules,
+                    bad_channels=bad_channels, i_mod=i_mod)
+            if has_light:
+                if trig_mode == 0:
+                    # the event times of the light rows' own events (a
+                    # flush can hold light rows of events without charge
+                    # rows)
+                    uniq_l = np.unique(res['light_event_id'])
+                    export.export_light_trig_to_hdf5(
+                        res['light_event_id'], res['light_start_time'],
+                        res['light_trigger_idx'],
+                        res['light_op_channel_idx'], out,
+                        event_times[uniq_l % sim.max_events_per_file],
+                        det_model, light)
+                export.export_light_wvfm_to_hdf5(
+                    res['light_event_id'], res['light_waveforms'], out, sim,
+                    light, i_mod=i_mod)
+            results_acc = defaultdict(list)
+
+        def drain_truth(block: bool = False):
+            """Write the pending truth records in order, as far as they
+            are done (all of them with ``block``); a worker's error is
+            raised here."""
+            while pending_truth and (block or pending_truth[0][0].done()):
+                fut, ievd_t, trig_t = pending_truth.popleft()
+                truth = fut.result()
+                if isinstance(truth, dict):
+                    truth = export.truth_sparse_to_records(truth, ievd_t,
+                                                           trig_t)
+                else:   # a worker's records, trigger ids counted from 0
+                    truth['trigger_id'] += trig_t
+                with trace.phase('truth/h5'):
+                    export.export_light_truth_to_hdf5(out, truth,
+                                                      truth_compression)
+
+        def accumulate_light(ievd_l, lres):
+            """One light batch's rows (cli:761-799); its truth records are
+            queued behind those of earlier batches."""
+            nonlocal i_light_trig
+            drain_truth()
+            ntrig = lres.trigger_idx.shape[0]
+            if not ntrig:
+                return
+            results_acc['light_event_id'].append(np.full(ntrig, ievd_l))
+            results_acc['light_start_time'].append(np.full(
+                ntrig, lres.start_time))
+            results_acc['light_trigger_idx'].append(lres.trigger_idx)
+            results_acc['trigger_type'].append(lres.trigger_type)
+            results_acc['light_op_channel_idx'].append(lres.op_channel_idx)
+            results_acc['light_waveforms'].append(lres.waveforms)
+            fut = lres.truth_future
+            if lres.truth_sparse is not None:
+                fut = Future()
+                fut.set_result(lres.truth_sparse)
+            if fut is not None:
+                pending_truth.append((fut, int(ievd_l), i_light_trig))
+            i_light_trig += ntrig
+
+        def light_rows(sels, pad):
+            """The incidence, first arrivals and voxels of each batch's
+            segments, (G, pad, C), (G, pad, C) and (G, pad, 3), zero past
+            each batch's length."""
+            inc = light_inc.new_zeros((len(sels), pad, light_inc.shape[1]))
+            t0 = light_t0.new_zeros((len(sels), pad, light_t0.shape[1]))
+            vox = light_vox.new_zeros((len(sels), pad, 3))
+            for g, sel in enumerate(sels):
+                rows = light_ops.upload(sel, device)  # nothing waits for it
+                inc[g, :len(sel)] = light_inc[rows]
+                t0[g, :len(sel)] = light_t0[rows]
+                vox[g, :len(sel)] = light_vox[rows]
+            return inc, t0, vox
+
+        def mode0_window(sel):
+            """Mode 0's (n_ticks, start_time) of a batch, from the host
+            copies of its incidence."""
+            return light_model.mode0_window(light_inc_h[sel],
+                                            light_t0_h[sel], light)
+
+        def light_batch(ievd, sel, i_sub, segs=None):
+            if segs is None:
+                segs = from_structured(tracks_mod[sel],
+                                       pad_to=bucket(len(sel), lo=32),
+                                       device=device)
+            inc, t0, vox = light_rows([sel], segs.size)
+            mode0 = dict(t0_det=t0[0],
+                         module_to_tpcs=det_model.module_to_tpcs,
+                         sim_window=mode0_window(sel)) \
+                if trig_mode == 0 else {}
+            return light_model.simulate_light_batch(
+                segs, light, sim, inc[0], vox[0], lut, light_noise,
+                light_draw(rand_seed, i_mod, ievd, i_sub, device),
+                i_subbatch=i_sub, truth_path=truth_path,
+                truth_executor=truth_executor, event_id=int(ievd),
+                op_channel=op_channel, **mode0)
+
+        def light_group(firsts):
+            """Two or more events' first batches as one group call, each
+            with its own draws."""
+            sels = [sel for _, sel in firsts]
+            pad = bucket(max(len(sel) for sel in sels), lo=32)
+            inc, _, vox = light_rows(sels, pad)
+            args = (from_structured_group([tracks_mod[sel] for sel in sels],
+                                          pad, device=device),
+                    light, sim, inc, vox, lut, light_noise,
+                    [light_draw(rand_seed, i_mod, ievd, 0, device)
+                     for ievd, _ in firsts])
+            kw = dict(truth_path=truth_path, truth_executor=truth_executor,
+                      event_ids=[int(ievd) for ievd, _ in firsts],
+                      op_channel=op_channel)
+            if trig_mode == 0:
+                return light_model.simulate_light_group_mode0(
+                    *args, windows=[mode0_window(sel) for sel in sels],
+                    module_to_tpcs=det_model.module_to_tpcs, **kw)
+            return light_model.simulate_light_group(*args, **kw)
+
+        def process_light(items, segs):
+            """The light of a group's batches (cli:1033-1054, :866-917): an
+            event's first batch runs with i_subbatch 0, a later one alone
+            with i_subbatch 1 (in beam mode it adds nothing; in mode 0 it
+            triggers as any batch).  Two or more first batches run as one
+            group call (mode 0: one per window bucket, a bucket of one
+            alone).  The rows are accumulated in the group's order.
+            ``segs``: the charge call's segments when it holds one
+            batch."""
+            firsts, later = [], []
+            for i, (ievd, sel) in enumerate(items):
+                (later if ievd in light_done_events else firsts).append(i)
+                light_done_events.add(ievd)
+            lres = {}
+            with trace.phase('light_batch', device):
+                buckets = defaultdict(list)
+                for i in firsts:
+                    key = mode0_window(items[i][1])[0] \
+                        if trig_mode == 0 else 0
+                    buckets[key].append(i)
+                for group_i in buckets.values():
+                    if len(group_i) > 1:
+                        lres.update(zip(group_i, light_group(
+                            [items[i] for i in group_i])))
+                    else:
+                        lres[group_i[0]] = light_batch(*items[group_i[0]],
+                                                       0, segs)
+                for i in later:
+                    lres[i] = light_batch(*items[i], 1, segs)
+            for i, (ievd, _) in enumerate(items):
+                accumulate_light(ievd, lres[i])
+
+        def accumulate_charge(items, cat, res):
+            """One charge call's rows (cli:953-998): events and pixels
+            decoded from the keys, batch-local track indices made global
+            ids."""
+            nonlocal uniq_ratio
+            uniq_ratio = max(uniq_ratio, res.n_unique / len(cat))
+            uniq = res.unique_pix
+            valid_u = uniq >= 0
+            events = np.array([ievd for ievd, _ in items], dtype=np.int64)
+            if len(items) > 1:
+                event_u = events[np.where(valid_u, uniq // n_pix_total, 0)]
+                pid_u = np.where(valid_u, uniq % n_pix_total, -1)
+            else:
+                event_u = np.full(len(uniq), events[0])
+                pid_u = uniq
+            tmap = res.track_pixel_map
+            tmap_seg = np.where(tmap >= 0,
+                                segment_ids[cat][np.clip(tmap, 0, None)], -1)
+            tmap_trj = np.where(tmap >= 0,
+                                traj_ids[cat][np.clip(tmap, 0, None)], -1)
+            row_offset = sum(len(x) for x in results_acc['unique_pix'])
+            new_row = np.cumsum(valid_u) - 1
+            keep_h = valid_u[res.hit_row]
+            results_acc['event_pix'].append(event_u[valid_u])
+            results_acc['unique_pix'].append(pid_u[valid_u])
+            results_acc['track_pixel_map'].append(tmap_seg[valid_u])
+            results_acc['traj_pixel_map'].append(tmap_trj[valid_u])
+            results_acc['hit_row'].append(
+                new_row[res.hit_row[keep_h]] + row_offset)
+            results_acc['hit_adc'].append(res.hit_adc[keep_h])
+            results_acc['hit_ticks'].append(res.hit_ticks[keep_h])
+            results_acc['hit_frac'].append(res.hit_fractions[keep_h])
+            if len(results_acc['event_pix']) >= sim.write_batch_size:
+                with trace.phase('export'):
+                    flush_results()
+
+        def process_group():
+            """One charge call for the buffered batches, with their
+            light."""
+            nonlocal group_seq
+            if not group:
+                return
+            group_seq += 1
+            items = list(group)
+            group.clear()
+            sels = [sel for _, sel in items]
+            cat = np.concatenate(sels)
+            selected = tracks_mod[cat]
+            segs = from_structured(selected, pad_to=bucket(len(cat), lo=32),
+                                   device=device)
+            if light.light_simulated:
+                process_light(items, segs if len(items) == 1 else None)
+            slot = None
+            if len(items) > 1:
+                slot = np.zeros(segs.size, np.int32)
+                slot[:len(cat)] = np.repeat(np.arange(len(items)),
+                                            [len(sel) for sel in sels])
+            gen = batch_generator(rand_seed, i_mod, items[0][0], group_seq,
+                                  device)
+            with trace.phase('charge_batch', device):
+                res = simulate_charge_batch(
+                    segs, det_model, sim, generator_draw(gen, device),
+                    response, pixel_thresholds=thresholds_lut,
+                    pixel_gains=gains_lut, already_drifted=True,
+                    step_scale=step_scale, host_segs=selected,
+                    event_slot=slot)
+            if res.overflow:
+                warnings.warn('More segments per pixel than '
+                              'MAX_TRACKS_PER_PIXEL '
+                              f'({sim.max_tracks_per_pixel}); backtracking '
+                              'may be incomplete')
+            accumulate_charge(items, cat, res)
+
+        batcher = TPCBatcher(all_mod_tracks, tracks_mod, sim.event_separator,
+                             tpc_batch_size=sim.event_batch_size,
+                             tpc_borders=module_borders)
+
+        # the module's pixel key space: its own layout's pixels
+        nx, ny = det.n_pixels
+        n_pix_total = nx * ny * det.n_tpcs
+        group_cap = max(int(event_group_size), 1)
+        if n_pix_total * (group_cap + 1) >= 2 ** 31:
+            warnings.warn('event_group_size reduced to 1: pixel keys would '
+                          'overflow int32 for this geometry')
+            group_cap = 1
+        group: list = []       # buffered (event, segment rows) of one call
+        group_seq = 0          # calls so far: each one's draws of its own
+        uniq_ratio = 0.0       # the largest unique pixels per segment so far
+
+        event_id_buffer = -1
+        for ievd, batch_mask in batcher:
+            this_event_time = event_times[int(ievd)
+                                          % sim.max_events_per_file]
+            if ievd > event_id_buffer:
+                event_id_buffer = ievd
+                if this_event_time - sync_start >= 0:
+                    sync_times = np.arange(sync_start, this_event_time + 1,
+                                           clock_period)
+                    if len(sync_times):
+                        export.export_sync_to_hdf5(
+                            out, np.full(sync_times.shape, clock_period),
+                            det_model, sim, i_mod)
+                        sync_start = sync_times[-1] + clock_period
+                if i_mod == trig_module or i_mod == -1:
+                    export.export_timestamp_trigger_to_hdf5(
+                        out, [this_event_time], det_model,
+                        trig_mode, sim, i_mod)
+            idx = np.nonzero(batch_mask)[0]
+            if len(idx) == 0:
+                process_group()
+                if light.light_simulated:
+                    # an empty batch still gets its event a zero waveform
+                    # row, float64 (cli:1103-1132)
+                    results_acc['light_event_id'].append(np.full(1, ievd))
+                    results_acc['light_start_time'].append(np.zeros(1))
+                    results_acc['light_trigger_idx'].append(
+                        np.zeros(1, int))
+                    results_acc['trigger_type'].append(
+                        np.full(1, light.light_trig_mode))
+                    results_acc['light_op_channel_idx'].append(
+                        op_channel_sim[None, :])
+                    results_acc['light_waveforms'].append(
+                        np.zeros((1, len(op_channel_sim),
+                                  light_model.digit_samples(light))))
+                    flush_results()
+                continue
+            if len(idx) > sim.batch_size:
+                # an oversized batch: the pending group first, then its
+                # sub-batches, each a call of its own (cli:1136-1147)
+                process_group()
+                warnings.warn('Entered sub-batch loop; consider increasing '
+                              f'batch_size (currently {sim.batch_size})')
+                for i0 in range(0, len(idx), sim.batch_size):
+                    group.append((ievd, idx[i0:i0 + sim.batch_size]))
+                    process_group()
+            else:
+                # the group is capped by its segments too: one call holds an
+                # (S, P, T) signals tensor (cli:1149-1160)
+                would = sum(len(sel) for _, sel in group) + len(idx)
+                if group and (would > sim.batch_size
+                              or (unique_guard and uniq_ratio
+                                  and would * uniq_ratio > unique_guard)):
+                    process_group()
+                group.append((ievd, idx))
+                if len(group) >= group_cap:
+                    process_group()
+            memlog.take_snapshot()
+        process_group()
+        with trace.phase('export/flush'):
+            flush_results()
+        with trace.phase('truth/drain'):
+            drain_truth(block=True)
+        if truth_executor is not None:
+            truth_executor.shutdown()
+        memlog.archive(f'loop_mod{i_mod}')
+        return tracks_mod, light_dat, det_model
+
+    # ---------------- module loop (cli:1244-1251) ----------------
+    mod_ids = mod_ids_all if mod2mod_variation else [-1]
+    runs = [run_module(i_mod) for i_mod in mod_ids]
+    segments_to_files = (runs[0][0] if len(runs) == 1
+                         else np.concatenate([r[0] for r in runs]))
+    # the last module's model for the run's own exports (cli:1263)
+    det_model = runs[-1][2]
 
     # ---------------- truth + final exports ----------------
-    segments_to_files = tracks_mod
     if sim.is_spill_sim:
         local_spill = edep.local_spill_ids(segments_to_files,
                                            sim.event_separator,
@@ -680,8 +808,8 @@ def run_simulation(input_filename: str,
                 segments_to_files[fld] = (segments_to_files[fld]
                                           + local_spill * sim.spill_period)
     if light.light_simulated and trig_mode == 1:
-        # one beam trigger row per event (cli:1264-1275); mode 0 wrote its
-        # rows per flush
+        # one beam trigger row per event, every channel (cli:1264-1275);
+        # mode 0 wrote its rows per flush
         light_event_id = (np.unique(local_spill) if sim.is_spill_sim
                           else (vertices['event_id'] if vertices is not None
                                 else np.unique(
@@ -690,13 +818,22 @@ def run_simulation(input_filename: str,
                              if sim.is_spill_sim else event_times)
         export.export_light_trig_to_hdf5(
             light_event_id, np.zeros(len(light_event_id)),
-            np.zeros(len(light_event_id), int), op_channel_sim, out,
+            np.zeros(len(light_event_id), int),
+            light_ops.host_array(light.tpc_to_op_channel).ravel(), out,
             light_event_times, det_model, light)
+    if light.light_simulated and mod2mod_variation:
+        export.merge_module_light_wvfm_same_trigger(out, det_model)
     swap_coordinates(segments_to_files)
     out.create_dataset(sim.tracks_dset_name, data=segments_to_files)
     out[sim.tracks_dset_name].attrs['zbeam'] = True
     if light.light_simulated:
-        out.create_dataset('light_dat/light_dat_allmodules', data=light_dat)
+        if mod2mod_variation:
+            for (_, light_dat, _), i_mod in zip(runs, det_model.mod_ids):
+                out.create_dataset(f'light_dat/light_dat_module{i_mod - 1}',
+                                   data=light_dat)
+        else:
+            out.create_dataset('light_dat/light_dat_allmodules',
+                               data=runs[0][1])
     for name, data in (('trajectories', inp.trajectories),
                        ('vertices', vertices), ('mc_hdr', mc_hdr),
                        ('mc_stack', mc_stack)):
@@ -718,8 +855,14 @@ def main(argv=None):
     import argparse
     import inspect
 
+    import yaml
+
     def _bool(v):
         return str(v).lower() in ('1', 'true', 'yes', 'on')
+
+    def _file_or_list(v):
+        """A file, or a YAML list of files or ids ('[a.yaml, b.yaml]')."""
+        return yaml.safe_load(v) if v.lstrip().startswith('[') else v
 
     parser = argparse.ArgumentParser(description=run_simulation.__doc__)
     for name, p in inspect.signature(run_simulation).parameters.items():
@@ -728,7 +871,8 @@ def main(argv=None):
             continue
         ann = str(p.annotation)
         typ = (_bool if 'bool' in ann else int if 'int' in ann
-               else float if 'float' in ann else str)
+               else float if 'float' in ann else str if ann.startswith('str')
+               else _file_or_list)
         parser.add_argument(f'--{name}', type=typ, default=p.default)
     run_simulation(**vars(parser.parse_args(argv)))
 

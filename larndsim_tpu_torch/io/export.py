@@ -563,3 +563,22 @@ def export_light_wvfm_to_hdf5(event_id, waveforms, f, sim: SimParams,
     else:
         name = 'light_wvfm'
     _append_dataset(f, name, np.asarray(waveforms))
+
+
+def merge_module_light_wvfm_same_trigger(f, det_model: DetectorModel):
+    """Concatenate the modules' waveform datasets along the channel axis
+    into one ``light_wvfm`` (light_sim.merge_module_light_wvfm_same_trigger,
+    :766-781), in the open file ``f``.  The ``light_wvfm`` group is
+    unlinked; the chunks its datasets already wrote stay in the file,
+    unreferenced, as h5py leaves them.  Modules with unequal trigger counts
+    raise ValueError."""
+    parts = []
+    for i_mod in det_model.mod_ids:
+        ds = f[f'light_wvfm/light_wvfm_mod{i_mod - 1}']
+        if parts and ds.shape[0] != parts[0].shape[0]:
+            raise ValueError('The number of triggers should be the same '
+                             'in each module with light trigger mode 1')
+        parts.append(np.asarray(ds))
+    merged = np.concatenate(parts, axis=1)
+    del f['light_wvfm']
+    f.create_dataset('light_wvfm', data=merged, maxshape=(None, None, None))

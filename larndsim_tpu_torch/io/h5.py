@@ -421,6 +421,8 @@ class Group:
                     raise KeyError(name)
                 node.members[p] = Group(self._file, _join(node.name, p))
             node = node.members[p]
+            if not isinstance(node, Group):
+                raise KeyError(name)
         return node, parts[-1]
 
     def __contains__(self, name: str) -> bool:
@@ -433,6 +435,13 @@ class Group:
     def __getitem__(self, name: str):
         parent, leaf = self._walk(name)
         return parent.members[leaf]
+
+    def __delitem__(self, name: str) -> None:
+        """Unlink a dataset or group.  In a file being written, chunks it
+        already wrote stay in the file, unreferenced, as HDF5 leaves the
+        space of a deleted object."""
+        parent, leaf = self._walk(name)
+        del parent.members[leaf]
 
     def keys(self):
         return self.members.keys()

@@ -143,11 +143,17 @@ def check_supported(light: LightParams, truth_path: str) -> None:
                          f'{TRUTH_PATHS}')
 
 
-def _channels(light: LightParams, light_noise, add_noise: bool, device):
-    """Every channel of the module in the TPCs' order, on the host and on
-    ``device``, with their gains and noise spectra (None without noise)."""
-    op_channel = light_ops.host_array(light.tpc_to_op_channel).ravel()
-    op_channel_dev = light.tpc_to_op_channel.reshape(-1)
+def _channels(light: LightParams, light_noise, add_noise: bool, device,
+              op_channel=None):
+    """The simulated channels (``op_channel``, a tensor of absolute ids;
+    None: every channel in the TPCs' order) on the host and on ``device``,
+    with their gains and noise spectra (None without noise)."""
+    if op_channel is None:
+        op_channel = light_ops.host_array(light.tpc_to_op_channel).ravel()
+        op_channel_dev = light.tpc_to_op_channel.reshape(-1)
+    else:
+        op_channel_dev = op_channel.to(device)
+        op_channel = light_ops.host_array(op_channel)
     gains = light.light_gain[op_channel_dev.long()]
     noise_rows = None
     if add_noise:
@@ -824,8 +830,8 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
                          truth_executor=None,
                          event_id: int = 0, *, t0_det=None,
                          module_to_tpcs: dict | None = None,
-                         sim_window: tuple | None = None
-                         ) -> LightBatchResult:
+                         sim_window: tuple | None = None,
+                         op_channel=None) -> LightBatchResult:
     """Run the light chain for one batch, in the configuration's trigger
     mode: the beam trigger (1) or the threshold trigger (0, one event of
     :func:`simulate_light_group_mode0`).
@@ -854,6 +860,10 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
         sim_window: mode 0: (n_ticks, start_time) from :func:`mode0_window`
             on host copies of the incidence; None computes it here from
             ``n_photons_det`` and ``t0_det`` (copied to the host).
+        op_channel: (C,) int32 tensor of the simulated channels' absolute
+            ids, the columns of ``n_photons_det`` (None: every channel;
+            with module variation the CLI passes the first module's, as the
+            JAX CLI does, cli:634-637).
     """
     check_supported(light, truth_path)
     if light.light_trig_mode == 0:
@@ -867,12 +877,13 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
             lut, light_noise, [draw], windows=[sim_window],
             module_to_tpcs=module_to_tpcs, add_noise=add_noise,
             truth_path=truth_path, truth_executor=truth_executor,
-            event_ids=[event_id])[0]
+            event_ids=[event_id], op_channel=op_channel)[0]
     if i_subbatch != 0:
         # the beam trigger fires on an event's first batch only: a later
         # batch has no trigger, and its waveforms would be discarded (the
         # JAX package computes and drops them; the outputs are the same)
-        C = light.tpc_to_op_channel.numel()
+        C = (light.tpc_to_op_channel.numel() if op_channel is None
+             else len(op_channel))
         n_ticks, start_time = light_ops.get_nticks(None, None, light)
         return LightBatchResult(
             np.empty(0, int), np.empty(0, int), np.empty((0, C), int),
@@ -882,7 +893,8 @@ def simulate_light_batch(segs: Segments, light: LightParams, sim: SimParams,
     return simulate_light_group(
         stack([segs]), light, sim, n_photons_det[None], voxels[None], lut,
         light_noise, [draw], add_noise=add_noise, truth_path=truth_path,
-        truth_executor=truth_executor, event_ids=[event_id])[0]
+        truth_executor=truth_executor, event_ids=[event_id],
+        op_channel=op_channel)[0]
 
 
 def simulate_light_group(segs: Segments, light: LightParams, sim: SimParams,
@@ -891,7 +903,8 @@ def simulate_light_group(segs: Segments, light: LightParams, sim: SimParams,
                          add_noise: bool = True,
                          truth_path: str = 'device',
                          truth_executor=None,
-                         event_ids=None) -> list[LightBatchResult]:
+                         event_ids=None,
+                         op_channel=None) -> list[LightBatchResult]:
     """Run the light chain for G independent events' first batches at
     once, beam trigger (mode 1): one pass of each op over the group.
 
@@ -922,7 +935,7 @@ def simulate_light_group(segs: Segments, light: LightParams, sim: SimParams,
     n_ticks, start_time = light_ops.get_nticks(None, None, light)
     n_ticks, conv_ticks = window(light, n_ticks)
     op_channel, op_channel_dev, gains, noise_rows = _channels(
-        light, light_noise, add_noise, dev)
+        light, light_noise, add_noise, dev, op_channel)
 
     draw = group_draw(draws)
     response = _signal_stage(
@@ -1012,7 +1025,8 @@ def simulate_light_group_mode0(segs: Segments, light: LightParams,
                                add_noise: bool = True,
                                truth_path: str = 'device',
                                truth_executor=None,
-                               event_ids=None) -> list[LightBatchResult]:
+                               event_ids=None,
+                               op_channel=None) -> list[LightBatchResult]:
     """Run the light chain for G independent events' batches with the
     threshold trigger (mode 0, light_sim.py:380-477): the signal, the
     threshold groups and the dead-time scan over the group's leading axis,
@@ -1055,7 +1069,7 @@ def simulate_light_group_mode0(segs: Segments, light: LightParams,
     dev = n_photons_det.device
     n_samples = digit_samples(light)
     op_channel, op_channel_dev, gains, noise_rows = _channels(
-        light, light_noise, add_noise, dev)
+        light, light_noise, add_noise, dev, op_channel)
     C = len(op_channel)
     tpc_to_module = {t: m for m, tpcs in module_to_tpcs.items() for t in tpcs}
     gmasks, ops_per_mod = light_ops.mode0_module_masks(

@@ -146,8 +146,15 @@ def _at_voxels(table: torch.Tensor, vox: torch.Tensor,
 
 def calculate_light_incidence(segs: Segments, det: DetectorParams,
                               light: LightParams, lut_vis: torch.Tensor,
-                              lut_t0: torch.Tensor, *, n_channels: int):
+                              lut_t0: torch.Tensor, *, n_channels: int,
+                              channel_offset: int = 0):
     """Photons incident on each optical channel (lightLUT.py:65-136).
+
+    Args:
+        n_channels: output channel count (a module's with module
+            variation).
+        channel_offset: absolute id of output channel 0 (with module
+            variation, the module's first channel).
 
     Returns:
         (n_photons_det (S, n_channels) f32, t0_det (S, n_channels) f32 [us],
@@ -157,8 +164,9 @@ def calculate_light_incidence(segs: Segments, det: DetectorParams,
     itpc = segs.pixel_plane
     in_tpc = (itpc != DEFAULT_PLANE_INDEX) & segs.valid
 
-    op_abs = torch.arange(n_channels, device=lut_vis.device)
-    lut_idx = op_abs % lut_vis.shape[3]
+    out_i = torch.arange(n_channels, device=lut_vis.device)
+    op_abs = out_i + channel_offset                  # absolute channel
+    lut_idx = out_i % lut_vis.shape[3]
 
     vis = _at_voxels(lut_vis, vox, lut_idx)          # (S, C)
     t1 = _at_voxels(lut_t0, vox, lut_idx)

@@ -35,15 +35,16 @@ from ..ops.light import LightDraw
 
 
 @contextlib.contextmanager
-def first_batch():
+def first_batch(keep=None):
     """Within the block, keeps the arguments ``(args, kwargs)`` of the
     first light batch that triggers (``i_subbatch`` 0) in the yielded
-    list."""
+    list; with ``keep``, the first that ``keep(args, kwargs)`` accepts."""
     seen: list = []
     orig = light_model.simulate_light_batch
 
     def spy(*args, **kwargs):
-        if not seen and kwargs.get('i_subbatch', 0) == 0:
+        if not seen and kwargs.get('i_subbatch', 0) == 0 \
+                and (keep is None or keep(args, kwargs)):
             seen.append((args, kwargs))
         return orig(*args, **kwargs)
     light_model.simulate_light_batch = spy

@@ -119,7 +119,7 @@ def test_cli_refuses_what_it_does_not_run(tmp_path, what):
                     tracks_per_event=3, segments_per_track=6,
                     segment_length=0.4, dEdx=8.0, seed=7)
         tcli.run_simulation(
-            run, str(tmp_path / 'out.h5'),
+            run, str(tmp_path / 'out.h5'), config='module0',
             detector_properties=paths['detector_properties'],
             pixel_layout=paths['pixel_layout'],
             simulation_properties=paths['simulation_properties'],
@@ -136,7 +136,7 @@ def test_cli_refuses_what_it_does_not_run(tmp_path, what):
             f.write(text)
     with pytest.raises(error):
         tcli.run_simulation(
-            str(inp), str(tmp_path / 'o.h5'),
+            str(inp), str(tmp_path / 'o.h5'), config='module0',
             detector_properties=paths['detector_properties'],
             pixel_layout=paths['pixel_layout'],
             simulation_properties=paths['simulation_properties'],
@@ -171,7 +171,7 @@ def test_port_runs_without_jax_or_h5py(tmp_path):
         '            load_detector(det, lay, device="cpu").tpc_borders,\n'
         '            n_events=1, tracks_per_event=2, segments_per_track=4,\n'
         '            dEdx=8.0, seed=2)\n'
-        'run_simulation(d + "/in.h5", d + "/out.h5",\n'
+        'run_simulation(d + "/in.h5", d + "/out.h5", config="module0",\n'
         '               detector_properties=det, pixel_layout=lay,\n'
         '               simulation_properties=simp,\n'
         '               response_file=d + "/r.npy", rand_seed=7,\n'

@@ -271,7 +271,8 @@ def test_cli_on_card_matches_cpu(cuda, tmp_path):
     write_input(inp, tpa.load_port(paths).tpc_borders, n_events=2,
                 tracks_per_event=3, segments_per_track=6, segment_length=0.4,
                 dEdx=8.0, seed=2)
-    kw = dict(detector_properties=paths['detector_properties'],
+    kw = dict(config='module0',
+              detector_properties=paths['detector_properties'],
               pixel_layout=paths['pixel_layout'],
               simulation_properties=paths['simulation_properties'],
               response_file=str(tmp_path / '__missing__.npy'), rand_seed=7,
@@ -374,7 +375,7 @@ def light_batch(cuda, tmp_path_factory):
                 tracks_per_event=3, segments_per_track=6, segment_length=0.4,
                 dEdx=8.0, seed=7)
     with light_check.first_batch() as seen:
-        run_simulation(inp, str(tmp / 'out.h5'),
+        run_simulation(inp, str(tmp / 'out.h5'), config='module0',
                        detector_properties=paths['detector_properties'],
                        pixel_layout=paths['pixel_layout'],
                        simulation_properties=paths['simulation_properties'],
@@ -469,7 +470,7 @@ def test_host_route_worker_error_fails_the_cli(cuda, tmp_path, monkeypatch):
         raise RuntimeError('worker failed')
     monkeypatch.setattr(light_model, '_host_smeared_truth_sparse', broken)
     with pytest.raises(RuntimeError, match='worker failed'):
-        run_simulation(inp, str(tmp_path / 'out.h5'),
+        run_simulation(inp, str(tmp_path / 'out.h5'), config='module0',
                        detector_properties=paths['detector_properties'],
                        pixel_layout=paths['pixel_layout'],
                        simulation_properties=paths['simulation_properties'],
@@ -532,7 +533,7 @@ def test_grouped_cli_on_card_equals_ungrouped(cuda, tmp_path):
     outs = {}
     for g in (1, 3):
         outs[g] = str(tmp_path / f'g{g}.h5')
-        run_simulation(inp, outs[g],
+        run_simulation(inp, outs[g], config='module0',
                        detector_properties=paths['detector_properties'],
                        pixel_layout=paths['pixel_layout'],
                        simulation_properties=paths['simulation_properties'],
@@ -604,7 +605,7 @@ def mode0_batch(cuda, tmp_path_factory):
                 tracks_per_event=3, segments_per_track=6, segment_length=0.4,
                 dEdx=8.0, seed=7)
     with light_check.first_batch() as seen:
-        run_simulation(inp, str(tmp / 'out.h5'),
+        run_simulation(inp, str(tmp / 'out.h5'), config='module0',
                        detector_properties=paths['detector_properties'],
                        pixel_layout=paths['pixel_layout'],
                        simulation_properties=paths['simulation_properties'],
@@ -731,3 +732,116 @@ def test_mode0_group_on_card_equals_solo(mode0_batch, route):
             assert np.array_equal(g.truth_sparse[k], s.truth_sparse[k])
         n_records += len(s.truth_sparse['tick'])
     assert (n_records > 0) == (opts['truth_ids'] > 0)
+
+
+# --------------------------------------------------------------------------
+# module-to-module variation (the 2x2 configuration)
+# --------------------------------------------------------------------------
+
+def _mod2mod_kw(tmp):
+    """The small four-module tree with 24 channels, LUT smearing and the
+    2x2 "truth on" (K 50, threshold 0.1); an input with tracks in every
+    TPC of every spill, inside the digitized window."""
+    paths = tpa.write_tree_2x2(
+        tmp / 'tree', detector_overrides=tpa.QUIET,
+        light=dict(n_op_channel=24, light_window=(0.0, 16.0)),
+        sim_overrides=dict(max_light_truth_ids=50, mc_truth_threshold=0.1))
+    inp = str(tmp / 'in.h5')
+    geo = tpa.load_port(dict(paths, pixel_layout=paths['pixel_layout'][0]))
+    tpa.write_spills_2x2(inp, geo.tpc_borders, n_events=4,
+                         tracks_per_event=16)
+    return inp, dict(config='2x2',
+                     detector_properties=paths['detector_properties'],
+                     pixel_layout=paths['pixel_layout'],
+                     simulation_properties=paths['simulation_properties'],
+                     response_file=paths['response_file'],
+                     light_lut_filename=paths['light_lut_filename'],
+                     light_det_noise_filename=str(tmp / 'n.npy'),
+                     rand_seed=7, step_scale=2.0)
+
+
+def _cpu_made_draw(rand_seed, i_mod, event, i_subbatch, device):
+    """Light draws made on the CPU from the batch's identity (the
+    ``cli.simulate_pixels.light_draw`` of a card-against-CPU run: the two
+    devices' generators give other streams)."""
+    from larndsim_tpu_torch.tools import light_check
+    return light_check.cpu_draw(
+        rand_seed + 1000 * max(i_mod, 0) + 10 * int(event) + i_subbatch,
+        device)
+
+
+def _mod2mod_run(inp, out, kw, device):
+    from larndsim_tpu_torch.cli import simulate_pixels as cli
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli, 'light_draw', _cpu_made_draw)
+        cli.run_simulation(inp, out, device=device, **kw)
+
+
+@pytest.fixture(scope='module')
+def mod2mod_card(cuda, tmp_path_factory):
+    """A four-module CLI run on the card: its output, each module's
+    launches, module 3's and module 1's first K1 / K2 arguments and module
+    3's first triggering light batch."""
+    from larndsim_tpu_torch.tools import light_check
+    from larndsim_tpu_torch.tools.module_tracker import module_tracker
+    tmp = tmp_path_factory.mktemp('mod2mod')
+    inp, kw = _mod2mod_kw(tmp)
+    out = str(tmp / 'cuda.h5')
+    with module_tracker(capture=True) as t, light_check.first_batch(
+            keep=lambda a, k: t['module'] == 3) as seen:
+        _mod2mod_run(inp, out, kw, 'cuda')
+    assert len(seen) == 1
+    return dict(inp=inp, kw=kw, out=out, tmp=tmp, light=seen[0], **t)
+
+
+def test_mod2mod_cli_on_card_matches_cpu(mod2mod_card):
+    """Every module launches both kernels; packets on all eight io groups
+    agree with the CPU run, the merged light_wvfm (both runs with the same
+    CPU-made light draws) within one quantum."""
+    r = mod2mod_card
+    for m in (1, 2, 3, 4):
+        assert r['launches'][m]['induced_current'] > 0, r['launches']
+        assert r['launches'][m]['fee_fsm'] > 0, r['launches']
+    cpu = str(r['tmp'] / 'cpu.h5')
+    _mod2mod_run(r['inp'], cpu, r['kw'], 'cpu')
+    on_card, on_cpu = _data_packets(r['out']), _data_packets(cpu)
+    n = max(sum(on_card.values()), sum(on_cpu.values()))
+    assert n > 0 and sum((on_card & on_cpu).values()) >= 0.99 * n
+    assert {k[0] for k in on_card} == set(range(1, 9))
+    with File(r['out'], 'r') as f, File(cpu, 'r') as g:
+        a, b = np.array(f['light_wvfm']), np.array(g['light_wvfm'])
+        assert a.shape == b.shape == (4, 24, 256)
+        assert 'light_wvfm_mod0' not in f.keys()
+        d = np.abs(a.astype(np.float64) - b)
+        assert d.max() <= 64 and (d == 0).mean() >= 0.999
+
+
+@pytest.mark.parametrize('module', [1, 3])
+def test_mod2mod_kernels_are_plain(mod2mod_card, module):
+    """K1 and K2 on a module's first batch (module 3: 16 x 16-pixel tiles
+    at 3.87975 mm and its own response) equal their plain versions."""
+    r = mod2mod_card
+    _assert_kernel_is_plain(r['k1'][module])
+    args = r['k2'][module]
+    got, want = fee.fee_fsm(*args), fee.fee_fsm_plain(*args)
+    for name, a, b in zip(fee.FeeResult._fields, want, got):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize('route', list(LIGHT_ROUTES))
+def test_mod2mod_light_batch_on_card_matches_cpu(mod2mod_card, route):
+    """Module 3's first light batch (its 6 channels as the first module's
+    ids, its own LUT and noise rows) on the card against the CPU with the
+    same draws."""
+    from larndsim_tpu_torch.tools import light_check
+    args, kw = mod2mod_card['light']
+    opts = LIGHT_ROUTES[route]
+    card = light_check.rerun(args, kw, 'cuda', 5, **opts)
+    again = light_check.rerun(args, kw, 'cuda', 5, **opts)
+    cpu = light_check.rerun(args, kw, 'cpu', 5, **opts)
+    assert card.waveforms.shape == (1, 6, 256)
+    assert light_check.identical(card, again)
+    rec = light_check.compare(card, cpu, args[1],
+                              smeared_at=opts.get('threshold'))
+    assert rec['peak'] > 0
+    assert (rec['records'] > 0) == (opts['truth_ids'] > 0)

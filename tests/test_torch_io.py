@@ -192,7 +192,7 @@ def test_cli_files_equal_through_either_writer(tmp_path):
                        tracks_per_event=3, segments_per_track=6,
                        segment_length=0.4, dEdx=8.0, seed=2)
     tcli.run_simulation(
-        inp, str(tmp_path / 'lite.h5'),
+        inp, str(tmp_path / 'lite.h5'), config='module0',
         detector_properties=paths['detector_properties'],
         pixel_layout=paths['pixel_layout'],
         simulation_properties=paths['simulation_properties'],

@@ -154,7 +154,7 @@ def test_light_check_on_the_cpu(tmp_path):
            dEdx=8.0, seed=7)
     with light_check.first_batch() as seen:
         tcli.run_simulation(
-            inp, str(tmp_path / 'out.h5'),
+            inp, str(tmp_path / 'out.h5'), config='module0',
             detector_properties=paths['detector_properties'],
             pixel_layout=paths['pixel_layout'],
             simulation_properties=paths['simulation_properties'],
@@ -201,7 +201,8 @@ def test_host_route_worker_error_fails_the_cli(tmp_path, monkeypatch):
     out = tmp_path / 'out.h5'
     with pytest.raises(RuntimeError, match='worker failed'):
         tcli.run_simulation(
-            inp, str(out), detector_properties=paths['detector_properties'],
+            inp, str(out), config='module0',
+            detector_properties=paths['detector_properties'],
             pixel_layout=paths['pixel_layout'],
             simulation_properties=paths['simulation_properties'],
             response_file=str(tmp_path / 'r.npy'), rand_seed=7,

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from larndsim_tpu_torch.assets.geometry import write_module0
+from larndsim_tpu_torch.assets.geometry import write_2x2, write_module0
 from larndsim_tpu_torch.assets.make_input import make_tracks
 from larndsim_tpu_torch.io.edep import swap_coordinates
 
@@ -24,6 +24,45 @@ SMALL = dict(tiles=(1, 1), pixels_per_tile=14, drift_length=3.0,
 #: detector keys that make a run deterministic: no diffusion, no noise
 QUIET = dict(long_diff=0.0, tran_diff=0.0, reset_noise_charge=0.0,
              uncorrelated_noise_charge=0.0, discriminator_noise=0.0)
+
+
+#: the small four-module tree: 1 x 1 tiles of 14 x 14 pixels at 4.434 mm
+#: (modules 1, 2, 4) and of 16 x 16 pixels at 3.87975 mm (module 3), both
+#: 62.076 mm wide; small light LUTs
+SMALL_2X2 = dict(tiles=(1, 1), pixels_per_tile=(14, 16), chip_pixels=(7, 8),
+                 drift_length=3.0, time_interval=(0.0, 30.0),
+                 time_padding=10.0, time_window=8.9,
+                 lut_kw=dict(vox_div=(4, 6, 4)))
+
+
+def write_tree_2x2(directory, **overrides) -> dict:
+    """Write the small four-module tree (``assets.geometry.write_2x2``)
+    into ``directory``; returns its paths by name."""
+    kw = dict(SMALL_2X2)
+    kw.update(overrides)
+    return write_2x2(str(directory), **kw)
+
+
+def write_spills_2x2(path, tpc_borders, n_events: int = 2, seed: int = 7,
+                     tracks_per_event: int = 8) -> int:
+    """An input with tracks in every TPC of every spill (so that the
+    modules trigger alike), their times moved into the first 1.5 us of the
+    spill (inside a beam trigger's digitized window); returns the segment
+    count."""
+    from larndsim_tpu_torch.assets.make_input import make_tracks
+    from larndsim_tpu_torch.io.h5 import File
+    seg, traj, vert = make_tracks(
+        tpc_borders, n_events=n_events, tracks_per_event=tracks_per_event,
+        segments_per_track=6, segment_length=0.4, dEdx=8.0, seed=seed,
+        every_tpc=True)
+    spill = seg['event_id'].astype(np.float64) * 1.2e6
+    for name in ('t0_start', 't0_end', 't0'):
+        seg[name] = spill + (seg[name] - spill) * 0.15
+    with File(path, 'w') as f:
+        f.create_dataset('segments', data=seg)
+        f.create_dataset('trajectories', data=traj)
+        f.create_dataset('vertices', data=vert)
+    return len(seg)
 
 
 def write_tree(directory, **overrides) -> dict:
