@@ -103,7 +103,20 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    every module's channels lit, equal to the truth-off and the grouped
    runs'; ``light_dat/light_dat_module0-3``; truth records (grouped equal);
    wall, segments/s, peak device memory and the phase tables;
-13. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
+13. ndev: multi-device dispatch (``n_devices``) on one card: the 2x2 run
+   of the mod2mod phase (truth on, device route, ungrouped) at
+   ``n_devices`` 4 on ``['cuda:0'] * 4`` (the four modules on threads of
+   their own, each on its own stream) and 8 (each module on two
+   contexts), and the truth slice at ``event_group_size`` 4 at
+   ``n_devices`` 2 and 4 on ``cuda:0`` (groups round-robin over the
+   contexts, each with its thread and stream), each run twice, launch
+   counters set to 0 before and read after (per module), plain versions
+   forbidden: every dataset equal bit for bit to the one-context run's
+   (``tools/file_check.py``), launches per module equal to it; walls,
+   each module thread's wall, peak device memory and the phase tables;
+   with two cards or more, the 2x2 again over the real cards (else one
+   line says so);
+14. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
    (``probe_folded``): cases a-g, each in its own process (all started
    together), each OK and importing nothing of JAX; each of its three
    kernels against its plain version.  P2 / P3 (``probe_fee`` /
@@ -111,7 +124,7 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    at the probe shapes beside the FSM kernel (the entry points, launch
    counters set to 0 before and read after), then every variant equal to
    its plain version at the same shapes on a random signal;
-14. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
+15. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
    and the light truth) at production shapes, with each one's bound on
    this card and the share reached.
 By the end neither JAX nor the JAX package ``larndsim_tpu`` may have been
@@ -775,7 +788,8 @@ def grouped_phase(tmp: str, solo: dict, charge_only: dict, n_seg: int,
         f'{sum(per_ev.values())} vs {sum(per_ev_solo.values())}, per event '
         f'within {100 * worst:.1f}% (<= 25%), hit-set overlap '
         f'{overlap:.3f} (>= 0.7); peak device memory {peak:.2f} GiB')
-    return dict(launches=launches, wall=wall, table=table)
+    return dict(launches=launches, wall=wall, table=table, out=out,
+                kw=dict(solo['kw'], event_group_size=GROUP))
 
 
 def memlog_phase(tmp: str, inp: str, kw: dict) -> None:
@@ -1070,7 +1084,94 @@ def mod2mod_phase(tmp: str, main_path) -> dict:
         f'{agree["records"]} truth records equal ({agree["near"][0]} / '
         f'{agree["near"][1]} within 1e-3 of the threshold), hit-set overlap '
         f'{overlap:.3f} (>= 0.7; other charge draws)')
-    return dict(k1=k1, k2=k2, runs=runs)
+    return dict(k1=k1, k2=k2, runs=runs, kw=kw_on, inp=inp, n_seg=n_seg)
+
+
+def ndev_phase(tmp: str, m2m: dict, grouped: dict, main_path) -> dict:
+    """Multi-device dispatch (``n_devices``) on the card: the 2x2 of the
+    mod2mod phase (truth on, device route, ungrouped) at ``n_devices`` 4 on
+    ``['cuda:0'] * 4`` (four module threads, each on its own stream) and 8
+    (each module on two contexts), and the truth slice at event_group_size
+    GROUP at ``n_devices`` 2 and 4 on ``cuda:0`` (groups round-robin over
+    the contexts, each with its thread and stream), each run twice (the
+    first run of a configuration meets new streams, whose memory pools
+    start empty): every dataset equal bit for bit to the one-context run's
+    (``tools.file_check``), launches per module equal to it, the plain
+    versions forbidden; walls, each module thread's wall, peak device
+    memory and the phase tables.  With two cards or more, the 2x2 again
+    over the real cards."""
+    import torch
+    from larndsim_tpu_torch.tools.file_check import differences
+    from larndsim_tpu_torch.tools.module_tracker import module_tracker
+    solo = m2m['runs'][1]
+    want = {m: (n['induced_current'], n['fee_fsm'])
+            for m, n in sorted(solo['per_module'].items())}
+    out = {}
+
+    def run_2x2(name, n, devices):
+        walls, module_walls = [], []
+        for rep in range(2):
+            path = os.path.join(tmp, f'slice_2x2_ndev{n}_{len(out)}_{rep}.h5')
+            with module_tracker() as t:
+                wall, launches, peak = main_path(
+                    path, dict(m2m['kw'], n_devices=n, device=devices),
+                    inp=m2m['inp'])
+            table = phase_table(f'2x2, truth on, n_devices {n} on {name}, '
+                                f'run {rep + 1}')
+            diff = differences(solo['out'], path)
+            assert not diff, f'ndev: 2x2 at {n} on {name} differs from ' \
+                f'one context: {diff}'
+            per = {m: (c['induced_current'], c['fee_fsm'])
+                   for m, c in sorted(t['launches'].items())}
+            assert per == want, (per, want)
+            assert sorted(t['wall']) == [1, 2, 3, 4], t['wall']
+            walls.append(wall)
+            module_walls.append({m: round(w, 3)
+                                 for m, w in sorted(t['wall'].items())})
+        log('ndev', f'2x2, truth on, n_devices {n} on {name}: every dataset '
+            f'equal to the one-context run\'s (twice); wall {walls[0]:.3f} '
+            f'/ {walls[1]:.3f} s (first / second run; one context '
+            f'{solo["wall"]:.3f} s), {m2m["n_seg"] / walls[1]:.1f} '
+            f'segments/s; K1 / K2 launches per module {per} (one context '
+            f'{want}); each module thread\'s wall to its last write (s) '
+            f'{module_walls}; peak device memory of the card {peak:.2f} GiB '
+            f'(one context {solo["peak"]:.2f} GiB; the modules share it)')
+        return dict(wall=walls, launches=launches, per_module=per,
+                    module_wall=module_walls, peak=peak, table=table)
+
+    out['2x2'] = run_2x2('cuda:0 x 4', 4, ['cuda:0'] * 4)
+    out['2x2_8'] = run_2x2('cuda:0 x 8', 8, ['cuda:0'] * 8)
+    for n in (2, 4):
+        walls = []
+        for rep in range(2):
+            path = os.path.join(tmp, f'slice_truth_grouped_ndev{n}_{rep}.h5')
+            wall, launches, peak = main_path(
+                path, dict(grouped['kw'], n_devices=n,
+                           device=['cuda:0'] * n))
+            table = phase_table(f'truth slice, device route, '
+                                f'event_group_size {GROUP}, n_devices {n} '
+                                f'on cuda:0 x {n}, run {rep + 1}')
+            diff = differences(grouped['out'], path)
+            assert not diff, f'ndev: truth slice at n_devices {n} ' \
+                f'differs: {diff}'
+            assert launches == grouped['launches'], (launches,
+                                                     grouped['launches'])
+            walls.append(wall)
+        log('ndev', f'truth slice, device route, event_group_size {GROUP}, '
+            f'n_devices {n} on cuda:0 x {n}: every dataset equal to the '
+            f'one-context run\'s (twice); wall {walls[0]:.3f} / '
+            f'{walls[1]:.3f} s (first / second run; one context '
+            f'{grouped["wall"]:.3f} s); launches {launches}; peak device '
+            f'memory {peak:.2f} GiB')
+        out[f'module0_{n}'] = dict(wall=walls, launches=launches, peak=peak,
+                                   table=table)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        out['cards'] = run_2x2(f'{n_cards} cards', 4, 'cuda')
+    else:
+        log('ndev', 'the 2x2 over real cards needs two cards or more: this '
+            f'machine has {n_cards}')
+    return out
 
 
 def io_phase(tmp: str, inp: str, kw: dict, charge_only_out: str,
@@ -1115,16 +1216,6 @@ def _datasets(g, prefix=''):
     return out
 
 
-def _bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
-    """Equal dtype, shape and bits, field by field."""
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    if a.dtype.names is None:
-        return a.tobytes() == b.tobytes()
-    return all(_bits_equal(np.ascontiguousarray(a[n]),
-                           np.ascontiguousarray(b[n])) for n in a.dtype.names)
-
-
 def io_mode0(tmp: str, inp: str, kw0: dict) -> dict:
     """The mode-0 slice ungrouped, with the light truth shuffled and LZF'd
     ('lzf', the default) and plain ('none'), each in a process of its own
@@ -1138,6 +1229,7 @@ def io_mode0(tmp: str, inp: str, kw0: dict) -> dict:
     from larndsim_tpu_torch.io import lzf
     from larndsim_tpu_torch.io.export import TRUTH_CHUNK
     from larndsim_tpu_torch.io.h5 import File
+    from larndsim_tpu_torch.tools.file_check import bits_equal
     root = os.path.dirname(os.path.abspath(__file__))
     runs = {}
     for comp in ('lzf', 'none'):
@@ -1164,7 +1256,7 @@ def io_mode0(tmp: str, inp: str, kw0: dict) -> dict:
         rec_lzf = np.asarray(sa['light_wvfm_mc_assn'])
         t_dec = time.perf_counter() - t0
         for name in sa:
-            assert _bits_equal(np.asarray(sa[name]), np.asarray(sb[name])), \
+            assert bits_equal(sa[name], sb[name]), \
                 f'truth lzf vs none: {name} differs'
         ta, tb = sa['light_wvfm_mc_assn'], sb['light_wvfm_mc_assn']
         assert ta.compression == 'lzf' and ta.shuffle
@@ -1444,6 +1536,8 @@ def main(argv=None) -> int:
         mark('mode0')
         m2m = mod2mod_phase(tmp, main_path)
         mark('mod2mod')
+        ndev = ndev_phase(tmp, m2m, grouped, main_path)
+        mark('ndev')
 
         if opts.profile:
             profile_slice(inp, os.path.join(tmp, 'profiled.h5'), kw,
@@ -1465,6 +1559,14 @@ def main(argv=None) -> int:
             for g, r in m2m['runs'].items()}, **{
                 f'module{m}_batch': k[m] for m in (1, 3)})
 
+    def on_ndev(name):
+        """The kernel's launches under dispatch: per module of the 2x2 at
+        n_devices 4, and the truth slice's at n_devices 2."""
+        return dict(launches_ndev_2x2={
+            m: n[0 if name == 'induced_current' else 1]
+            for m, n in ndev['2x2']['per_module'].items()},
+            launches_ndev_module0=ndev['module0_2']['launches'][name])
+
     def at_production(name):
         return dict(guard_ms=guard['ops_ms'][name]['min_ms'],
                     guard_shapes=guard['shapes'], **{
@@ -1480,12 +1582,14 @@ def main(argv=None) -> int:
              launches_charge_light=launches_l['induced_current'],
              launches_grouped=grouped['launches']['induced_current'],
              **k1, **at_production('induced_current'),
-             **on_2x2('induced_current', m2m['k1'])),
+             **on_2x2('induced_current', m2m['k1']),
+             **on_ndev('induced_current')),
         dict(name='fee_fsm', route='cuda', source=K2_SOURCE,
              replaces=K2_REPLACES, launches=launches['fee_fsm'],
              launches_charge_light=launches_l['fee_fsm'],
              launches_grouped=grouped['launches']['fee_fsm'], **k2,
-             **at_production('fee_fsm'), **on_2x2('fee_fsm', m2m['k2'])),
+             **at_production('fee_fsm'), **on_2x2('fee_fsm', m2m['k2']),
+             **on_ndev('fee_fsm')),
     ] + probes
     log('time', 'seconds by phase: ' + ', '.join(spans))
     log('done', f'every phase passed in {time.perf_counter() - t_start:.1f} s')

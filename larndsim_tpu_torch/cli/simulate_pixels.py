@@ -9,6 +9,14 @@ layout, response, light LUT, thresholds, gains, tracks and channels, as
 the JAX CLI's sequential module loop runs them.  Flag names match the JAX
 CLI for every flag supported here, plus ``--device``, ``--truth_path`` and
 ``--unique_guard``.
+``n_devices`` N spreads the work over N dispatch contexts, as the JAX CLI
+spreads it over N chips: event groups go round-robin over a module's
+contexts (each with its own copy of the module's tensors per card, its
+own CUDA stream and its own thread), and with module variation the
+modules run on threads of their own over subsets of the contexts.  Groups
+are submitted and accumulated in order on the module's thread, and every
+file write of a module passes its write gate in module order, so the
+output file holds the same datasets, bit for bit, for any N.
 ``event_group_size`` G runs up to G independent (event, TPC) batches as one
 charge call (pixel keys offset per event) and their first batches' light
 as one group call (in mode 0, one per window bucket).  The charge chain's
@@ -28,9 +36,11 @@ timestamps match it.  The run ends with the phase table
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
+import threading
 import time
 import warnings
 from collections import defaultdict, deque
@@ -50,6 +60,8 @@ from ..models.charge import bucket, generator_draw, simulate_charge_batch
 from ..ops import light as light_ops
 from ..ops.drift import drift, select_active_volume
 from ..ops.quench import quench
+from ..parallel.devices import (card_scope, dispatch_stream,
+                                module_devices, resolve_devices, to_device)
 from ..params import (get_module_ids, load_detector, load_light, load_sim,
                       physics)
 from ..segments import from_structured, from_structured_group, to_structured
@@ -97,6 +109,88 @@ def _scalar(val):
 def _of_module(val, i_mod: int):
     """Module ``i_mod``'s entry of a per-module list, or the one value."""
     return val[i_mod - 1] if isinstance(val, list) else val
+
+
+class _WriteGate:
+    """A module's file writes, in module order (cli:76-106 of the JAX
+    CLI): while the gate is closed, :meth:`submit` queues a write; opening
+    it runs the queued writes and opens it, atomically with respect to
+    :meth:`submit`, so a module's writes land after every earlier
+    module's and in its own order."""
+
+    def __init__(self, open_now: bool = False):
+        self._lock = threading.Lock()
+        self._open = open_now
+        self._q: deque = deque()
+
+    def submit(self, fn) -> None:
+        with self._lock:
+            if not self._open:
+                self._q.append(fn)
+                return
+        fn()
+
+    def open(self) -> None:
+        with self._lock:
+            while self._q:
+                self._q.popleft()()
+            self._open = True
+
+
+@dataclasses.dataclass
+class _Context:
+    """One dispatch context of a module (JAX cli:482-506): its device, the
+    module's tensors there, and, where the module has several contexts,
+    its CUDA stream (None on the CPU) and its thread (``pool``)."""
+    device: torch.device
+    det_model: object
+    response: torch.Tensor
+    light: object = None
+    lut: object = None
+    light_noise: torch.Tensor | None = None
+    light_inc: torch.Tensor | None = None
+    light_t0: torch.Tensor | None = None
+    light_vox: torch.Tensor | None = None
+    stream: object = None
+    pool: ThreadPoolExecutor | None = None
+
+    def scope(self):
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return card_scope(self.device, self.stream)
+
+
+def unique_pixel_bound(rows: np.ndarray, slot, det_model) -> int:
+    """An upper bound on the unique pixel keys of one charge call on the
+    drifted segment ``rows`` (event ``slot`` per row, or None): per event,
+    the union of each segment's anode box widened by the pixelization's
+    radius, plus one pixel for the rounding of its ends."""
+    det = det_model.params
+    pitch = det.host['pixel_pitch']
+    nx, ny = det.n_pixels
+    borders = det.host['tpc_borders']
+    plane = np.clip(rows['pixel_plane'].astype(np.int64), 0,
+                    borders.shape[0] - 1)
+    r = max(int(np.ceil(rows['tran_diff'].max() * 5 / pitch)), 1) + 1
+
+    def span(lo_key, hi_key, axis, n):
+        a = np.floor((rows[lo_key] - borders[plane, axis, 0]) / pitch)
+        b = np.floor((rows[hi_key] - borders[plane, axis, 0]) / pitch)
+        lo = np.clip(np.minimum(a, b) - r, 0, n - 1).astype(np.int64)
+        hi = np.clip(np.maximum(a, b) + r, 0, n - 1).astype(np.int64)
+        return lo, hi - lo + 1
+    x0, w = span('x_start', 'x_end', 0, nx)
+    y0, h = span('y_start', 'y_end', 1, ny)
+    if len(rows) * int(w.max()) * int(h.max()) > 1 << 22:
+        return int((w * h).sum())
+    ox = np.arange(int(w.max()))[None, :, None]
+    oy = np.arange(int(h.max()))[None, None, :]
+    ev = np.zeros(len(rows), np.int64) if slot is None \
+        else np.asarray(slot[:len(rows)], np.int64)
+    base = ((ev * borders.shape[0] + plane) * ny + y0) * nx + x0
+    keys = base[:, None, None] + oy * nx + ox
+    inside = (ox < w[:, None, None]) & (oy < h[:, None, None])
+    return int(np.unique(keys[inside]).size)
 
 
 def batch_generator(rand_seed: int, i_mod: int, event: int, seq: int,
@@ -159,7 +253,8 @@ def run_simulation(input_filename: str,
                    save_memory: str | None = None,
                    step_scale: float = 1.0,
                    event_group_size: int = 1,
-                   device: str = 'cuda',
+                   n_devices: int = 1,
+                   device='cuda',
                    truth_path: str = 'device',
                    truth_workers: int = 1,
                    unique_guard: int = 65536,
@@ -191,16 +286,24 @@ def run_simulation(input_filename: str,
     call; a group also closes before it would pass ``sim.batch_size``
     segments, or ``unique_guard`` unique pixels at the largest
     unique-pixel-per-segment ratio seen so far in the module (0: no
-    guard).  ``save_memory`` names the memory log's file (HDF5 for .h5 /
-    .hdf5, else npz).  ``truth_compression`` is the light truth's filter
-    after the byte shuffle ('lzf', 'gzip', or 'none': neither).  Appended
-    datasets are written a chunk at a time as they fill, the rest of the
-    file when the run ends.
+    guard).  ``n_devices`` N runs the work in N dispatch contexts on the
+    devices ``device`` resolves to (:func:`resolve_devices`: 'cuda' the
+    visible cards, 'cpu' N contexts on the CPU, or a list of devices,
+    repeats allowed, as ``['cuda:0'] * 4``): a module's event groups go
+    round-robin over its contexts, each on its own thread and CUDA stream;
+    with module variation and N > 1 the modules run at once, each on a
+    thread of its own over its share of the contexts.  Every draw is keyed
+    by its batch, groups are accumulated in order and each module's file
+    writes pass a gate in module order, so every dataset is the same, bit
+    for bit, for any N (and the unique-pixel guard decides as it does
+    with one context).  ``save_memory`` names the memory log's file (HDF5
+    for .h5 / .hdf5, else npz).  ``truth_compression`` is the light
+    truth's filter after the byte shuffle ('lzf', 'gzip', or 'none':
+    neither).  Appended datasets are written a chunk at a time as they
+    fill, the rest of the file when the run ends.
     """
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('device cuda requested but no CUDA device is '
-                           'available')
+    devices = resolve_devices(device, n_devices)
+    device = devices[0]
     # float32 products in full float32 on the card, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -332,13 +435,15 @@ def run_simulation(input_filename: str,
         return x.cpu().numpy() if isinstance(x, torch.Tensor) \
             else np.asarray(x)
 
-    def run_module(i_mod: int):
+    def run_module(i_mod: int, mod_devices: list, gate: _WriteGate):
         """One module's simulation (cli:323-441, the reference's module
-        loop body), its output appended to ``out``; ``i_mod`` -1 without
-        module variation.  Returns its drifted tracks, its light_dat rows
-        (None without light) and its detector model."""
+        loop body) on the dispatch contexts of ``mod_devices``, its file
+        writes through ``gate``; ``i_mod`` -1 without module variation.
+        Returns its drifted tracks, its light_dat rows (None without light)
+        and its detector model."""
+        home = mod_devices[0]
         det_model = load_detector(detector_properties, pixel_layout,
-                                  i_module=i_mod, device=device)
+                                  i_module=i_mod, device=home)
         det = det_model.params
         n_resp_t = int(round(det.f32('time_window')
                              / det.f32('response_sampling')))
@@ -346,7 +451,7 @@ def run_simulation(input_filename: str,
             _of_module(response_file, i_mod), n_t=n_resp_t,
             bin_size=det.f32('response_bin_size'),
             sampling=det.f32('response_sampling'),
-            pixel_pitch=det.f32('pixel_pitch'))).to(device)
+            pixel_pitch=det.f32('pixel_pitch'))).to(home)
         thresholds_lut = (PixelLUT.load(_of_module(pixel_thresholds_file,
                                                    i_mod))
                           if pixel_thresholds_file else None)
@@ -375,7 +480,7 @@ def run_simulation(input_filename: str,
         t0 = time.time()
         segs_all = from_structured(tracks_sel,
                                    pad_to=bucket(len(tracks_sel), lo=64),
-                                   device=device)
+                                   device=home)
         segs_all = drift(quench(segs_all, det, physics.BIRKS), det)
         tracks_mod = to_structured(segs_all, dtype=tracks_sel.dtype)
         print(f'Quenching and drifting: {time.time() - t0:.2f} s')
@@ -384,13 +489,14 @@ def run_simulation(input_filename: str,
 
         # ---- light incidence over the module (cli:398-441) ----
         light_dat = None
+        home_ctx = _Context(home, det_model, response)
         if light.light_simulated:
             t0 = time.time()
             n_light_channel = (light.n_op_channel // n_modules
                                if mod2mod_variation else light.n_op_channel)
             lut = light_ops.LightLUT.from_structured(load_light_lut(
                 _of_module(light_lut_filename, i_mod),
-                n_det_tpc=max(n_light_channel // 2, 1)), device)
+                n_det_tpc=max(n_light_channel // 2, 1)), home)
             if light_det_noise_filename and \
                     os.path.isfile(light_det_noise_filename):
                 light_noise = np.load(light_det_noise_filename)
@@ -407,10 +513,11 @@ def run_simulation(input_filename: str,
                 op_channel = light.tpc_to_op_channel[:2].reshape(-1)
             op_channel_sim = light_ops.host_array(op_channel)
             light_noise = torch.as_tensor(light_noise, dtype=torch.float32,
-                                          device=device)
+                                          device=home)
+            light_h = to_device(light, home)
             light_inc, light_t0, light_vox = \
                 light_ops.calculate_light_incidence(
-                    segs_all, det, light, lut.vis, lut.t0,
+                    segs_all, det, light_h, lut.vis, lut.t0,
                     n_channels=n_light_channel,
                     channel_offset=channel_offset)
             # per-segment light summary for the output file (cli:758-760)
@@ -426,7 +533,37 @@ def run_simulation(input_filename: str,
             light_dat['n_photons_det'] = light_inc_h
             light_dat['t0_det'] = light_t0_h
             op_channel_tpc = light_ops.host_array(light.op_channel_to_tpc)
+            home_ctx = dataclasses.replace(
+                home_ctx, light=light_h, lut=lut, light_noise=light_noise,
+                light_inc=light_inc, light_t0=light_t0, light_vox=light_vox)
             print(f'Light incidence: {time.time() - t0:.2f} s')
+        del segs_all
+
+        # ---- dispatch contexts (JAX cli:482-510) ----
+        # one copy of the module's tensors per card, shared by the
+        # contexts on it; with several contexts, each has its own stream
+        # and thread, and waits for the set-up's work before its first
+        # group
+        if len(mod_devices) == 1:
+            ctxs = [home_ctx]
+        else:
+            copies = {home: home_ctx}
+            ctxs = []
+            for k, d in enumerate(mod_devices):
+                if d not in copies:
+                    copies[d] = dataclasses.replace(home_ctx, device=d, **{
+                        f.name: to_device(getattr(home_ctx, f.name), d)
+                        for f in dataclasses.fields(_Context)
+                        if f.name not in ('device', 'stream', 'pool')})
+                ctxs.append(dataclasses.replace(
+                    copies[d],
+                    stream=dispatch_stream(d, ('context', i_mod, k)),
+                    pool=ThreadPoolExecutor(
+                        1, thread_name_prefix=f'module-{i_mod}-ctx{k}'
+                        if i_mod > 0 else f'dispatch-ctx{k}')))
+            for d in copies:
+                if d.type == 'cuda':
+                    torch.cuda.current_stream(d).synchronize()
 
         # ---- batching loop ----
         results_acc = defaultdict(list)
@@ -437,12 +574,23 @@ def run_simulation(input_filename: str,
         i_light_trig = 0  # the module's light-trigger counter (cli:446)
         # the host route's workers; records of every route are written in
         # accumulate order through the FIFO of (future, event, first
-        # trigger)
+        # trigger, group)
         truth_executor = ThreadPoolExecutor(max(int(truth_workers), 1)) \
             if light.light_simulated and truth_path == 'host' \
             and sim.max_mc_truth_ids > 0 and light.enable_lut_smearing \
             else None
+        # a worker's records are written once they are this many groups
+        # old (or at the end), so where they land in the file depends on
+        # no worker's timing
+        truth_lag = max(int(truth_workers), 1) + 1
         pending_truth: deque = deque()
+        #: pending work in submission order: ('job', a group's results or
+        #: their future) and ('call', a file write); drained in order
+        actions: deque = deque()
+        #: submitted groups not accumulated yet: group -> [rows, event
+        #: slots, unique-pixel bound or None]
+        outstanding: dict = {}
+        max_in_flight = 2 * len(ctxs)
 
         def flush_results():
             """Write the accumulated rows (cli:639-724): packets, and the
@@ -455,6 +603,7 @@ def run_simulation(input_filename: str,
                 return
             res = {k: np.concatenate([_host(x) for x in v], axis=0)
                    for k, v in results_acc.items() if len(v)}
+            results_acc = defaultdict(list)
             has_light = len(res.get('light_event_id', []))
             if not light_only:
                 uniq_events = np.unique(res['event_pix'])
@@ -479,7 +628,8 @@ def run_simulation(input_filename: str,
                     light_trig_modules = np.ones(len(uniq_events))
                     light_trigger_times = np.zeros_like(uniq_event_times)
                     light_trigger_event_ids = uniq_events
-                export.export_to_hdf5(
+                gate.submit(functools.partial(
+                    export.export_to_hdf5,
                     res['event_pix'], res['hit_row'], res['hit_adc'],
                     res['hit_ticks'], res['hit_frac'], res['unique_pix'],
                     res['track_pixel_map'], res['traj_pixel_map'],
@@ -487,45 +637,53 @@ def run_simulation(input_filename: str,
                     light_trigger_times=light_trigger_times,
                     light_trigger_event_id=light_trigger_event_ids,
                     light_trigger_modules=light_trig_modules,
-                    bad_channels=bad_channels, i_mod=i_mod)
+                    bad_channels=bad_channels, i_mod=i_mod))
             if has_light:
                 if trig_mode == 0:
                     # the event times of the light rows' own events (a
                     # flush can hold light rows of events without charge
                     # rows)
                     uniq_l = np.unique(res['light_event_id'])
-                    export.export_light_trig_to_hdf5(
+                    gate.submit(functools.partial(
+                        export.export_light_trig_to_hdf5,
                         res['light_event_id'], res['light_start_time'],
                         res['light_trigger_idx'],
                         res['light_op_channel_idx'], out,
                         event_times[uniq_l % sim.max_events_per_file],
-                        det_model, light)
-                export.export_light_wvfm_to_hdf5(
+                        det_model, light))
+                gate.submit(functools.partial(
+                    export.export_light_wvfm_to_hdf5,
                     res['light_event_id'], res['light_waveforms'], out, sim,
-                    light, i_mod=i_mod)
-            results_acc = defaultdict(list)
+                    light, i_mod=i_mod))
 
-        def drain_truth(block: bool = False):
-            """Write the pending truth records in order, as far as they
-            are done (all of them with ``block``); a worker's error is
-            raised here."""
-            while pending_truth and (block or pending_truth[0][0].done()):
-                fut, ievd_t, trig_t = pending_truth.popleft()
+        def write_truth(truth):
+            with trace.phase('truth/h5'):
+                export.export_light_truth_to_hdf5(out, truth,
+                                                  truth_compression)
+
+        def drain_truth(block: bool = False, older_than: int = 0):
+            """Write the pending truth records in order: those made on the
+            card, and a worker's once its group is ``truth_lag`` groups
+            older than group ``older_than`` (all of them with ``block``);
+            a worker's error is raised here."""
+            while pending_truth:
+                fut, ievd_t, trig_t, seq, made = pending_truth[0]
+                if not (block or made or seq <= older_than - truth_lag):
+                    break
+                pending_truth.popleft()
                 truth = fut.result()
                 if isinstance(truth, dict):
                     truth = export.truth_sparse_to_records(truth, ievd_t,
                                                            trig_t)
                 else:   # a worker's records, trigger ids counted from 0
                     truth['trigger_id'] += trig_t
-                with trace.phase('truth/h5'):
-                    export.export_light_truth_to_hdf5(out, truth,
-                                                      truth_compression)
+                gate.submit(functools.partial(write_truth, truth))
 
-        def accumulate_light(ievd_l, lres):
+        def accumulate_light(ievd_l, lres, seq):
             """One light batch's rows (cli:761-799); its truth records are
             queued behind those of earlier batches."""
             nonlocal i_light_trig
-            drain_truth()
+            drain_truth(older_than=seq)
             ntrig = lres.trigger_idx.shape[0]
             if not ntrig:
                 return
@@ -537,25 +695,30 @@ def run_simulation(input_filename: str,
             results_acc['light_op_channel_idx'].append(lres.op_channel_idx)
             results_acc['light_waveforms'].append(lres.waveforms)
             fut = lres.truth_future
-            if lres.truth_sparse is not None:
+            made = lres.truth_sparse is not None
+            if made:
                 fut = Future()
                 fut.set_result(lres.truth_sparse)
             if fut is not None:
-                pending_truth.append((fut, int(ievd_l), i_light_trig))
+                pending_truth.append((fut, int(ievd_l), i_light_trig, seq,
+                                      made))
             i_light_trig += ntrig
 
-        def light_rows(sels, pad):
+        def light_rows(ctx, sels, pad):
             """The incidence, first arrivals and voxels of each batch's
             segments, (G, pad, C), (G, pad, C) and (G, pad, 3), zero past
             each batch's length."""
-            inc = light_inc.new_zeros((len(sels), pad, light_inc.shape[1]))
-            t0 = light_t0.new_zeros((len(sels), pad, light_t0.shape[1]))
-            vox = light_vox.new_zeros((len(sels), pad, 3))
+            inc = ctx.light_inc.new_zeros((len(sels), pad,
+                                           ctx.light_inc.shape[1]))
+            t0 = ctx.light_t0.new_zeros((len(sels), pad,
+                                         ctx.light_t0.shape[1]))
+            vox = ctx.light_vox.new_zeros((len(sels), pad, 3))
             for g, sel in enumerate(sels):
-                rows = light_ops.upload(sel, device)  # nothing waits for it
-                inc[g, :len(sel)] = light_inc[rows]
-                t0[g, :len(sel)] = light_t0[rows]
-                vox[g, :len(sel)] = light_vox[rows]
+                # nothing waits for the upload
+                rows = light_ops.upload(sel, ctx.device)
+                inc[g, :len(sel)] = ctx.light_inc[rows]
+                t0[g, :len(sel)] = ctx.light_t0[rows]
+                vox[g, :len(sel)] = ctx.light_vox[rows]
             return inc, t0, vox
 
         def mode0_window(sel):
@@ -564,74 +727,114 @@ def run_simulation(input_filename: str,
             return light_model.mode0_window(light_inc_h[sel],
                                             light_t0_h[sel], light)
 
-        def light_batch(ievd, sel, i_sub, segs=None):
+        def light_batch(ctx, ievd, sel, i_sub, window, segs=None):
             if segs is None:
                 segs = from_structured(tracks_mod[sel],
                                        pad_to=bucket(len(sel), lo=32),
-                                       device=device)
-            inc, t0, vox = light_rows([sel], segs.size)
+                                       device=ctx.device)
+            inc, t0, vox = light_rows(ctx, [sel], segs.size)
             mode0 = dict(t0_det=t0[0],
                          module_to_tpcs=det_model.module_to_tpcs,
-                         sim_window=mode0_window(sel)) \
+                         sim_window=window) \
                 if trig_mode == 0 else {}
             return light_model.simulate_light_batch(
-                segs, light, sim, inc[0], vox[0], lut, light_noise,
-                light_draw(rand_seed, i_mod, ievd, i_sub, device),
+                segs, ctx.light, sim, inc[0], vox[0], ctx.lut,
+                ctx.light_noise,
+                light_draw(rand_seed, i_mod, ievd, i_sub, ctx.device),
                 i_subbatch=i_sub, truth_path=truth_path,
                 truth_executor=truth_executor, event_id=int(ievd),
                 op_channel=op_channel, **mode0)
 
-        def light_group(firsts):
+        def light_group(ctx, firsts, windows):
             """Two or more events' first batches as one group call, each
             with its own draws."""
             sels = [sel for _, sel in firsts]
             pad = bucket(max(len(sel) for sel in sels), lo=32)
-            inc, _, vox = light_rows(sels, pad)
+            inc, _, vox = light_rows(ctx, sels, pad)
             args = (from_structured_group([tracks_mod[sel] for sel in sels],
-                                          pad, device=device),
-                    light, sim, inc, vox, lut, light_noise,
-                    [light_draw(rand_seed, i_mod, ievd, 0, device)
+                                          pad, device=ctx.device),
+                    ctx.light, sim, inc, vox, ctx.lut, ctx.light_noise,
+                    [light_draw(rand_seed, i_mod, ievd, 0, ctx.device)
                      for ievd, _ in firsts])
             kw = dict(truth_path=truth_path, truth_executor=truth_executor,
                       event_ids=[int(ievd) for ievd, _ in firsts],
                       op_channel=op_channel)
             if trig_mode == 0:
                 return light_model.simulate_light_group_mode0(
-                    *args, windows=[mode0_window(sel) for sel in sels],
+                    *args, windows=windows,
                     module_to_tpcs=det_model.module_to_tpcs, **kw)
             return light_model.simulate_light_group(*args, **kw)
 
-        def process_light(items, segs):
-            """The light of a group's batches (cli:1033-1054, :866-917): an
-            event's first batch runs with i_subbatch 0, a later one alone
-            with i_subbatch 1 (in beam mode it adds nothing; in mode 0 it
+        def light_plan(items):
+            """The light calls of a group's batches (cli:1033-1054,
+            :866-917), planned in batch order at submission: an event's
+            first batch runs with i_subbatch 0, a later one alone with
+            i_subbatch 1 (in beam mode it adds nothing; in mode 0 it
             triggers as any batch).  Two or more first batches run as one
             group call (mode 0: one per window bucket, a bucket of one
-            alone).  The rows are accumulated in the group's order.
-            ``segs``: the charge call's segments when it holds one
-            batch."""
+            alone).  Returns the calls, (batch indices, i_subbatch), and
+            mode 0's window of each batch."""
             firsts, later = [], []
             for i, (ievd, sel) in enumerate(items):
                 (later if ievd in light_done_events else firsts).append(i)
                 light_done_events.add(ievd)
+            windows = {i: mode0_window(sel) for i, (_, sel)
+                       in enumerate(items)} if trig_mode == 0 else {}
+            buckets = defaultdict(list)
+            for i in firsts:
+                buckets[windows[i][0] if trig_mode == 0 else 0].append(i)
+            return ([(group_i, 0) for group_i in buckets.values()]
+                    + [([i], 1) for i in later]), windows
+
+        def run_light(ctx, items, plan, segs):
+            """A group's light calls on ``ctx``; ``segs``: the charge
+            call's segments when it holds one batch."""
+            calls, windows = plan
             lres = {}
-            with trace.phase('light_batch', device):
-                buckets = defaultdict(list)
-                for i in firsts:
-                    key = mode0_window(items[i][1])[0] \
-                        if trig_mode == 0 else 0
-                    buckets[key].append(i)
-                for group_i in buckets.values():
+            with trace.phase('light_batch', ctx.device):
+                for group_i, i_sub in calls:
                     if len(group_i) > 1:
                         lres.update(zip(group_i, light_group(
-                            [items[i] for i in group_i])))
+                            ctx, [items[i] for i in group_i],
+                            [windows.get(i) for i in group_i])))
                     else:
-                        lres[group_i[0]] = light_batch(*items[group_i[0]],
-                                                       0, segs)
-                for i in later:
-                    lres[i] = light_batch(*items[i], 1, segs)
-            for i, (ievd, _) in enumerate(items):
-                accumulate_light(ievd, lres[i])
+                        i = group_i[0]
+                        lres[i] = light_batch(ctx, *items[i], i_sub,
+                                              windows.get(i), segs)
+            return lres
+
+        def compute_group(items, seq, plan, ctx):
+            """A group's charge call, with its light, on ``ctx`` (on its
+            thread and stream where it has them); its results go to the
+            host here."""
+            with ctx.scope():
+                sels = [sel for _, sel in items]
+                cat = np.concatenate(sels)
+                selected = tracks_mod[cat]
+                segs = from_structured(selected,
+                                       pad_to=bucket(len(cat), lo=32),
+                                       device=ctx.device)
+                lres = run_light(ctx, items, plan,
+                                 segs if len(items) == 1 else None) \
+                    if plan is not None else {}
+                slot = None
+                if len(items) > 1:
+                    slot = np.zeros(segs.size, np.int32)
+                    slot[:len(cat)] = np.repeat(np.arange(len(items)),
+                                                [len(sel) for sel in sels])
+                gen = batch_generator(rand_seed, i_mod, items[0][0], seq,
+                                      ctx.device)
+                with trace.phase('charge_batch', ctx.device):
+                    res = simulate_charge_batch(
+                        segs, ctx.det_model, sim,
+                        generator_draw(gen, ctx.device), ctx.response,
+                        pixel_thresholds=thresholds_lut,
+                        pixel_gains=gains_lut, already_drifted=True,
+                        step_scale=step_scale, host_segs=selected,
+                        event_slot=slot)
+                for r in lres.values():
+                    r.waveforms = _host(r.waveforms)
+            return seq, items, cat, lres, res
 
         def accumulate_charge(items, cat, res):
             """One charge call's rows (cli:953-998): events and pixels
@@ -669,42 +872,110 @@ def run_simulation(input_filename: str,
                 with trace.phase('export'):
                     flush_results()
 
-        def process_group():
-            """One charge call for the buffered batches, with their
-            light."""
-            nonlocal group_seq
-            if not group:
-                return
-            group_seq += 1
-            items = list(group)
-            group.clear()
-            sels = [sel for _, sel in items]
-            cat = np.concatenate(sels)
-            selected = tracks_mod[cat]
-            segs = from_structured(selected, pad_to=bucket(len(cat), lo=32),
-                                   device=device)
-            if light.light_simulated:
-                process_light(items, segs if len(items) == 1 else None)
-            slot = None
-            if len(items) > 1:
-                slot = np.zeros(segs.size, np.int32)
-                slot[:len(cat)] = np.repeat(np.arange(len(items)),
-                                            [len(sel) for sel in sels])
-            gen = batch_generator(rand_seed, i_mod, items[0][0], group_seq,
-                                  device)
-            with trace.phase('charge_batch', device):
-                res = simulate_charge_batch(
-                    segs, det_model, sim, generator_draw(gen, device),
-                    response, pixel_thresholds=thresholds_lut,
-                    pixel_gains=gains_lut, already_drifted=True,
-                    step_scale=step_scale, host_segs=selected,
-                    event_slot=slot)
+        def accumulate_group(payload):
+            """A group's rows, light first, in batch order."""
+            seq, items, cat, lres, res = payload
+            del outstanding[seq]
+            for i, (ievd, _) in enumerate(items):
+                if i in lres:
+                    accumulate_light(ievd, lres[i], seq)
             if res.overflow:
                 warnings.warn('More segments per pixel than '
                               'MAX_TRACKS_PER_PIXEL '
                               f'({sim.max_tracks_per_pixel}); backtracking '
                               'may be incomplete')
             accumulate_charge(items, cat, res)
+
+        def drain_actions(block: bool = False):
+            """Run the pending work in submission order (JAX cli:1005-1022):
+            a group's accumulation waits for its context only with
+            ``block`` or when more than ``max_in_flight`` groups are out."""
+            while actions:
+                kind, item = actions[0]
+                if kind == 'job' and isinstance(item, Future) \
+                        and not item.done() and not block \
+                        and len(outstanding) <= max_in_flight:
+                    break
+                actions.popleft()
+                if kind == 'call':
+                    item()
+                else:
+                    accumulate_group(item.result()
+                                     if isinstance(item, Future) else item)
+
+        def process_group():
+            """Submit the buffered batches as one charge call, with their
+            light (JAX cli:1024-1065): planned here, computed inline with
+            one context, else on the next context's thread."""
+            nonlocal group_seq
+            if not group:
+                return
+            group_seq += 1
+            items = list(group)
+            group.clear()
+            plan = light_plan(items) if light.light_simulated else None
+            slot = None
+            if len(items) > 1:
+                slot = np.repeat(np.arange(len(items)),
+                                 [len(sel) for _, sel in items])
+            outstanding[group_seq] = [
+                np.concatenate([sel for _, sel in items]), slot, None]
+            ctx = ctxs[(group_seq - 1) % len(ctxs)]
+            if ctx.pool is None:
+                actions.append(('job', compute_group(items, group_seq, plan,
+                                                     ctx)))
+            else:
+                actions.append(('job', ctx.pool.submit(
+                    compute_group, items, group_seq, plan, ctx)))
+            drain_actions()
+
+        def guard_closes(would: int) -> bool:
+            """Whether the unique-pixel guard closes the group before a
+            batch that would bring it to ``would`` segments, at the largest
+            ratio of every earlier group, as with one context.  The ratio
+            is a running maximum: a close the accumulated groups decide
+            stands; otherwise the outstanding groups are waited for only
+            when their bound could close it."""
+            if not unique_guard:
+                return False
+            if uniq_ratio and would * uniq_ratio > unique_guard:
+                return True
+            bound = 0.0
+            for entry in outstanding.values():
+                if entry[2] is None:
+                    entry[2] = unique_pixel_bound(tracks_mod[entry[0]],
+                                                  entry[1], det_model) \
+                        / len(entry[0])
+                bound = max(bound, entry[2])
+            if would * bound > unique_guard:
+                drain_actions(block=True)
+            return bool(uniq_ratio) and would * uniq_ratio > unique_guard
+
+        def write_sync(times):
+            gate.submit(functools.partial(
+                export.export_sync_to_hdf5, out,
+                np.full(times.shape, clock_period), det_model, sim, i_mod))
+
+        def write_timestamp(t_event):
+            gate.submit(functools.partial(
+                export.export_timestamp_trigger_to_hdf5, out, [t_event],
+                det_model, trig_mode, sim, i_mod))
+
+        def empty_batch(ievd):
+            """An empty batch's zero waveform row, float64, for its event
+            (cli:1103-1132), flushed with the rows before it."""
+            if light.light_simulated:
+                results_acc['light_event_id'].append(np.full(1, ievd))
+                results_acc['light_start_time'].append(np.zeros(1))
+                results_acc['light_trigger_idx'].append(np.zeros(1, int))
+                results_acc['trigger_type'].append(
+                    np.full(1, light.light_trig_mode))
+                results_acc['light_op_channel_idx'].append(
+                    op_channel_sim[None, :])
+                results_acc['light_waveforms'].append(
+                    np.zeros((1, len(op_channel_sim),
+                              light_model.digit_samples(light))))
+                flush_results()
 
         batcher = TPCBatcher(all_mod_tracks, tracks_mod, sim.event_separator,
                              tpc_batch_size=sim.event_batch_size,
@@ -722,65 +993,63 @@ def run_simulation(input_filename: str,
         group_seq = 0          # calls so far: each one's draws of its own
         uniq_ratio = 0.0       # the largest unique pixels per segment so far
 
-        event_id_buffer = -1
-        for ievd, batch_mask in batcher:
-            this_event_time = event_times[int(ievd)
-                                          % sim.max_events_per_file]
-            if ievd > event_id_buffer:
-                event_id_buffer = ievd
-                if this_event_time - sync_start >= 0:
-                    sync_times = np.arange(sync_start, this_event_time + 1,
-                                           clock_period)
-                    if len(sync_times):
-                        export.export_sync_to_hdf5(
-                            out, np.full(sync_times.shape, clock_period),
-                            det_model, sim, i_mod)
-                        sync_start = sync_times[-1] + clock_period
-                if i_mod == trig_module or i_mod == -1:
-                    export.export_timestamp_trigger_to_hdf5(
-                        out, [this_event_time], det_model,
-                        trig_mode, sim, i_mod)
-            idx = np.nonzero(batch_mask)[0]
-            if len(idx) == 0:
-                process_group()
-                if light.light_simulated:
-                    # an empty batch still gets its event a zero waveform
-                    # row, float64 (cli:1103-1132)
-                    results_acc['light_event_id'].append(np.full(1, ievd))
-                    results_acc['light_start_time'].append(np.zeros(1))
-                    results_acc['light_trigger_idx'].append(
-                        np.zeros(1, int))
-                    results_acc['trigger_type'].append(
-                        np.full(1, light.light_trig_mode))
-                    results_acc['light_op_channel_idx'].append(
-                        op_channel_sim[None, :])
-                    results_acc['light_waveforms'].append(
-                        np.zeros((1, len(op_channel_sim),
-                                  light_model.digit_samples(light))))
-                    flush_results()
-                continue
-            if len(idx) > sim.batch_size:
-                # an oversized batch: the pending group first, then its
-                # sub-batches, each a call of its own (cli:1136-1147)
-                process_group()
-                warnings.warn('Entered sub-batch loop; consider increasing '
-                              f'batch_size (currently {sim.batch_size})')
-                for i0 in range(0, len(idx), sim.batch_size):
-                    group.append((ievd, idx[i0:i0 + sim.batch_size]))
+        try:
+            event_id_buffer = -1
+            for ievd, batch_mask in batcher:
+                this_event_time = event_times[int(ievd)
+                                              % sim.max_events_per_file]
+                if ievd > event_id_buffer:
+                    # queued, so that they land in the file at the same
+                    # place for any number of contexts (cli:1071-1101)
+                    event_id_buffer = ievd
+                    if this_event_time - sync_start >= 0:
+                        sync_times = np.arange(sync_start,
+                                               this_event_time + 1,
+                                               clock_period)
+                        if len(sync_times):
+                            actions.append(('call', functools.partial(
+                                write_sync, sync_times)))
+                            sync_start = sync_times[-1] + clock_period
+                    if i_mod == trig_module or i_mod == -1:
+                        actions.append(('call', functools.partial(
+                            write_timestamp, this_event_time)))
+                idx = np.nonzero(batch_mask)[0]
+                if len(idx) == 0:
                     process_group()
-            else:
-                # the group is capped by its segments too: one call holds an
-                # (S, P, T) signals tensor (cli:1149-1160)
-                would = sum(len(sel) for _, sel in group) + len(idx)
-                if group and (would > sim.batch_size
-                              or (unique_guard and uniq_ratio
-                                  and would * uniq_ratio > unique_guard)):
+                    actions.append(('call', functools.partial(empty_batch,
+                                                              ievd)))
+                    drain_actions()
+                    continue
+                if len(idx) > sim.batch_size:
+                    # an oversized batch: the pending group first, then its
+                    # sub-batches, each a call of its own (cli:1136-1147)
                     process_group()
-                group.append((ievd, idx))
-                if len(group) >= group_cap:
-                    process_group()
-            memlog.take_snapshot()
-        process_group()
+                    warnings.warn('Entered sub-batch loop; consider '
+                                  'increasing batch_size (currently '
+                                  f'{sim.batch_size})')
+                    for i0 in range(0, len(idx), sim.batch_size):
+                        group.append((ievd, idx[i0:i0 + sim.batch_size]))
+                        process_group()
+                else:
+                    # the group is capped by its segments too: one call
+                    # holds an (S, P, T) signals tensor (cli:1149-1160)
+                    would = sum(len(sel) for _, sel in group) + len(idx)
+                    if group and (would > sim.batch_size
+                                  or guard_closes(would)):
+                        process_group()
+                    group.append((ievd, idx))
+                    if len(group) >= group_cap:
+                        process_group()
+                drain_actions()
+                memlog.take_snapshot()
+            process_group()
+            drain_actions(block=True)
+        finally:
+            for ctx in ctxs:
+                if ctx.pool is not None:
+                    ctx.pool.shutdown(cancel_futures=True)
+                if ctx.stream is not None:
+                    ctx.stream.synchronize()
         with trace.phase('export/flush'):
             flush_results()
         with trace.phase('truth/drain'):
@@ -790,9 +1059,50 @@ def run_simulation(input_filename: str,
         memlog.archive(f'loop_mod{i_mod}')
         return tracks_mod, light_dat, det_model
 
-    # ---------------- module loop (cli:1244-1251) ----------------
+    # ---------------- module loop (cli:1197-1251) ----------------
     mod_ids = mod_ids_all if mod2mod_variation else [-1]
-    runs = [run_module(i_mod) for i_mod in mod_ids]
+    if mod2mod_variation and len(devices) > 1 and len(mod_ids) > 1:
+        # each module on a thread and stream of its own over its share of
+        # the contexts; a module's writes wait for the earlier modules'
+        # (the gates open in module order as the threads end)
+        n_mod = len(mod_ids)
+        dev_lists = module_devices(devices, n_mod)
+        gates = [_WriteGate(open_now=p == 0) for p in range(n_mod)]
+        runs: list = [None] * n_mod
+        errors: list = [None] * n_mod
+        for d in set(devices):
+            if d.type == 'cuda':
+                torch.cuda.synchronize(d)
+
+        def runner(pos, i_mod):
+            try:
+                home = dev_lists[pos][0]
+                with card_scope(home, dispatch_stream(home, ('module', pos))):
+                    runs[pos] = run_module(i_mod, dev_lists[pos],
+                                           gates[pos])
+                    if home.type == 'cuda':
+                        torch.cuda.current_stream(home).synchronize()
+            except BaseException as exc:   # raised after the joins
+                errors[pos] = exc
+
+        threads = [threading.Thread(target=runner, args=(p, m),
+                                    name=f'module-{m}')
+                   for p, m in enumerate(mod_ids)]
+        for t in threads:
+            t.start()
+        for pos, t in enumerate(threads):
+            t.join()
+            if pos + 1 < n_mod:
+                try:
+                    gates[pos + 1].open()
+                except BaseException as exc:
+                    errors[pos + 1] = errors[pos + 1] or exc
+        first = next((e for e in errors if e is not None), None)
+        if first is not None:
+            raise first
+    else:
+        gate = _WriteGate(open_now=True)
+        runs = [run_module(i_mod, devices, gate) for i_mod in mod_ids]
     segments_to_files = (runs[0][0] if len(runs) == 1
                          else np.concatenate([r[0] for r in runs]))
     # the last module's model for the run's own exports (cli:1263)

@@ -7,7 +7,8 @@ the decoder inverts it.  The library is built into
 ``larndsim_tpu_torch/build/`` under a hash of its sources, its flags, the
 compiler's identity and the platform.  There is no other LZF path: if the
 build fails, :func:`library` raises, and so does every read or write that
-needs LZF.
+needs LZF.  The build-and-load runs under a lock: threads of one process
+share the temporary file's name.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import os
 import platform
 import shutil
 import subprocess
+import threading
 
 import numpy as np
 
@@ -31,6 +33,7 @@ FILTER_LZF = 32000
 LZF_CLIENT = (4, 0x0105)
 
 _LIB = None
+_LOCK = threading.Lock()
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 
@@ -62,28 +65,31 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
-    cxx = _compiler()
-    path = library_path(cxx)
-    if not os.path.isfile(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f'{path}.{os.getpid()}.tmp'
-        try:
-            proc = subprocess.run([cxx, *FLAGS, '-o', tmp, SOURCES[0]],
-                                  capture_output=True, text=True)
-            if proc.returncode:
-                raise RuntimeError(f'the LZF codec failed to build '
-                                   f'({proc.returncode}):\n{proc.stderr}')
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(path)
-    lib.h5lzf_encode_chunks.argtypes = [_P, _I64, _I, _I, _P, _P, _P, _I]
-    lib.h5lzf_encode_chunks.restype = None
-    lib.h5lzf_decode.argtypes = [_P, _I64, _I, _I, _P, _P, _I64]
-    lib.h5lzf_decode.restype = _I64
-    _LIB = lib
-    return lib
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        cxx = _compiler()
+        path = library_path(cxx)
+        if not os.path.isfile(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f'{path}.{os.getpid()}.tmp'
+            try:
+                proc = subprocess.run([cxx, *FLAGS, '-o', tmp, SOURCES[0]],
+                                      capture_output=True, text=True)
+                if proc.returncode:
+                    raise RuntimeError(f'the LZF codec failed to build '
+                                       f'({proc.returncode}):\n{proc.stderr}')
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+        lib = ctypes.CDLL(path)
+        lib.h5lzf_encode_chunks.argtypes = [_P, _I64, _I, _I, _P, _P, _P, _I]
+        lib.h5lzf_encode_chunks.restype = None
+        lib.h5lzf_decode.argtypes = [_P, _I64, _I, _I, _P, _P, _I64]
+        lib.h5lzf_decode.restype = _I64
+        _LIB = lib
+    return _LIB
 
 
 def threads() -> int:

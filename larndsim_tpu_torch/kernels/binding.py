@@ -1,8 +1,11 @@
 """ctypes wrappers that launch the CUDA kernels on PyTorch's current stream.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
-outputs with ``torch.empty``, launches, raises if the launch reports an
-error, and counts the launch in :data:`launches`.  Callers reach them
+outputs with ``torch.empty``, launches on the tensors' card (selected for
+the call: a new thread's current card is card 0) and its current stream,
+raises if the launch reports an error, and counts the launch in
+:data:`launches` (under a lock: module and dispatch threads launch at
+once).  Callers reach them
 through the dispatching functions ``ops.current.induced_current``,
 ``ops.fee.fee_fsm`` and those of the card probes in ``tools/``
 (``probe_folded``, ``probe_fee``, ``probe_fee2``).
@@ -11,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -24,6 +28,7 @@ _F = ctypes.c_float
 launches = {'induced_current': 0, 'fee_fsm': 0, 'probe_window': 0,
             'probe_roll': 0, 'probe_async_copy': 0, 'probe_fee': 0,
             'probe_fee2': 0}
+_COUNT_LOCK = threading.Lock()
 
 _U = ctypes.c_uint
 _SIGNATURES = {
@@ -50,8 +55,23 @@ def _lib() -> ctypes.CDLL:
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _COUNT_LOCK:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of kernel ``name``."""
+    with _COUNT_LOCK:
+        launches[name] += 1
+
+
+def _launch(fn, dev: torch.device, *args) -> int:
+    """``fn(*args, stream)`` with ``dev`` the current card and ``stream``
+    its current stream (the ctypes call runs on the calling thread's
+    current card)."""
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -99,16 +119,16 @@ def induced_current(xs, ys, shift, phase, pxc, pyc, nstep, tick_lo,
     out = torch.empty((S, P, t_sig), dtype=f32, device=dev)
     if out.numel() == 0:
         return out
-    err = _lib().induced_current_launch(
-        xs.data_ptr(), ys.data_ptr(), shift.data_ptr(), phase.data_ptr(),
+    err = _launch(
+        _lib().induced_current_launch, dev, xs.data_ptr(), ys.data_ptr(),
+        shift.data_ptr(), phase.data_ptr(),
         pxc.data_ptr(), pyc.data_ptr(), nstep.data_ptr(),
         tick_lo.data_ptr(), tick_hi.data_ptr(), scale.data_ptr(),
         resp.data_ptr(), out.data_ptr(),
         S, P, n_steps, t_sig, ntp, lut.nx_r, lut.ny_r, lut.ratio,
-        lut.inv_bin, lut.lim_x, lut.lim_y, lut.max_x, lut.max_y,
-        torch.cuda.current_stream(dev).cuda_stream)
+        lut.inv_bin, lut.lim_x, lut.lim_y, lut.max_x, lut.max_y)
     _raise_on(err, 'induced_current')
-    launches['induced_current'] += 1
+    _count('induced_current')
     return out
 
 
@@ -138,17 +158,17 @@ def fee_fsm(sig_rows, noise, q_init, thresholds, tick_times, s):
     latch_end = torch.empty((U, m), dtype=i32, device=dev)
     if U == 0:
         return integrals, ticks, n_adc, reset_start, latch_end
-    err = _lib().fee_fsm_launch(
-        sig_rows.data_ptr(), noise.data_ptr(), q_init.data_ptr(),
+    err = _launch(
+        _lib().fee_fsm_launch, dev, sig_rows.data_ptr(), noise.data_ptr(),
+        q_init.data_ptr(),
         thresholds.data_ptr(), tick_times.data_ptr(),
         integrals.data_ptr(), ticks.data_ptr(), n_adc.data_ptr(),
         reset_start.data_ptr(), latch_end.data_ptr(),
         s.A, s.dt, s.C, s.sigma_uncorr, s.sigma_disc, s.sigma_reset,
         s.time_padding,
-        U, n_scan, n_times, m, s.interval, s.reset_ticks, s.busy_ticks,
-        torch.cuda.current_stream(dev).cuda_stream)
+        U, n_scan, n_times, m, s.interval, s.reset_ticks, s.busy_ticks)
     _raise_on(err, 'fee_fsm')
-    launches['fee_fsm'] += 1
+    _count('fee_fsm')
     return integrals, ticks, n_adc, reset_start, latch_end
 
 
@@ -156,10 +176,6 @@ def _cuda(t: torch.Tensor, kernel: str) -> torch.device:
     if t.device.type != 'cuda':
         raise ValueError(f'{kernel} kernel needs CUDA tensors, got {t.device}')
     return t.device
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def probe_window(slab, row: int, q0: int, n_q: int) -> torch.Tensor:
@@ -171,10 +187,10 @@ def probe_window(slab, row: int, q0: int, n_q: int) -> torch.Tensor:
         raise ValueError(f'window row {row}, rows [{q0}, {q0 + n_q}) outside '
                          f'the slab {tuple(slab.shape)}')
     out = torch.empty((n_q, lanes), dtype=torch.float32, device=dev)
-    err = _lib().probe_window_launch(slab.data_ptr(), out.data_ptr(), n_sub,
-                                     lanes, row, q0, n_q, _stream(dev))
+    err = _launch(_lib().probe_window_launch, dev, slab.data_ptr(),
+                  out.data_ptr(), n_sub, lanes, row, q0, n_q)
     _raise_on(err, 'probe_window')
-    launches['probe_window'] += 1
+    _count('probe_window')
     return out
 
 
@@ -188,10 +204,10 @@ def probe_roll(x, shift: int, axis: int) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    err = _lib().probe_roll_launch(x.data_ptr(), out.data_ptr(), outer, n,
-                                   inner, shift % n, _stream(dev))
+    err = _launch(_lib().probe_roll_launch, dev, x.data_ptr(),
+                  out.data_ptr(), outer, n, inner, shift % n)
     _raise_on(err, 'probe_roll')
-    launches['probe_roll'] += 1
+    _count('probe_roll')
     return out
 
 
@@ -213,11 +229,11 @@ def probe_async_copy(slab, q_step: int, q_sz: int,
         raise ValueError('window larger than a block\'s shared memory')
     out = torch.empty((n_windows, n_rows, q_sz, lanes), dtype=torch.float32,
                       device=dev)
-    err = _lib().probe_async_copy_launch(
-        slab.data_ptr(), out.data_ptr(), n_rows, n_sub, lanes, q_step, q_sz,
-        n_windows, _stream(dev))
+    err = _launch(
+        _lib().probe_async_copy_launch, dev, slab.data_ptr(), out.data_ptr(),
+        n_rows, n_sub, lanes, q_step, q_sz, n_windows)
     _raise_on(err, 'probe_async_copy')
-    launches['probe_async_copy'] += 1
+    _count('probe_async_copy')
     return out
 
 
@@ -259,14 +275,15 @@ def probe_fee(flags: int, sig, noise, scal, times, thr, q0, *, n_scan: int,
                    for dt in (f32, i32, f32, i32)) if flags & 2 else ()
     fstate = torch.empty((8, U), dtype=f32, device=dev)
     istate = torch.empty((4, U), dtype=i32, device=dev)
-    err = _lib().probe_fee_launch(
-        flags, scal.data_ptr(), times.data_ptr(), thr.data_ptr(),
+    err = _launch(
+        _lib().probe_fee_launch, dev, flags, scal.data_ptr(),
+        times.data_ptr(), thr.data_ptr(),
         q0.data_ptr(), sig.data_ptr(), noise.data_ptr(), out.data_ptr(),
         *(_ptrs(planes) or (None,) * 4), fstate.data_ptr(),
         istate.data_ptr(), U, n_scan_p // PROBE_CHUNK, n_scan, n_times,
-        max_adc, _stream(dev))
+        max_adc)
     _raise_on(err, f'probe_fee (flags {flags})')
-    launches['probe_fee'] += 1
+    _count('probe_fee')
     return out, planes, fstate, istate
 
 
@@ -304,12 +321,13 @@ def probe_fee2(flags: int, sig, noise, scal, times, thrq, *, n_scan: int,
         outs = tuple(planes.unbind(0))
     else:
         outs = (state.view(1, U),)
-    err = _lib().probe_fee2_launch(
-        flags, scal.data_ptr(), times.data_ptr(), sig.data_ptr(),
+    err = _launch(
+        _lib().probe_fee2_launch, dev, flags, scal.data_ptr(),
+        times.data_ptr(), sig.data_ptr(),
         noise.data_ptr(), thrq.data_ptr(), thrq.data_ptr(), state.data_ptr(),
         None if planes is None else planes.data_ptr(),
         *(_ptrs(unused) or (None,) * 5),
-        U, n_c, n_scan, n_times, max_adc, _stream(dev))
+        U, n_c, n_scan, n_times, max_adc)
     _raise_on(err, f'probe_fee2 (flags {flags})')
-    launches['probe_fee2'] += 1
+    _count('probe_fee2')
     return state, outs

@@ -4,7 +4,8 @@ Each source is compiled by its own nvcc process, all started together, and
 the objects are linked into one library with a plain C interface, loaded
 with ctypes.  It is built into ``larndsim_tpu_torch/build/`` under a name
 that carries the hash of the sources and flags, so an edited source is
-rebuilt.
+rebuilt.  The build-and-load runs under a lock: threads of one process
+share the temporary object names.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,6 +29,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xcompiler', '-fPIC')
 
 _LIB = None
+_LOCK = threading.Lock()
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
 
@@ -68,24 +71,28 @@ def load() -> ctypes.CDLL:
     global _LIB, build_seconds
     if _LIB is not None:
         return _LIB
-    path = library_path()
-    if not os.path.isfile(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tag = f'{os.getpid()}.tmp'
-        t0 = time.perf_counter()
-        nvcc = _nvcc()
-        objs = [os.path.join(BUILD_DIR, f'{os.path.basename(src)}.{tag}.o')
-                for src in sources()]
-        tmp = f'{path}.{tag}'
-        try:
-            _run([[nvcc, *NVCC_FLAGS, '-c', src, '-o', obj]
-                  for src, obj in zip(sources(), objs)])
-            _run([[nvcc, '-shared', '-o', tmp, *objs]])
-            os.replace(tmp, path)
-        finally:
-            for leftover in (*objs, tmp):
-                if os.path.exists(leftover):
-                    os.remove(leftover)
-        build_seconds = time.perf_counter() - t0
-    _LIB = ctypes.CDLL(path)
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        path = library_path()
+        if not os.path.isfile(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tag = f'{os.getpid()}.tmp'
+            t0 = time.perf_counter()
+            nvcc = _nvcc()
+            objs = [os.path.join(BUILD_DIR,
+                                 f'{os.path.basename(src)}.{tag}.o')
+                    for src in sources()]
+            tmp = f'{path}.{tag}'
+            try:
+                _run([[nvcc, *NVCC_FLAGS, '-c', src, '-o', obj]
+                      for src, obj in zip(sources(), objs)])
+                _run([[nvcc, '-shared', '-o', tmp, *objs]])
+                os.replace(tmp, path)
+            finally:
+                for leftover in (*objs, tmp):
+                    if os.path.exists(leftover):
+                        os.remove(leftover)
+            build_seconds = time.perf_counter() - t0
+        _LIB = ctypes.CDLL(path)
     return _LIB

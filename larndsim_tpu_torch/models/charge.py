@@ -214,6 +214,53 @@ def stage_batch(segs: Segments, det_model: DetectorModel, sim: SimParams, *,
         shift_band=current.host_shift_band(seg_np, det, mc_smear=True))
 
 
+def charge_step(segs: Segments, det: DetectorParams, response: torch.Tensor,
+                draw: Draw, *, thresholds=None, gains=None, max_active: int,
+                radius: int, max_nb: int, t_sig: int, n_steps: int,
+                n_unique_cap: int, max_adc: int, max_tracks: int,
+                shift_band: tuple[int, int], min_step: float = 0.001):
+    """The charge chain on drifted segments with every shape given
+    (JAX ``models.charge.charge_step``, :122-173): one call a batch of a
+    ``parallel.mesh`` cell.  ``shift_band`` is the induced current's
+    (``ops.current.host_shift_band``), chosen on the host like the other
+    shapes; ``thresholds`` / ``gains`` optional (n_unique_cap,) tensors.
+    Returns (uniq, n_unique, adc, fee_res, fractions, track_map,
+    overflow)."""
+    dev = segs.x.device
+    pixels, distances, npix = pixelize.get_pixels(
+        segs, det, max_active=max_active, radius=radius,
+        max_neighboring=max_nb)
+    uniq, n_unique = accumulate.unique_pixels(pixels, n_unique_cap)
+    pix_idx = accumulate.pixel_index_map(pixels, uniq)
+    track_map, slot, overflow = accumulate.track_pixel_map(
+        pix_idx, distances, n_unique_cap, max_tracks=max_tracks)
+    px, py = pixel_centers(torch.clamp(pixels, min=0), det)
+    signals = current.current(
+        segs, px, py, pixels >= 0, response, det,
+        draw('smear', (3, segs.size, n_steps)), n_steps=n_steps,
+        t_sig=t_sig, shift_band=shift_band, min_step=min_step)
+    track_starts, _ = pixelize.time_intervals(segs, det)
+    pixels_signals = accumulate.sum_pixel_signals(
+        signals, pix_idx, track_starts, n_unique_cap,
+        n_ticks=det.time_ticks, time_sampling=det.time_sampling)
+    if thresholds is None:
+        thresholds = torch.full((n_unique_cap,),
+                                det.f32('discrimination_threshold'),
+                                dtype=torch.float32, device=dev)
+    n_scan = det.time_ticks + det.integrate_ticks + det.busy_ticks + 4
+    s = fee.fsm_scalars(det, max_adc=max_adc)
+    fee_res = fee.get_adc_values(
+        pixels_signals, fee.tick_times(det, dev), thresholds, det,
+        max_adc=max_adc, n_scan=n_scan,
+        noise=draw('fee_noise', (n_scan, 5, n_unique_cap)),
+        q_init=draw('q_init', (n_unique_cap,)) * s.sigma_reset)
+    fractions = fee.current_fractions(
+        signals, pix_idx, slot, track_starts, fee_res, det,
+        max_adc=max_adc, max_tracks=max_tracks, n_adc_scan=max_adc)
+    adc = fee.digitize(fee_res.integrals, det, gain=gains)
+    return uniq, n_unique, adc, fee_res, fractions, track_map, overflow
+
+
 def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
                           sim: SimParams, draw: Draw, response: torch.Tensor,
                           *, pixel_thresholds=None, pixel_gains=None,

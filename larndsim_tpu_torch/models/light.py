@@ -420,9 +420,13 @@ def _transfer_col_bounds(T: np.ndarray) -> tuple:
 
 
 def _device_table(T: np.ndarray, device) -> torch.Tensor:
-    """``T`` on ``device``, uploaded once per host table, behind the
-    stream's queued work (nothing waits for it)."""
-    key = (id(T), str(torch.device(device)))
+    """``T`` on ``device``, uploaded once per host table and stream, behind
+    the stream's queued work (nothing waits for it, so another stream
+    gets a copy of its own)."""
+    device = torch.device(device)
+    stream = (torch.cuda.current_stream(device).cuda_stream
+              if device.type == 'cuda' else 0)
+    key = (id(T), str(device), stream)
     hit = _DEVICE_TABLES.get(key)
     if hit is not None and hit[0] is T:
         return hit[1]

@@ -32,6 +32,7 @@ import torch
 
 from ..models import light as light_model
 from ..ops.light import LightDraw
+from ..parallel.devices import to_device
 
 
 @contextlib.contextmanager
@@ -52,15 +53,6 @@ def first_batch(keep=None):
         yield seen
     finally:
         light_model.simulate_light_batch = orig
-
-
-def to_device(obj, device):
-    """A dataclass of tensors (segments, light params, LUT) with every
-    tensor field on ``device``."""
-    return dataclasses.replace(obj, **{
-        f.name: getattr(obj, f.name).to(device)
-        for f in dataclasses.fields(obj)
-        if isinstance(getattr(obj, f.name), torch.Tensor)})
 
 
 #: LUT-smearing truth records whose |pe| lies within this of the record

@@ -8,11 +8,13 @@ CPU).  :meth:`MemoryLogger.archive` closes a phase; :meth:`store` writes
 one plain compound float64 dataset per phase with the fields of
 :data:`FIELDS` into an HDF5 file (through ``io.h5``, which h5py reads), or
 an ``.npz`` archive for any other file name.  :func:`read_memlog` reads
-either back.
+either back.  Snapshots and archives are taken under a lock: module and
+dispatch threads take them at once.
 """
 from __future__ import annotations
 
 import os
+import threading
 import time
 import tracemalloc
 
@@ -50,6 +52,7 @@ class MemoryLogger:
         self.archive_log: dict[str, list] = {}
         self._t0 = None
         self._traces = False
+        self._lock = threading.Lock()
 
     def start(self):
         if self.disabled:
@@ -73,14 +76,16 @@ class MemoryLogger:
         cpu_now, cpu_peak = (tracemalloc.get_traced_memory()
                              if tracemalloc.is_tracing() else (0, 0))
         used, free = self._device_memory()
-        self.log.append((time.time() - (self._t0 or 0.0),
-                         cpu_now, cpu_peak, used, free))
+        with self._lock:
+            self.log.append((time.time() - (self._t0 or 0.0),
+                             cpu_now, cpu_peak, used, free))
 
     def archive(self, phase: str):
         if self.disabled:
             return
-        self.archive_log[phase] = list(self.log)
-        self.log = []
+        with self._lock:
+            self.archive_log[phase] = self.log
+            self.log = []
 
     def store(self, filename: str | None):
         """Write the archived phases to ``filename`` (an existing HDF5

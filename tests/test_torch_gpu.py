@@ -34,11 +34,16 @@ tables equal, the rest as above, every truth route), the smearing truth's
 routes with several triggers against each other, the trigger scan on the
 card against the host walk (forced and random triggers), and three events
 as one mode-0 group call against their solo calls, bit for bit.
+Multi-device dispatch: K1 launched from a new thread on each card's
+tensors equals its plain version; the CLI with two contexts on card 0
+(and, with two cards, the 2x2 over both) gives every dataset of the
+one-context run, bit for bit.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -845,3 +850,90 @@ def test_mod2mod_light_batch_on_card_matches_cpu(mod2mod_card, route):
                               smeared_at=opts.get('threshold'))
     assert rec['peak'] > 0
     assert (rec['records'] > 0) == (opts['truth_ids'] > 0)
+
+
+# --------------------------------------------------------------------------
+# multi-device dispatch (n_devices)
+# --------------------------------------------------------------------------
+
+def _cards(count):
+    if torch.cuda.device_count() < count:
+        pytest.skip(f'needs {count} CUDA devices')
+    return [torch.device('cuda', i) for i in range(count)]
+
+
+def test_kernels_launch_on_their_card_from_a_new_thread(cuda, tmp_path):
+    """K1 launched from a thread of its own (whose current card is card 0)
+    on every card's tensors equals its plain version there: the wrapper
+    selects the tensors' card and its stream."""
+    tree = tpa.write_tree(tmp_path)
+    smear = torch.randn((3, 32, 512),
+                        generator=torch.Generator().manual_seed(1))
+    for dev in _cards(torch.cuda.device_count()):
+        args = _current_args(dev, tree, 1, smear)
+        out, errors = [], []
+
+        def launch():
+            try:
+                with torch.cuda.stream(torch.cuda.Stream(dev)):
+                    out.append(current.induced_current(*args))
+                    torch.cuda.current_stream(dev).synchronize()
+            except BaseException as exc:
+                errors.append(exc)
+        t = threading.Thread(target=launch)
+        t.start()
+        t.join()
+        assert not errors, errors
+        assert out[0].device == dev
+        assert torch.equal(out[0], current.current_plain(*args)), dev
+
+
+def _ndev_module0(tmp_path):
+    paths = tpa.write_tree(tmp_path / 'tree', light=True, sim_overrides=dict(
+        max_light_truth_ids=50, mc_truth_threshold=0.1))
+    inp = str(tmp_path / 'in.h5')
+    write_input(inp, tpa.load_port(paths).tpc_borders, n_events=6,
+                tracks_per_event=3, segments_per_track=6, segment_length=0.4,
+                dEdx=8.0, seed=7)
+    return inp, dict(config='module0',
+                     detector_properties=paths['detector_properties'],
+                     pixel_layout=paths['pixel_layout'],
+                     simulation_properties=paths['simulation_properties'],
+                     response_file=str(tmp_path / 'r.npy'), rand_seed=7,
+                     step_scale=2.0, event_group_size=2)
+
+
+def test_two_contexts_on_one_card_give_one_contexts_datasets(cuda, tmp_path):
+    """Groups round-robin over two contexts on card 0 (each with its
+    thread and stream): every dataset equal bit for bit to one context's,
+    truth records included."""
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    from larndsim_tpu_torch.tools.file_check import differences
+    inp, kw = _ndev_module0(tmp_path)
+    outs = {}
+    for n in (1, 2):
+        outs[n] = str(tmp_path / f'n{n}.h5')
+        binding.reset_launches()
+        run_simulation(inp, outs[n], device=['cuda:0'] * 2, n_devices=n,
+                       **kw)
+        assert binding.launches['induced_current'] > 0
+    assert differences(outs[1], outs[2]) == []
+    with File(outs[2], 'r') as f:
+        assert len(f['light_wvfm_mc_assn']) > 0
+
+
+def test_2x2_over_two_cards_gives_one_cards_datasets(cuda, tmp_path):
+    """The four modules over two cards (two modules a card, each module on
+    a thread and stream of its own) against one context on card 0."""
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    from larndsim_tpu_torch.tools.file_check import differences
+    _cards(2)
+    inp, kw = _mod2mod_kw(tmp_path)
+    outs = {}
+    for n, device in ((1, 'cuda:0'), (2, 'cuda')):
+        outs[n] = str(tmp_path / f'n{n}.h5')
+        with pytest.MonkeyPatch.context() as mp:
+            from larndsim_tpu_torch.cli import simulate_pixels as cli
+            mp.setattr(cli, 'light_draw', _cpu_made_draw)
+            run_simulation(inp, outs[n], device=device, n_devices=n, **kw)
+    assert differences(outs[1], outs[2]) == []
