@@ -116,7 +116,32 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    each module thread's wall, peak device memory and the phase tables;
    with two cards or more, the 2x2 again over the real cards (else one
    line says so);
-14. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
+14. ndlar: ND-LAr at full scale (``assets.geometry.write_ndlar``: 35
+   modules, 70 TPCs, 80 x 80-pixel tiles at 3.87975 mm, 8.96 M pixel ids,
+   50 ns sampling, 6401 ticks, charge only), ``config='ndlar'`` on
+   bench.py's ND-LAr occupancy (144 tracks x 42 segments a spill): a
+   warm-up of 2 spills at bench's batching (batch_size 10000,
+   event_group_size 32) keeps K1's and K2's first inputs, each held to its
+   plain version bit for bit and timed, with K1's tile choice on that
+   batch counted by the kernel in the compared launch
+   (``kernels.binding.induced_current_tiling``: its chunks at R 2 and R 1
+   and the chunk halvings); then 4 timed spills at bench's batching and at the
+   YAML's own (2500 segments, two TPCs a batch, ungrouped), launch
+   counters set to 0 before and read after, plain versions forbidden:
+   data packets on all 70 io groups, hit-set overlap of the two batchings
+   >= 0.7, walls, segments/s, launches, peak device memory and the phase
+   tables;
+15. mesh: ``graft_entry.dryrun_multichip(4)`` on ``['cuda:0'] * 4`` (the
+   sim step on a 2 x 2 grid and the 2x2 CLI with module variation at
+   ``n_devices`` 4, with the JAX dry run's checks), then
+   ``parallel.mesh.make_sharded_sim_step`` on a 2 x 2 grid on card 0 at a
+   full module's light width (96 channels, 16384 ticks, beam trigger with
+   noise, top-8 truth) on the guard's 2x2 batch cut into four cells: each
+   cell equal bit for bit to ``parallel.mesh.sim_cell`` alone on the
+   card, one K1 and one K2 launch a cell, the step's wall; in both the
+   dry run and the timed step, the first K1 and K2 inputs of one cell
+   held to their plain versions bit for bit;
+16. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
    (``probe_folded``): cases a-g, each in its own process (all started
    together), each OK and importing nothing of JAX; each of its three
    kernels against its plain version.  P2 / P3 (``probe_fee`` /
@@ -124,9 +149,11 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    at the probe shapes beside the FSM kernel (the entry points, launch
    counters set to 0 before and read after), then every variant equal to
    its plain version at the same shapes on a random signal;
-15. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
+17. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
    and the light truth) at production shapes, with each one's bound on
-   this card and the share reached.
+   this card and the share reached; then its ND-LAr workload
+   (``--config ndlar``: one event of 82 tracks x 42 segments on the
+   ND-LAr tree), the charge ops alone, with K1's tile choice.
 By the end neither JAX nor the JAX package ``larndsim_tpu`` may have been
 imported.
 
@@ -139,11 +166,13 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -175,6 +204,14 @@ GROUP = 4
 #: 42 segments, bench.py:76-95), every TPC with tracks in every spill (3
 #: each), so that the four modules trigger alike
 SPILLS_2X2 = dict(SPILLS, tracks_per_event=24, every_tpc=True)
+#: the ndlar phase's input: bench.py's ND-LAr occupancy (144 tracks x 42
+#: segments a spill, bench.py:120-136, :196-204): 2 warm-up spills (seed 1),
+#: then 4 timed spills (seed 2)
+NDLAR_SPILLS = dict(SPILLS, tracks_per_event=144)
+NDLAR_WARM, NDLAR_TIMED = 2, 4
+#: bench.py's derived ND-LAr batching (bench.py:115-126): batch_size 10000
+#: at event_group_size 32
+NDLAR_BENCH = dict(batch_size=10000, group=32)
 
 
 def log(phase: str, msg: str) -> None:
@@ -377,19 +414,61 @@ def packet_events(path: str):
     return collections.Counter(ev[data].tolist()), hits
 
 
-def compare_k1(args, label: str = 'first batch') -> dict:
+@contextlib.contextmanager
+def kernel_inputs():
+    """K1's and K2's first inputs on each thread while the block runs
+    (``ops.current.induced_current`` and ``ops.fee.fee_fsm`` wrapped):
+    ``{thread name: {'k1': args, 'k2': args}}``, in the order of the
+    threads' first calls."""
+    from larndsim_tpu_torch.ops import current, fee
+    kept = collections.defaultdict(dict)
+    origs = (current.induced_current, fee.fee_fsm)
+
+    def keep(name, fn):
+        def spy(*args):
+            kept[threading.current_thread().name].setdefault(name, args)
+            return fn(*args)
+        return spy
+    current.induced_current = keep('k1', origs[0])
+    fee.fee_fsm = keep('k2', origs[1])
+    try:
+        yield kept
+    finally:
+        current.induced_current, fee.fee_fsm = origs
+
+
+def hold_cell(kept: dict, cell: str, label: str) -> dict:
+    """K1 and K2 on the first inputs of mesh cell ``cell`` (its thread's
+    name) against their plain versions on the card, bit for bit."""
+    return dict(k1=compare_k1(kept[cell]['k1'], label, plain_once=True),
+                k2=_fsm_case(kept[cell]['k2'], label, plain_once=True))
+
+
+def compare_k1(args, label: str = 'first batch',
+               plain_once: bool = False, tiling: bool = False) -> dict:
+    """K1 against its plain version on ``args``, both timed; with
+    ``plain_once`` the plain version is timed on the comparison's own call
+    (CUDA events), not on two more (a plain call at ND-LAr's shapes takes
+    seconds); with ``tiling`` the compared launch also counts its tile
+    choice (``kernels.binding.induced_current_tiling``), kept under
+    ``tiling``."""
     import torch
+    from larndsim_tpu_torch.kernels import binding
     from larndsim_tpu_torch.ops import current
     from larndsim_tpu_torch.tools import perf_guard as pg
-    got = current.induced_current(*args)
-    want = current.current_plain(*args)
+    if tiling:
+        got, tiles = binding.induced_current_tiling(*args)
+    else:
+        got, tiles = current.induced_current(*args), None
     torch.cuda.synchronize()
+    want, plain_once_ms = event_ms(lambda: current.current_plain(*args))
     peak = float(want.abs().max())
     err = float((got - want).abs().max())
     assert peak > 0, f'{label}: no induced current'
     assert err == 0.0, f'K1 {label} disagrees: max |err| {err} (peak {peak})'
     ms = cuda_ms(lambda: current.induced_current(*args), reps=5)
-    plain_ms = cuda_ms(lambda: current.current_plain(*args), reps=1)
+    plain_ms = plain_once_ms if plain_once else cuda_ms(
+        lambda: current.current_plain(*args), reps=1)
     c = pg.k1_costs(args)
     b = pg.bound(c['bytes'], c['ops'], ms)
     S, n_steps = args[0].shape
@@ -397,17 +476,28 @@ def compare_k1(args, label: str = 'first batch') -> dict:
         f't_sig={args[9].shape[1]}, n_steps={n_steps}): max |err| {err:.3e} '
         f'(peak {peak:.4e}, tolerance 0); kernel {ms:.3f} ms, plain '
         f'{plain_ms:.3f} ms, bound {b["bound_ms"]:.4f} ms by {b["bound_by"]}')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b['bound_ms'], bound_by=b['bound_by'])
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b['bound_ms'], bound_by=b['bound_by'])
+    if tiles is not None:
+        log('K1', f'{label} tile choice, counted by the kernel: '
+            f'{tiles["pairs"]} pairs with live steps, {tiles["r2_chunks"]} chunks at R 2 and '
+            f'{tiles["r1_chunks"]} at R 1, {tiles["halvings"]} chunk '
+            f'halvings; at most {tiles["max_slots"]} response rows and a '
+            f'shift span of {tiles["max_span"]} ticks in a chunk, against '
+            f'{tiles["window_floats"]} window floats')
+        out['tiling'] = tiles
+    return out
 
 
-def _fsm_case(args, label: str):
+def _fsm_case(args, label: str, plain_once: bool = False):
+    """K2 against its plain version on ``args``, both timed
+    (``plain_once`` as for :func:`compare_k1`)."""
     import torch
     from larndsim_tpu_torch.ops import fee
     from larndsim_tpu_torch.tools import perf_guard as pg
     got = fee.fee_fsm(*args)
-    want = fee.fee_fsm_plain(*args)
     torch.cuda.synchronize()
+    want, plain_once_ms = event_ms(lambda: fee.fee_fsm_plain(*args))
     err = 0.0
     for name, a, b in zip(fee.FeeResult._fields, want, got):
         err = max(err, float((b.double() - a.double()).abs().max()))
@@ -415,7 +505,8 @@ def _fsm_case(args, label: str):
     n_hits = int(want[2].sum())
     assert n_hits > 0, f'K2 {label}: no hits'
     ms = cuda_ms(lambda: fee.fee_fsm(*args), reps=5)
-    plain_ms = cuda_ms(lambda: fee.fee_fsm_plain(*args), reps=1)
+    plain_ms = plain_once_ms if plain_once else cuda_ms(
+        lambda: fee.fee_fsm_plain(*args), reps=1)
     n_scan, U = args[0].shape
     c = pg.fsm_costs(n_scan, U, args[5].max_adc, args[4].shape[0],
                      drawn=False)
@@ -566,14 +657,14 @@ def p23_entries() -> list[dict]:
     return entries
 
 
-def guard_phase() -> dict:
-    """tools.perf_guard at production shapes, counters set to 0 before
-    and read after."""
+def guard_phase(config: str = 'module0') -> dict:
+    """tools.perf_guard at production shapes (``config`` its workload),
+    counters set to 0 before and read after."""
     import torch
     from larndsim_tpu_torch.kernels import binding
     from larndsim_tpu_torch.tools import perf_guard as pg
     binding.reset_launches()
-    entry = pg.main([])
+    entry = pg.main(['--config', config])
     torch.cuda.synchronize()
     launches = dict(binding.launches)
     assert launches['induced_current'] > 0 and launches['fee_fsm'] > 0, \
@@ -585,8 +676,9 @@ def guard_phase() -> dict:
                        or name.endswith('_beam_x4')
                        else 'light_shapes' if name.startswith('light_')
                        else 'shapes']
-        log('guard', f'{name}: {entry["ops_ms"][name]["min_ms"]:.3f} ms, '
-            f'bound {r["bound_ms"]:.4f} ms by {r["bound_by"]}, share '
+        log('guard', f'{config} {name}: '
+            f'{entry["ops_ms"][name]["min_ms"]:.3f} ms, bound '
+            f'{r["bound_ms"]:.4f} ms by {r["bound_by"]}, share '
             f'{r["share"]:.4f} (shapes {shapes})')
     for name, t in entry['host_ms'].items():
         assert np.isfinite(t['min_ms']), name
@@ -1087,6 +1179,241 @@ def mod2mod_phase(tmp: str, main_path) -> dict:
     return dict(k1=k1, k2=k2, runs=runs, kw=kw_on, inp=inp, n_seg=n_seg)
 
 
+def ndlar_phase(tmp: str, main_path) -> dict:
+    """ND-LAr at full scale (``assets.geometry.write_ndlar``: 35 modules,
+    70 TPCs, 8.96 M pixel ids, 50 ns sampling, 6401 ticks, charge only),
+    ``config='ndlar'`` on bench.py's ND-LAr occupancy: the warm-up at
+    bench's batching keeps K1's and K2's first inputs, each held to its
+    plain version bit for bit and timed, with K1's tile choice on that
+    batch, counted by the kernel in the compared launch; then the timed
+    spills at bench's batching (batch_size 10000,
+    event_group_size 32) and at the YAML's own (2500, two TPCs a batch,
+    ungrouped), launch counters set to 0 before and read after, the plain
+    versions forbidden: walls, segments/s, launches, peak device memory,
+    data packets on all 70 io groups and the phase tables."""
+    import torch
+    from larndsim_tpu_torch.assets.geometry import write_ndlar
+    from larndsim_tpu_torch.assets.make_input import write_input
+    from larndsim_tpu_torch.cli import simulate_pixels as cli
+    from larndsim_tpu_torch.io.h5 import File
+    from larndsim_tpu_torch.params import load_detector
+    t0 = time.perf_counter()
+    paths = write_ndlar(os.path.join(tmp, 'ndlar'))
+    # bench.py's derived simulation properties (the YAML's, batch_size
+    # raised)
+    bench_sim = write_ndlar(
+        os.path.join(tmp, 'ndlar_bench'), sim_overrides=dict(
+            batch_size=NDLAR_BENCH['batch_size']))['simulation_properties']
+    dm = load_detector(paths['detector_properties'], paths['pixel_layout'])
+    det = dm.params
+    warm_in = os.path.join(tmp, 'ndlar_warm.h5')
+    inp = os.path.join(tmp, 'ndlar_spills.h5')
+    write_input(warm_in, dm.tpc_borders,
+                **dict(NDLAR_SPILLS, n_events=NDLAR_WARM, seed=1))
+    n_seg = write_input(inp, dm.tpc_borders,
+                        **dict(NDLAR_SPILLS, n_events=NDLAR_TIMED))
+    nx, ny = det.n_pixels
+    log('ndlar', f'tree and input in {time.perf_counter() - t0:.2f} s: '
+        f'{len(dm.mod_ids)} modules, {det.n_tpcs} TPCs, n_pixels {nx} x {ny} '
+        f'a TPC ({nx * ny * det.n_tpcs} pixel ids) at '
+        f'{det.host["pixel_pitch"]} cm, {det.time_ticks} ticks of '
+        f'{det.time_sampling} us; {n_seg} segments in {NDLAR_TIMED} timed '
+        f'spills ({NDLAR_WARM} warm-up spills before)')
+    kw = dict(config='ndlar', detector_properties=paths['detector_properties'],
+              pixel_layout=paths['pixel_layout'],
+              simulation_properties=bench_sim,
+              response_file=os.path.join(tmp, 'response_38.npy'),
+              rand_seed=7, step_scale=1.0, device='cuda',
+              event_group_size=NDLAR_BENCH['group'])
+    t0 = time.perf_counter()
+    with kernel_inputs() as kept:
+        cli.run_simulation(warm_in, os.path.join(tmp, 'ndlar_warm.h5.out'),
+                           **kw)
+        torch.cuda.synchronize()
+    captured = next(iter(kept.values()))
+    log('ndlar', f'warm-up ({NDLAR_WARM} spills, bench batching) '
+        f'{time.perf_counter() - t0:.2f} s')
+    k1 = compare_k1(captured['k1'], 'ND-LAr batch', plain_once=True,
+                    tiling=True)
+    k2 = _fsm_case(captured['k2'], 'ND-LAr batch', plain_once=True)
+
+    runs = {}
+    for name, run_kw in (('bench', kw), ('yaml', dict(
+            kw, simulation_properties=paths['simulation_properties'],
+            event_group_size=1))):
+        out = os.path.join(tmp, f'ndlar_{name}.h5')
+        wall, launches, peak = main_path(out, run_kw, inp=inp)
+        runs[name] = dict(out=out, wall=wall, launches=launches, peak=peak,
+                          table=phase_table(f'ND-LAr, {name} batching'))
+    pk = {}
+    for name, r in runs.items():
+        with File(r['out'], 'r') as f:
+            p = np.array(f['packets'])
+            n_assn = len(f['mc_packets_assn'])
+        assert n_assn == len(p)
+        data = p[p['packet_type'] == 0]
+        assert (data['dataword'] <= 255).all()
+        assert sorted(set(p['io_group'].tolist())) == list(range(1, 71))
+        pk[name] = collections.Counter(data['io_group'].tolist())
+        assert len(pk[name]) >= 60, (name, len(pk[name]))
+    _, hits_b = packet_events(runs['bench']['out'])
+    _, hits_y = packet_events(runs['yaml']['out'])
+    overlap = len(hits_b & hits_y) / max(len(hits_b | hits_y), 1)
+    assert overlap >= 0.7, overlap
+    for name in ('induced_current', 'fee_fsm'):
+        assert runs['bench']['launches'][name] < \
+            runs['yaml']['launches'][name], name
+    for name, r in runs.items():
+        log('ndlar', f'{name} batching: wall {r["wall"]:.3f} s '
+            f'({r["wall"] / NDLAR_TIMED:.3f} s a spill), '
+            f'{n_seg / r["wall"]:.1f} segments/s; K1 / K2 launches '
+            f'{r["launches"]["induced_current"]} / {r["launches"]["fee_fsm"]}'
+            f'; {sum(pk[name].values())} data packets on {len(pk[name])} of '
+            f'70 io groups; peak device memory {r["peak"]:.2f} GiB')
+    log('ndlar', f'hit-set overlap of the two batchings {overlap:.3f} '
+        '(>= 0.7; other charge draws)')
+    return dict(k1=k1, k2=k2, runs=runs, n_seg=n_seg)
+
+
+#: the mesh phase's grid: two module rows (the second with a shorter
+#: electron lifetime, us) by two event columns, all on card 0
+MESH_LIFETIMES = (2.2e3, 1.0e3)
+
+
+def mesh_phase(tmp: str) -> dict:
+    """``graft_entry.dryrun_multichip(4)`` on ``['cuda:0'] * 4``; then
+    ``parallel.mesh.make_sharded_sim_step`` on a 2 x 2 grid on card 0 at a
+    full module's light width (the Module-0-shaped tree with the light keys
+    of one 2x2 module: 96 channels, a 16 us window of 16384 ticks, LUT
+    smearing), the beam trigger with noise and the top-8 truth, on the
+    guard's 2x2 batch (4 events x 24 tracks x 42 segments) cut into four
+    cells, one event each, its times moved into the first 1.5 us of its
+    spill: a warm-up call, then one timed, launch
+    counters set to 0 before and read after, per cell; each cell equal bit
+    for bit to ``parallel.mesh.sim_cell`` run alone on the card's default
+    stream with the same draws.  In the dry run and in the timed call the
+    first K1 and K2 inputs of one cell are kept, and each kernel is held
+    to its plain version on them, bit for bit."""
+    import torch
+    from larndsim_tpu_torch import graft_entry as ge
+    from larndsim_tpu_torch.kernels import binding
+    from larndsim_tpu_torch.models import charge as charge_model
+    from larndsim_tpu_torch.models import light as light_model
+    from larndsim_tpu_torch.parallel import mesh as tmesh
+    from larndsim_tpu_torch.segments import from_structured, to_structured
+    from larndsim_tpu_torch.tools import perf_guard as pg
+    t0 = time.perf_counter()
+    with kernel_inputs() as kept:
+        dry = ge.dryrun_multichip(4, ['cuda:0'] * 4)
+        torch.cuda.synchronize()
+    log('mesh', f'dryrun_multichip(4) on cuda:0 x 4: grid {dry["mesh"].shape}'
+        f', sim step and the 2x2 CLI with module variation at n_devices 4 '
+        f'({dry["n_packets"]} packets), JAX\'s checks passed, '
+        f'{time.perf_counter() - t0:.2f} s')
+    dry_held = hold_cell(kept, 'cell-1-0', 'dry run, cell 1-0')
+
+    dev = torch.device('cuda', 0)
+    w = pg.build_workload(dev, os.path.join(tmp, 'mesh'))
+    lw = pg.build_light_workload(w)
+    light, lut = lw['light'], lw['lut']
+    tracks = to_structured(w['segs'])[:w['n_segments']]
+    events = np.unique(tracks['event_id'])
+    assert len(events) == 4, events
+    stages = []
+    for ev in events:
+        # each event's times from its spill's start, moved into the first
+        # 1.5 us (inside the beam trigger's digitized window)
+        cell = tracks[tracks['event_id'] == ev].copy()
+        spill = np.floor(cell['t0'].min() / w['sim'].spill_period) \
+            * w['sim'].spill_period
+        for k in ('t0', 't0_start', 't0_end'):
+            cell[k] = (cell[k] - spill) * 0.15
+        stages.append(charge_model.stage_batch(
+            from_structured(cell, pad_to=1024, device=dev), w['det_model'],
+            w['sim']))
+    charge = dict(
+        {k: max(getattr(st, k) for st in stages) for k in (
+            'max_active', 'radius', 'max_nb', 't_sig', 'n_steps',
+            'n_unique_cap')},
+        max_adc=w['sim'].max_adc_values,
+        max_tracks=w['sim'].max_tracks_per_pixel,
+        shift_band=(min(st.shift_band[0] for st in stages),
+                    max(st.shift_band[1] for st in stages)),
+        min_step=stages[0].min_step)
+    shapes = ge.light_shapes(light)
+    case = dict(add_noise=True, k_truth=ge.K_TRUTH, trig_mode=1,
+                max_trig=ge.MAX_TRIG)
+    mesh = tmesh.make_mesh(4, 2, devices=['cuda:0'] * 4)
+    C = light.n_op_channel
+    step = tmesh.make_sharded_sim_step(mesh, light, torch.arange(C),
+                                       **charge, **shapes, **case)
+    det_stack = tmesh.stack_module_params([
+        w['det'].replace(electron_lifetime=t) for t in MESH_LIFETIMES])
+    luts = [torch.stack([a, a]) for a in (lut.vis, lut.t0, lut.time_dist,
+                                          lut.t0_avg)]
+    noise = torch.stack([lw['noise'], lw['noise']])
+    grid = [[stages[2 * m + e].segs for e in range(2)] for m in range(2)]
+
+    def draws(m, e):
+        gen = torch.Generator(dev).manual_seed(100 + 2 * m + e)
+        return (charge_model.generator_draw(gen, dev),
+                light_model.generator_draw(gen, dev))
+
+    def call():
+        return step(grid, det_stack, w['response'], *luts,
+                    [[draws(m, e) for e in range(2)] for m in range(2)],
+                    noise_rows=noise)
+    call()                            # FFT plans, allocator
+    per_cell = collections.defaultdict(collections.Counter)
+    orig_count = binding._count
+
+    def count(name):
+        orig_count(name)
+        per_cell[threading.current_thread().name][name] += 1
+    binding._count = count
+    try:
+        with kernel_inputs() as kept:
+            binding.reset_launches()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        binding._count = orig_count
+    launches = dict(binding.launches)
+    held = hold_cell(kept, 'cell-1-1', 'mesh step, cell 1-1')
+    for m in range(2):
+        for e in range(2):
+            want = tmesh.sim_cell(
+                grid[m][e], tmesh.module_params(det_stack, m, dev),
+                w['response'], light, torch.arange(C, device=dev),
+                [a[m] for a in luts], noise[m], draws(m, e), charge=charge,
+                **shapes, **case)
+            for k in ('adc', 'waveforms', 'trigger_idx', 'n_triggers',
+                      'truth_ids', 'truth_contrib'):
+                assert torch.equal(out[k][m][e], want[k]), (k, m, e)
+            assert per_cell[f'cell-{m}-{e}'] == dict(induced_current=1,
+                                                     fee_fsm=1), per_cell
+    wv = out['waveforms'][0][0]
+    assert wv.shape == (ge.MAX_TRIG, C, shapes['digit_samples'])
+    assert out['n_hits_total'] > 0
+    assert all(float(out['waveforms'][m][e].abs().max()) > 0
+               and int(out['truth_ids'][m][e].max()) >= 0
+               for m in range(2) for e in range(2))
+    cells = {f'{m}{e}': (int(stages[2 * m + e].segs.valid.sum()),
+                         dict(per_cell[f'cell-{m}-{e}']))
+             for m in range(2) for e in range(2)}
+    log('mesh', f'sim step on a 2 x 2 grid on cuda:0 (C {C}, n_ticks '
+        f'{shapes["n_ticks"]}, beam trigger with noise, k_truth '
+        f'{ge.K_TRUTH}; charge shapes {charge}): wall {wall:.3f} s, '
+        f'{out["n_hits_total"]} pixels with a hit; segments and K1 / K2 '
+        f'launches per cell {cells}; every cell equal to sim_cell alone on '
+        'the card, bit for bit; K1 and K2 equal to their plain versions on '
+        'the inputs of cell 1-1 and of the dry run\'s cell 1-0')
+    return dict(wall=wall, launches=launches, cells=cells, held=held,
+                dry_held=dry_held)
+
+
 def ndev_phase(tmp: str, m2m: dict, grouped: dict, main_path) -> dict:
     """Multi-device dispatch (``n_devices``) on the card: the 2x2 of the
     mod2mod phase (truth on, device route, ungrouped) at ``n_devices`` 4 on
@@ -1538,6 +1865,10 @@ def main(argv=None) -> int:
         mark('mod2mod')
         ndev = ndev_phase(tmp, m2m, grouped, main_path)
         mark('ndev')
+        ndlar = ndlar_phase(tmp, main_path)
+        mark('ndlar')
+        mesh = mesh_phase(tmp)
+        mark('mesh')
 
         if opts.profile:
             profile_slice(inp, os.path.join(tmp, 'profiled.h5'), kw,
@@ -1546,6 +1877,10 @@ def main(argv=None) -> int:
     probes = p1_entries() + p23_entries()
     mark('probes')
     guard = guard_phase()
+    guard_ndlar = guard_phase('ndlar')
+    log('guard', f'ndlar K1 tile choice: '
+        f'{guard_ndlar["kernels"]["induced_current"]["tiling"]}; ticks '
+        f'{guard_ndlar["workload"]["time_ticks"]}')
     mark('guard')
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'flax', 'larndsim_tpu'))
@@ -1576,6 +1911,23 @@ def main(argv=None) -> int:
                         'launches_per_batch'],
                     library_ms=None, library=guard['kernels'][name]['library'])
 
+    def on_ndlar(name, k):
+        """The kernel on ND-LAr: launches of the timed spills at bench's
+        batching (and at the YAML's), its check on an ND-LAr batch, and the
+        guard's ND-LAr row; and on the mesh: its launches per cell and its
+        checks on a cell of the step and of the dry run."""
+        key = 'k1' if name == 'induced_current' else 'k2'
+        return dict(
+            launches_ndlar=ndlar['runs']['bench']['launches'][name],
+            launches_ndlar_yaml=ndlar['runs']['yaml']['launches'][name],
+            launches_mesh={c: n.get(name, 0)
+                           for c, (_, n) in mesh['cells'].items()},
+            mesh_cell=mesh['held'][key], dryrun_cell=mesh['dry_held'][key],
+            ndlar_batch=k, ndlar_guard_ms=guard_ndlar['ops_ms'][name][
+                'min_ms'], ndlar_guard_shapes=guard_ndlar['shapes'], **{
+                f'ndlar_guard_{k}': v for k, v in
+                guard_ndlar['roofline'][name].items()})
+
     kernels = [
         dict(name='induced_current', route='cuda', source=K1_SOURCE,
              replaces=K1_REPLACES, launches=launches['induced_current'],
@@ -1583,13 +1935,14 @@ def main(argv=None) -> int:
              launches_grouped=grouped['launches']['induced_current'],
              **k1, **at_production('induced_current'),
              **on_2x2('induced_current', m2m['k1']),
-             **on_ndev('induced_current')),
+             **on_ndev('induced_current'),
+             **on_ndlar('induced_current', ndlar['k1'])),
         dict(name='fee_fsm', route='cuda', source=K2_SOURCE,
              replaces=K2_REPLACES, launches=launches['fee_fsm'],
              launches_charge_light=launches_l['fee_fsm'],
              launches_grouped=grouped['launches']['fee_fsm'], **k2,
              **at_production('fee_fsm'), **on_2x2('fee_fsm', m2m['k2']),
-             **on_ndev('fee_fsm')),
+             **on_ndev('fee_fsm'), **on_ndlar('fee_fsm', ndlar['k2'])),
     ] + probes
     log('time', 'seconds by phase: ' + ', '.join(spans))
     log('done', f'every phase passed in {time.perf_counter() - t_start:.1f} s')

@@ -19,6 +19,10 @@ with module-to-module variation: eight TPCs, two pixel layouts (the
 ``2.4.16`` tiles of 70 x 70 pixels at 4.434 mm and the ``2.5.16`` tiles of
 80 x 80 pixels at 3.87975 mm, both 310.38 mm wide), per-module detector
 values, 384 optical channels and two light LUTs.
+
+:func:`write_ndlar` writes an ND-LAr-shaped tree: 35 modules and 70 TPCs
+on one ``3.0.40``-shaped layout of 80 x 80-pixel tiles at 3.87975 mm, 50 ns
+sampling, no light keys.
 """
 from __future__ import annotations
 
@@ -70,7 +74,7 @@ def pixel_layout(tiles=(2, 4), pixels_per_tile: int = 70,
                 tile_orientations[tile] = [0, 1, 1]
                 # one io_group per anode, four io channels per tile
                 io_group = tpc + 1
-                base = ((ix * nty + iy) * 4) % 32 + 1
+                base = (ix * nty + iy) * 4 + 1
                 tile_chip_to_io[tile] = {
                     11 + c: io_group * 1000 + base + (c * 4) // n_chip ** 2
                     for c in range(n_chip ** 2)}
@@ -267,4 +271,84 @@ def write_2x2(directory: str, *, tiles=(2, 4), pixels_per_tile=(70, 80),
             path = os.path.join(directory, f'light_lut_{i}.npz')
             np.savez(path, arr=make_light_lut(tpc_size=size, seed=i, **kw))
             paths['light_lut_filename'].append(path)
+    return paths
+
+
+#: the generated ND-LAr tree's widths (:func:`write_ndlar`): tiles on an
+#: anode, pixels a tile and a chip, pitch [mm], drift [cm], readout window,
+#: padding and induction window [us], sampling [us], and the module grid
+#: of the YAML's ``tpc_offsets`` (its first and third coordinates)
+NDLAR = dict(tiles=(2, 10), pixels_per_tile=80, chip_pixels=8,
+             pitch_mm=3.87975, drift_length=50.0, time_interval=(0.0, 320.0),
+             time_padding=190.0, time_window=189.1, sampling=0.05,
+             grid=(5, 7))
+
+
+def write_ndlar(directory: str, *, detector_overrides: dict | None = None,
+                sim_overrides: dict | None = None) -> dict:
+    """Write an ND-LAr-shaped tree into ``directory``: the three YAMLs of
+    the ``ndlar`` configuration (``ndlar-module.yaml``,
+    ``multi_tile_layout-3.0.40.yaml``, ``NDLAr_LBNF_sim.yaml``), made
+    from :func:`pixel_layout`, :func:`detector_properties` and
+    :func:`simulation_properties`.
+
+    From the repository's records: 35 modules of two TPCs sharing a
+    cathode, 70 TPCs; 40 tiles a module (20 an anode: the layout name's
+    last field, as the 16 of ``2.4.16`` counts 2 x (2 x 4) tiles); tiles
+    of 80 x 80 pixels at 3.87975 mm (``response_38``'s pitch; 8 x 8-pixel
+    chips, all 64 channels), so 128,000 pixels an anode and 8,960,000
+    pixel ids; ``time_sampling`` = ``response_sampling`` = 0.05 us and a
+    ``response_bin_size`` of a tenth of the pitch; no light keys, so the
+    loader turns light off; ``batch_size`` 2500 and ``event_batch_size``
+    2 in the simulation properties.
+
+    Assumed, the real files not being in the repository (:data:`NDLAR`):
+    the tiles 2 x 10 on an anode (62.076 cm across, 310.38 cm high); a 5 x
+    7 module grid at a pitch of the modules' larger footprint plus 5 cm; a drift length of 50 cm; a ``time_interval`` of
+    [0, 320] us (the ``ndlar-module.yaml`` value the survey cites), which
+    the loader turns into 6401 ticks at 50 ns (the 3200 ticks of the JAX
+    guard are 320 us at 0.1 us); ``time_padding`` 190 us and
+    ``time_window`` 189.1 us, Module-0's, so that a signal window spans
+    4096 ticks and the response 3782.
+
+    ``detector_overrides`` and ``sim_overrides`` add or replace keys of
+    the detector and simulation properties.  Returns a dict of paths:
+    ``detector_properties``, ``pixel_layout``, ``simulation_properties``.
+    """
+    os.makedirs(directory, exist_ok=True)
+    g = NDLAR
+    anode_z_mm = g['drift_length'] * 10.0 + 3.4
+    n_x, n_z = g['grid']
+    n_mod = n_x * n_z
+    # a module's footprint across the drift (x) and along it (z), in cm
+    pitch = max(g['tiles'][0] * g['pixels_per_tile'] * g['pitch_mm'] / 10.0,
+                2 * anode_z_mm / 10.0) + 5.0
+    keys = dict(
+        module_to_io_groups={m: [2 * m - 1, 2 * m]
+                             for m in range(1, n_mod + 1)},
+        module_to_tpcs={m: [2 * m - 2, 2 * m - 1]
+                        for m in range(1, n_mod + 1)},
+        tpc_offsets=[[(ix - (n_x - 1) / 2) * pitch, 0.0,
+                      (iz - (n_z - 1) / 2) * pitch]
+                     for ix in range(n_x) for iz in range(n_z)],
+        time_sampling=g['sampling'], response_sampling=g['sampling'],
+        response_bin_size=round(g['pitch_mm'] / 100.0, 9))
+    keys.update(detector_overrides or {})
+    sim = dict(batch_size=2500, event_batch_size=2)
+    sim.update(sim_overrides or {})
+    docs = {
+        'ndlar-module': detector_properties(
+            g['tiles'], g['drift_length'], g['time_interval'],
+            g['time_padding'], g['time_window'], False, **keys),
+        'multi_tile_layout-3.0.40': pixel_layout(
+            g['tiles'], g['pixels_per_tile'], g['chip_pixels'],
+            g['pitch_mm'], anode_z_mm),
+        'NDLAr_LBNF_sim': simulation_properties(**sim),
+    }
+    paths = {}
+    for (key, doc), name in zip(docs.items(), (
+            'detector_properties', 'pixel_layout', 'simulation_properties')):
+        paths[name] = os.path.join(directory, f'{key}.yaml')
+        with open(paths[name], 'w') as f:
+            yaml.safe_dump(doc, f, default_flow_style=None)
     return paths

@@ -77,3 +77,25 @@ def load_response(path: str | None, **synth_kwargs) -> np.ndarray:
     if path and os.path.isfile(path):
         return np.load(path).astype(np.float32)
     return make_response(**synth_kwargs)
+
+
+def main(argv=None) -> str:
+    """Write a synthetic response table (``make_response``) to a ``.npy``
+    file: ``python -m larndsim_tpu_torch.assets.response [--output PATH]
+    [--n_xy N] [--n_t N] [--bin_size CM] [--sampling US] [--pixel_pitch
+    CM] ...``, every keyword of :func:`make_response` a flag."""
+    import argparse
+    import inspect
+    ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
+    ap.add_argument('--output', default='response_44.npy')
+    for name, p in inspect.signature(make_response).parameters.items():
+        ap.add_argument(f'--{name}', type=type(p.default), default=p.default)
+    kwargs = vars(ap.parse_args(argv))
+    output = kwargs.pop('output')
+    np.save(output, make_response(**kwargs))
+    print(f'wrote {output}')
+    return output
+
+
+if __name__ == '__main__':
+    main()

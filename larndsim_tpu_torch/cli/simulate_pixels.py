@@ -254,11 +254,11 @@ def run_simulation(input_filename: str,
                    step_scale: float = 1.0,
                    event_group_size: int = 1,
                    n_devices: int = 1,
+                   truth_compression: str = 'lzf',
+                   truth_workers: int = 1,
                    device='cuda',
                    truth_path: str = 'device',
-                   truth_workers: int = 1,
-                   unique_guard: int = 65536,
-                   truth_compression: str = 'lzf'):
+                   unique_guard: int = 65536):
     """Simulate the charge and light readout of a pixelated LArTPC.
 
     ``mod2mod_variation`` None follows the configuration; with it on (and

@@ -44,6 +44,11 @@
 //     with half as many steps, and the pair's later chunks keep that size;
 //   * chunk after chunk, in step order, the partial sums go through the
 //     output (a float32 store and load is exact).
+// Given a stats buffer of 7 ints (zeroed by the caller; null: not kept),
+// the launch also counts its tile choice: the pairs with live steps and,
+// over their chunks, those run at R 2 and at R 1 and the halvings (sums);
+// the most distinct rows (slots) and the widest shift span that a chunk
+// tabled, and the window floats (maxima).
 // The floor is then shared-memory bandwidth, one 4-byte load per add
 // (~2.1 ms on an H100 at production shapes).  Measured there (PERF.md),
 // the adds take ~2.6 ms, the window copies (~16 GB from L2) add ~1.5 ms
@@ -179,7 +184,8 @@ __global__ void __launch_bounds__(kThreads) induced_current_kernel(
     const int* __restrict__ tick_hi, const float* __restrict__ scale,
     const float* __restrict__ resp, float* __restrict__ out, int P,
     int n_steps, int t_sig, int ntp, int nx_r, int ny_r, int ratio,
-    float inv_bin, float lim_x, float lim_y, float max_x, float max_y) {
+    float inv_bin, float lim_x, float lim_y, float max_x, float max_y,
+    int* __restrict__ stats) {
   const int64_t sp = blockIdx.x;
   const int s = static_cast<int>(sp / P);
   float* o = out + sp * t_sig;
@@ -225,6 +231,9 @@ __global__ void __launch_bounds__(kThreads) induced_current_kernel(
   // the pair while a chunk's windows do not fit even at R = 1 (one step
   // always fits, see the launch)
   int len = kChunk;
+  // the pair's tile choice, for the stats buffer (uniform over the block)
+  int n_r2 = 0, n_r1 = 0, n_halve = 0, max_slots = 0, max_span = 0;
+  bool any_live = false;
   for (int c0 = 0; c0 < ns;) {
     const int nc = min(ns - c0, len);
     // the chunk's steps, all loads in flight at once, and their rows
@@ -312,6 +321,9 @@ __global__ void __launch_bounds__(kThreads) induced_current_kernel(
     __syncthreads();
     const int n_slots = red[2];
     const int lo_c = n_live > 0 ? red[0] : 0, hi_c = n_live > 0 ? red[1] : 0;
+    any_live = any_live || n_live > 0;
+    max_slots = max(max_slots, n_slots);
+    max_span = max(max_span, hi_c - lo_c);
 
     // the widest tile (R ticks per thread) whose windows fit, no wider
     // than the tick range needs
@@ -322,6 +334,7 @@ __global__ void __launch_bounds__(kThreads) induced_current_kernel(
       R >>= 1;
     if (R == 0) {  // uniform: the same steps again, half as many
       len = (nc + 1) >> 1;
+      ++n_halve;
       __syncthreads();  // the tables are rewritten
       continue;
     }
@@ -335,14 +348,27 @@ __global__ void __launch_bounds__(kThreads) induced_current_kernel(
     }
     __syncthreads();
     if (R == 2) {
+      ++n_r2;
       staged_tiles<2>(resp, slot_row, qoff, win, n_slots, n_live, W, hi_c,
                       ntp, ta, tb, o, sc, first, last);
     } else {
+      ++n_r1;
       staged_tiles<1>(resp, slot_row, qoff, win, n_slots, n_live, W, hi_c,
                       ntp, ta, tb, o, sc, first, last);
     }
     c0 += nc;
     __syncthreads();  // the next chunk rewrites the tables
+  }
+  if (stats != nullptr && threadIdx.x == 0) {
+    atomicMax(stats + 6, win_floats);
+    if (any_live) {
+      atomicAdd(stats, 1);
+      atomicAdd(stats + 1, n_r2);
+      atomicAdd(stats + 2, n_r1);
+      atomicAdd(stats + 3, n_halve);
+      atomicMax(stats + 4, max_slots);
+      atomicMax(stats + 5, max_span);
+    }
   }
 }
 
@@ -354,7 +380,7 @@ extern "C" int induced_current_launch(
     const int* tick_hi, const float* scale, const float* resp, float* out,
     int S, int P, int n_steps, int t_sig, int ntp, int nx_r, int ny_r,
     int ratio, float inv_bin, float lim_x, float lim_y, float max_x,
-    float max_y, cudaStream_t stream) {
+    float max_y, int* stats, cudaStream_t stream) {
   const int64_t n_blocks = static_cast<int64_t>(S) * P;
   const int nwords = (nx_r * ny_r * ratio + 1 + 31) / 32;
   // the windows must hold at least one step's (one slot of kThreads ticks)
@@ -369,6 +395,6 @@ extern "C" int induced_current_launch(
                            kSmemBytes, stream>>>(
       xs, ys, shift, phase, pxc, pyc, nstep, tick_lo, tick_hi, scale, resp,
       out, P, n_steps, t_sig, ntp, nx_r, ny_r, ratio, inv_bin, lim_x, lim_y,
-      max_x, max_y);
+      max_x, max_y, stats);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,7 @@ _COUNT_LOCK = threading.Lock()
 
 _U = ctypes.c_uint
 _SIGNATURES = {
-    'induced_current_launch': [_P] * 12 + [_I] * 8 + [_F] * 5 + [_P],
+    'induced_current_launch': [_P] * 12 + [_I] * 8 + [_F] * 5 + [_P] * 2,
     'fee_fsm_launch': [_P] * 10 + [_F] * 7 + [_I] * 7 + [_P],
     'probe_window_launch': [_P] * 2 + [_I] * 5 + [_P],
     'probe_roll_launch': [_P] * 2 + [_I] * 4 + [_P],
@@ -40,6 +40,10 @@ _SIGNATURES = {
     'probe_fee_launch': [_U] + [_P] * 13 + [_I] * 5 + [_P],
     'probe_fee2_launch': [_U] + [_P] * 13 + [_I] * 5 + [_P],
 }
+#: what K1 counts of its tile choice when given a stats buffer
+#: (csrc/induced_current.cu)
+K1_TILING = ('pairs', 'r2_chunks', 'r1_chunks', 'halvings', 'max_slots',
+             'max_span', 'window_floats')
 #: pixels and ticks per grid step of the JAX FEE probes: U and the padded
 #: tick count must be multiples of them
 PROBE_TILE, PROBE_CHUNK = 1024, 256
@@ -92,8 +96,11 @@ def _raise_on(err: int, kernel: str) -> None:
 
 
 def induced_current(xs, ys, shift, phase, pxc, pyc, nstep, tick_lo,
-                    tick_hi, scale, resp, lut) -> torch.Tensor:
-    """Launch ``csrc/induced_current.cu``; see ops.current.induced_current."""
+                    tick_hi, scale, resp, lut, stats=None) -> torch.Tensor:
+    """Launch ``csrc/induced_current.cu``; see ops.current.induced_current.
+    ``stats``, an int32 tensor of :data:`K1_TILING`'s length on the card,
+    gets the launch's tile choice added in (see
+    :func:`induced_current_tiling`)."""
     dev = xs.device
     if dev.type != 'cuda':
         raise ValueError('induced_current kernel needs CUDA tensors, '
@@ -116,6 +123,8 @@ def induced_current(xs, ys, shift, phase, pxc, pyc, nstep, tick_lo,
             ('scale', scale, f32, (S, t_sig)),
             ('resp', resp, f32, (n_rows, ntp))):
         _check(name, t, dt, shape, dev)
+    if stats is not None:
+        _check('stats', stats, i32, (len(K1_TILING),), dev)
     out = torch.empty((S, P, t_sig), dtype=f32, device=dev)
     if out.numel() == 0:
         return out
@@ -126,10 +135,25 @@ def induced_current(xs, ys, shift, phase, pxc, pyc, nstep, tick_lo,
         tick_lo.data_ptr(), tick_hi.data_ptr(), scale.data_ptr(),
         resp.data_ptr(), out.data_ptr(),
         S, P, n_steps, t_sig, ntp, lut.nx_r, lut.ny_r, lut.ratio,
-        lut.inv_bin, lut.lim_x, lut.lim_y, lut.max_x, lut.max_y)
+        lut.inv_bin, lut.lim_x, lut.lim_y, lut.max_x, lut.max_y,
+        None if stats is None else stats.data_ptr())
     _raise_on(err, 'induced_current')
     _count('induced_current')
     return out
+
+
+def induced_current_tiling(*args) -> tuple[torch.Tensor, dict]:
+    """One launch of K1 on ``args`` (those of :func:`induced_current`)
+    that also counts, on the card, the tile choice it made: the (segment,
+    pixel) pairs with live steps, their chunks run at R 2 and at R 1 ticks
+    a thread, the chunk halvings (windows that fit at no R), the most
+    distinct response rows and the widest shift span that a chunk tabled,
+    and the floats of the shared-memory windows.  Returns (output, counts
+    by :data:`K1_TILING`)."""
+    stats = torch.zeros(len(K1_TILING), dtype=torch.int32,
+                        device=args[0].device)
+    out = induced_current(*args, stats=stats)
+    return out, dict(zip(K1_TILING, stats.tolist()))
 
 
 def fee_fsm(sig_rows, noise, q_init, thresholds, tick_times, s):

@@ -83,6 +83,8 @@ class BatchStage:
     """One batch staged for the chain: drifted segments, the host-chosen
     shapes and the pixel maps (everything before the induced current)."""
     segs: Segments                # quenched + drifted, padded
+    max_active: int               # active pixels per segment (bucketed)
+    radius: int                   # neighbour radius [pixels]
     max_nb: int                   # pixels per segment (bucketed)
     t_sig: int                    # ticks of each signal window
     n_steps: int                  # sample-point cap per segment
@@ -206,7 +208,8 @@ def stage_batch(segs: Segments, det_model: DetectorModel, sim: SimParams, *,
             gains = pixel_gains.lookup(pid)[:, None]
 
     return BatchStage(
-        segs=segs, max_nb=max_nb, t_sig=t_sig,
+        segs=segs, max_active=max_active, radius=max_radius, max_nb=max_nb,
+        t_sig=t_sig,
         n_steps=n_steps, min_step=min_step, n_unique_cap=n_unique_cap,
         pixels=pixels, uniq=uniq, n_unique=n_unique, pix_idx=pix_idx,
         track_map=track_map, slot=slot, overflow=overflow, px=px, py=py,

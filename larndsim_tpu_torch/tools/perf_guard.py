@@ -58,7 +58,16 @@ multiply-adds at the FMA rate, 67e12 FLOP/s counting one as two).  K1 and
 K2 also get their launches per batch and the time of one PyTorch call
 that computes the same function, where one exists.
 
-    python -m larndsim_tpu_torch.tools.perf_guard [--log PATH]
+``--config ndlar`` stages instead the JAX guard's ND-LAr workload (one
+event of 82 tracks x 42 segments, the same cut, padded to 4096 segments;
+tools/perf_guard.py:76-86) on the generated ND-LAr-shaped tree
+(``assets.geometry.write_ndlar``: 70 TPCs, 8.96 M pixel ids, 50 ns
+sampling, 6401 ticks) and times the charge ops alone: that tree has no
+light.  Its K1 entry also gives the kernel's tile choice on that batch,
+counted by the kernel (``kernels.binding.induced_current_tiling``).
+
+    python -m larndsim_tpu_torch.tools.perf_guard [--config module0|ndlar]
+        [--log PATH]
 
 Prints one JSON line naming the card; appends it to PATH (default
 ``larndsim_tpu_torch/build/perf_guard.jsonl``, git-ignored) and warns when
@@ -98,6 +107,15 @@ LOG_PATH = os.path.join(BUILD_DIR, 'perf_guard.jsonl')
 WORKLOAD = dict(n_events=4, tracks_per_event=24, segments_per_track=42,
                 segment_length=0.4, dEdx=8.0, seed=2)
 PAD_N = 4096
+#: the JAX guard's ND-LAr workload (tools/perf_guard.py:76-86: one event of
+#: 82 tracks, written as the 2x2 one)
+NDLAR_WORKLOAD = dict(WORKLOAD, n_events=1, tracks_per_event=82)
+#: the guard's workloads by ``--config``: (input, detector description)
+CONFIGS = dict(
+    module0=(WORKLOAD, 'Module-0-shaped, generated (the 2x2 YAMLs of the '
+             'JAX guard are not in the repository)'),
+    ndlar=(NDLAR_WORKLOAD, 'ND-LAr-shaped, generated (assets.geometry.'
+           'write_ndlar; the ND-LAr YAMLs are not in the repository)'))
 #: the shapes the JAX guard logged on the TPU (PERF_LOG.jsonl rows 16, 17,
 #: 24, 25; ND-LAr: max_nb 18)
 LOGGED_SHAPES = dict(pad_n=4096, n_steps=512, t_sig=2048, n_unique_cap=16384,
@@ -257,13 +275,15 @@ def fraction_costs(signals, pix_idx, slot, track_starts, n_pix: int,
 
 def build_workload(device, directory: str, *, workload: dict = WORKLOAD,
                    pad_n: int = PAD_N, geometry: dict | None = None,
-                   seed: int = 3) -> dict:
-    """Stage the guard's batch on ``device``: a Module-0-shaped tree
-    (``geometry``: keyword arguments of ``write_module0``, the published
-    widths by default) in ``directory``, the input ``workload`` padded to
-    ``pad_n`` segments, staged by ``models.charge.stage_batch``, and the
-    induced current's arguments with a smear drawn from ``seed``."""
-    from ..assets.geometry import write_module0
+                   seed: int = 3, config: str = 'module0') -> dict:
+    """Stage the guard's batch on ``device``: a Module-0-shaped tree with
+    the light keys (``config`` 'module0') or an ND-LAr-shaped one
+    ('ndlar'; ``geometry``: keyword arguments of ``write_module0`` or
+    ``write_ndlar``, the published widths by default) in ``directory``,
+    the input ``workload`` padded to ``pad_n`` segments, staged by
+    ``models.charge.stage_batch``, and the induced current's arguments with
+    a smear drawn from ``seed``."""
+    from ..assets.geometry import write_module0, write_ndlar
     from ..assets.make_input import write_input
     from ..assets.response import make_response
     from ..io.edep import load_edep
@@ -273,8 +293,12 @@ def build_workload(device, directory: str, *, workload: dict = WORKLOAD,
     from ..params import load_detector, load_sim
     from ..segments import from_structured
 
-    paths = write_module0(os.path.join(directory, 'module0'), light=True,
-                          **(geometry or {}))
+    if config == 'ndlar':
+        paths = write_ndlar(os.path.join(directory, 'ndlar'),
+                            **(geometry or {}))
+    else:
+        paths = write_module0(os.path.join(directory, 'module0'),
+                              light=True, **(geometry or {}))
     dm = load_detector(paths['detector_properties'], paths['pixel_layout'],
                        device=device)
     sim = load_sim(paths['simulation_properties'])
@@ -715,27 +739,39 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--log', default=LOG_PATH,
                     help='JSON-lines log to append to and compare with')
+    ap.add_argument('--config', default='module0', choices=sorted(CONFIGS),
+                    help='the workload: the Module-0-shaped tree with light '
+                    '(default) or the ND-LAr-shaped tree, charge only')
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError('perf_guard times the card: no CUDA device')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda')
+    workload, detector = CONFIGS[opts.config]
+    light = opts.config == 'module0'
     with tempfile.TemporaryDirectory() as tmp:
-        w = build_workload(dev, tmp)
-        lw = build_light_workload(w)
+        w = build_workload(dev, tmp, workload=workload, config=opts.config)
+        lw = build_light_workload(w) if light else None
     launches = launches_per_batch(w)
     calls = op_calls(w)
     costs = op_costs(w, calls)
-    calls.update(light_op_calls(lw))
-    costs.update(light_op_costs(lw))
-    calls.update(light_group_calls(lw, w['sim']))
-    costs.update(light_group_costs(lw))
-    truth_calls, host_calls, truth_shapes = light_truth_calls(lw)
-    calls.update(truth_calls)
-    n_records = len(truth_calls['light_truth_pull'][0](
-        *truth_calls['light_truth_pull'][1])['tick'])
-    costs.update(light_truth_costs(truth_calls, n_records))
+    host_calls, extra = {}, {}
+    if light:
+        calls.update(light_op_calls(lw))
+        costs.update(light_op_costs(lw))
+        calls.update(light_group_calls(lw, w['sim']))
+        costs.update(light_group_costs(lw))
+        truth_calls, host_calls, truth_shapes = light_truth_calls(lw)
+        calls.update(truth_calls)
+        n_records = len(truth_calls['light_truth_pull'][0](
+            *truth_calls['light_truth_pull'][1])['tick'])
+        costs.update(light_truth_costs(truth_calls, n_records))
+        extra = dict(light_shapes=lw['shapes'],
+                     group_shapes=dict(events=N_GROUP,
+                                       pad_n=lw['shapes']['pad_n']
+                                       // N_GROUP),
+                     truth_shapes=dict(truth_shapes, records=n_records))
     ops_ms = {}
     for name, (fn, args, kw) in calls.items():
         t = timed(fn, *args, **kw)
@@ -749,19 +785,18 @@ def main(argv=None) -> dict:
     c = card()
     entry = dict(
         ts=round(time.time(), 1), rev=_git_rev(), card=c['name'],
-        smi=c['smi'],
-        workload=dict(WORKLOAD, pad_n=PAD_N, segments=w['n_segments'],
-                      detector='Module-0-shaped, generated (the 2x2 YAMLs '
-                      'of the JAX guard are not in the repository)'),
-        shapes=w['shapes'], light_shapes=lw['shapes'],
-        group_shapes=dict(events=N_GROUP,
-                          pad_n=lw['shapes']['pad_n'] // N_GROUP),
-        truth_shapes=dict(truth_shapes, records=n_records),
+        smi=c['smi'], config=opts.config,
+        workload=dict(workload, pad_n=PAD_N, segments=w['n_segments'],
+                      detector=detector, time_ticks=w['det'].time_ticks),
+        shapes=w['shapes'], **extra,
         logged_shapes=LOGGED_SHAPES, ops_ms=ops_ms, host_ms=host_ms,
         roofline=roofline,
         kernels={name: dict(launches_per_batch=launches[name],
                             library_ms=None, library=LIBRARY[name])
                  for name in ('induced_current', 'fee_fsm')})
+    from ..kernels import binding
+    entry['kernels']['induced_current']['tiling'] = \
+        binding.induced_current_tiling(*w['k1_args'])[1]
     warnings = regressions(entry, opts.log)
     entry['status'] = 'regressed' if warnings else 'ok'
     for msg in warnings:

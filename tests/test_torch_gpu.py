@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import tempfile
 import threading
 
 import numpy as np
@@ -937,3 +938,96 @@ def test_2x2_over_two_cards_gives_one_cards_datasets(cuda, tmp_path):
             mp.setattr(cli, 'light_draw', _cpu_made_draw)
             run_simulation(inp, outs[n], device=device, n_devices=n, **kw)
     assert differences(outs[1], outs[2]) == []
+
+
+def test_ndlar_kernels_are_plain(cuda, tmp_path):
+    """K1 and K2 at ND-LAr's shapes (the generated 35-module tree: 50 ns
+    sampling, t_sig 4096, 6459 FSM ticks) on a batch of two tracks of 42
+    segments, each equal to its plain version on the card."""
+    from larndsim_tpu_torch.tools import perf_guard as pg
+    w = pg.build_workload(cuda, str(tmp_path), pad_n=128, config='ndlar',
+                          workload=dict(pg.NDLAR_WORKLOAD,
+                                        tracks_per_event=2))
+    assert w['shapes']['t_sig'] == 4096
+    args = w['k1_args']
+    got = current.induced_current(*args)
+    assert float(got.abs().max()) > 0
+    assert torch.equal(got, current.current_plain(*args))
+    fsm_args = pg.op_calls(w)['fee_fsm'][1]
+    assert fsm_args[0].shape[0] == 6459
+    for a, b in zip(fee.fee_fsm(*fsm_args), fee.fee_fsm_plain(*fsm_args)):
+        assert torch.equal(a, b)
+
+
+def test_sim_step_cells_on_card_equal_sim_cell(cuda, tmp_path):
+    """``parallel.mesh.make_sharded_sim_step`` on a 2 x 2 grid on card 0
+    (beam trigger with noise, top-8 truth; each cell on a thread and
+    stream of its own): each cell equals ``sim_cell`` run alone on the
+    default stream with the same draws, bit for bit; K1 and K2 on each
+    cell's inputs equal their plain versions, bit for bit."""
+    from larndsim_tpu_torch import graft_entry as ge
+    from larndsim_tpu_torch.models import charge as charge_model
+    from larndsim_tpu_torch.models import light as light_model
+    from larndsim_tpu_torch.parallel import mesh as tmesh
+    from larndsim_tpu_torch.assets.light_lut import make_light_lut
+    from larndsim_tpu_torch.ops.light import LightLUT
+    from larndsim_tpu_torch.params import load_light
+    from larndsim_tpu_torch.segments import to_structured
+    with tempfile.TemporaryDirectory() as tmp:
+        _, det, segs, response, band = ge._example_setup(tmp, n_segments=16,
+                                                         device=cuda)
+        paths = tpa.write_tree(tmp_path, light=dict(n_op_channel=12,
+                                                    light_window=(0.0, 2.0)))
+        light = load_light(paths['detector_properties'], device=cuda)
+    lut = LightLUT.from_structured(make_light_lut((4, 6, 4), n_det_tpc=6),
+                                   cuda)
+    mesh = tmesh.make_mesh(4, 2, devices=['cuda:0'] * 4)
+    shapes = ge.light_shapes(light)
+    case = dict(add_noise=True, k_truth=8, trig_mode=1, max_trig=2)
+    step = tmesh.make_sharded_sim_step(mesh, light, torch.arange(12),
+                                       shift_band=band, **ge.STATICS,
+                                       **shapes, **case)
+    dets = tmesh.stack_module_params([det.replace(electron_lifetime=t)
+                                      for t in (2.2e3, 1e3)])
+    grid = tmesh.shard_segments([to_structured(segs)] * 4, mesh,
+                                pad_to=segs.size)
+    luts = [torch.stack([a, a]) for a in (lut.vis, lut.t0, lut.time_dist,
+                                          lut.t0_avg)]
+    noise = torch.ones((2, 12, 8), device=cuda) * 40.0
+
+    def draws(m, e):
+        gen = torch.Generator(cuda).manual_seed(2 * m + e)
+        return (charge_model.generator_draw(gen, cuda),
+                light_model.generator_draw(gen, cuda))
+    kept = collections.defaultdict(dict)
+
+    def keep(name, fn):
+        def spy(*args):
+            kept[threading.current_thread().name].setdefault(name, args)
+            return fn(*args)
+        return spy
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(current, 'induced_current',
+                   keep('k1', current.induced_current))
+        mp.setattr(fee, 'fee_fsm', keep('k2', fee.fee_fsm))
+        out = step(grid, dets, response, *luts,
+                   [[draws(m, e) for e in range(2)] for m in range(2)],
+                   noise_rows=noise)
+    assert sorted(kept) == [f'cell-{m}-{e}' for m in range(2)
+                            for e in range(2)]
+    for cell in kept.values():
+        _assert_kernel_is_plain(cell['k1'])
+        for a, b in zip(fee.fee_fsm(*cell['k2']),
+                        fee.fee_fsm_plain(*cell['k2'])):
+            assert torch.equal(a, b)
+    charge = dict(ge.STATICS, shift_band=band)
+    for m in range(2):
+        for e in range(2):
+            want = tmesh.sim_cell(
+                grid[m][e], tmesh.module_params(dets, m, cuda), response,
+                light, torch.arange(12, device=cuda), [a[m] for a in luts],
+                noise[m], draws(m, e), charge=charge, **shapes, **case)
+            for k in ('adc', 'waveforms', 'trigger_idx', 'n_triggers',
+                      'truth_ids', 'truth_contrib'):
+                assert torch.equal(out[k][m][e], want[k]), (k, m, e)
+    assert out['n_hits_total'] > 0

@@ -1,7 +1,9 @@
 """The per-op guard (``larndsim_tpu_torch.tools.perf_guard``) on the CPU:
 its staging at a tiny input, its byte and operation counts against hand
 counts, its regression check on a temporary log, and its refusal to run
-without a card.  Its times exist only on the card."""
+without a card.  Its times exist only on the card, and so does K1's count
+of its tile choice (``kernels.binding.induced_current_tiling``): that test
+is marked ``gpu`` and skipped without a CUDA device."""
 from __future__ import annotations
 
 import json
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from larndsim_tpu_torch.kernels import binding
 from larndsim_tpu_torch.ops import current
 from larndsim_tpu_torch.tools import perf_guard as pg
 
@@ -255,3 +258,84 @@ def test_grouped_beam_rows_run_and_have_a_bound(workload):
         per_event[k]['bytes'] for k in (
             'light_sum_smearing', 'light_scintillation', 'light_stat',
             'light_sipm', 'light_noise', 'light_digitize'))
+
+
+def test_ndlar_workload_stages_and_runs(tmp_path):
+    """``config='ndlar'``: the guard's batch on the ND-LAr-shaped tree (70
+    TPCs, 50 ns sampling, 6401 ticks), at a tiny input: the charge ops run
+    and have a bound."""
+    w = pg.build_workload('cpu', str(tmp_path), pad_n=8, config='ndlar',
+                          workload=dict(TINY, tracks_per_event=1,
+                                        segments_per_track=3))
+    det = w['det']
+    assert det.n_tpcs == 70 and det.time_ticks == 6401
+    assert det.time_sampling == 0.05
+    assert set(w['shapes']) == set(pg.LOGGED_SHAPES)
+    # 50 ns ticks: a signal window of ~191 us spans 4096 of them
+    assert w['shapes']['t_sig'] == 4096
+    calls = pg.op_calls(w)          # runs K1, the sum and the FSM once
+    costs = pg.op_costs(w, calls)
+    for name, (fn, args, kw) in calls.items():
+        if name not in ('induced_current', 'sum_pixel_signals', 'fee_fsm'):
+            fn(*args, **kw)
+        assert costs[name]['bytes'] > 0 and costs[name]['ops'] > 0, name
+    assert set(pg.CONFIGS) == {'module0', 'ndlar'}
+    assert pg.NDLAR_WORKLOAD['tracks_per_event'] == 82
+
+
+def _k1_case(steps_xy, shifts, t_sig=8, ntp=10, device='cpu'):
+    """K1's inputs for one segment and one pixel at the origin, sample
+    points at ``steps_xy`` (cm) with ``shifts``, ratio 1, 45 x 45 bins of
+    0.04 cm, a response of ones (its zero row zeros), ticks 1.. scaled by
+    one (K1 takes the scale as 0 below ``tick_lo``)."""
+    lut = current.LutGeometry(0.04, 45, 45, 1)
+    n = len(shifts)
+    f32, i32 = torch.float32, torch.int32
+    xy = torch.tensor(steps_xy, dtype=f32)
+    resp = torch.ones((lut.zero_row + 1, ntp), dtype=f32)
+    resp[-1] = 0.0
+    scale = torch.ones((1, t_sig), dtype=f32)
+    scale[:, 0] = 0.0
+    args = (xy[None, :, 0], xy[None, :, 1],
+            torch.tensor([shifts], dtype=i32), torch.zeros((1, n), dtype=i32),
+            torch.zeros((1, 1), dtype=f32), torch.zeros((1, 1), dtype=f32),
+            torch.tensor([n], dtype=i32), torch.tensor([1], dtype=i32),
+            torch.tensor([max(shifts)], dtype=i32),
+            scale, resp)
+    return tuple(a.contiguous().to(device) for a in args) + (lut,)
+
+
+@pytest.mark.gpu
+def test_k1_tiling_follows_the_kernel():
+    """K1 counts its own tile choice, in a launch that equals its plain
+    version.  Two steps in two bins, shifts 0 and 3, ticks 1..7: one chunk
+    of two slots, span 3, at R 1 (one thread's tick covers the 7 ticks).
+    A hundred steps in a hundred bins over 300 ticks: 100 x (256 + 0)
+    floats overfill the windows at R 2 and 100 x 128 at R 1, so the chunk
+    halves once, to two chunks of 50, each at R 1 (50 x 256 overfills
+    them).  The windows: 56 KiB less the tables of 512 steps and the
+    bitmap of 2026 rows (8784 bytes)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernel counts its tiling')
+    win = (56 * 1024 - 8784) // 4
+    case = _k1_case([(0.01, 0.01), (0.05, 0.01)], [0, 3], device='cuda')
+    out, t = binding.induced_current_tiling(*case)
+    assert torch.equal(out, current.current_plain(*case))
+    assert float(out.abs().max()) > 0
+    assert t == dict(pairs=1, r2_chunks=0, r1_chunks=1, halvings=0,
+                     max_slots=2, max_span=3, window_floats=win)
+    pts = [(0.04 * i + 0.01, 0.04 * j + 0.01) for i in range(10)
+           for j in range(10)]
+    case = _k1_case(pts, [0] * 100, t_sig=300, ntp=400, device='cuda')
+    out, t = binding.induced_current_tiling(*case)
+    assert torch.equal(out, current.current_plain(*case))
+    assert 100 * 128 > win >= 50 * 128 and 50 * 256 > win
+    assert t == dict(pairs=1, r2_chunks=0, r1_chunks=2, halvings=1,
+                     max_slots=100, max_span=0, window_floats=win)
+
+
+def test_k1_tiling_needs_the_card():
+    """The tile count exists only where the kernel runs: on CPU tensors
+    the wrapper raises, as every kernel wrapper does."""
+    with pytest.raises(ValueError, match='CUDA'):
+        binding.induced_current_tiling(*_k1_case([(0.01, 0.01)], [0]))
