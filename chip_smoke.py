@@ -7,7 +7,8 @@ Phases, one line each; any failure exits non-zero with nothing caught:
 
 1. device: torch / CUDA versions and the card's name and power limit;
 2. build: compile the CUDA kernels of ``larndsim_tpu_torch/csrc`` and the
-   LZF codec of ``csrc/host`` (host C++);
+   host libraries of ``csrc/host`` (host C++: the LZF codec, the truth
+   record emitter, the batch assigner);
 3. reference: the port's CLI on a tiny noise-free geometry, on the card
    (kernels) and on the CPU (plain versions, which tests/test_torch_*.py
    hold against the JAX package): data packets must agree; then four
@@ -141,7 +142,16 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    card, one K1 and one K2 launch a cell, the step's wall; in both the
    dry run and the timed step, the first K1 and K2 inputs of one cell
    held to their plain versions bit for bit;
-16. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
+16. host: the host runtime.  The truth slice by the host route
+   again at ``truth_workers`` 4, one native emitter call's inputs kept:
+   every dataset equal to the one-worker run's, the call's records equal
+   byte for byte to the numpy emitter's on the same inputs, both timed;
+   then the charge-only slice, the 2x2 run of the mod2mod phase (truth on)
+   and ND-LAr at its YAML's batching, each with ``pipeline`` off, on, on,
+   off: every dataset and the launches equal to the first run's, the
+   walls; the batch assigner on their inputs against its numpy version,
+   both timed;
+17. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
    (``probe_folded``): cases a-g, each in its own process (all started
    together), each OK and importing nothing of JAX; each of its three
    kernels against its plain version.  P2 / P3 (``probe_fee`` /
@@ -149,7 +159,7 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    at the probe shapes beside the FSM kernel (the entry points, launch
    counters set to 0 before and read after), then every variant equal to
    its plain version at the same shapes on a random signal;
-17. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
+18. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
    and the light truth) at production shapes, with each one's bound on
    this card and the share reached; then its ND-LAr workload
    (``--config ndlar``: one event of 82 tracks x 42 segments on the
@@ -177,11 +187,12 @@ import time
 
 import numpy as np
 
-# the slice's input (SPILLS) and the mode-0 slice's keys (MODE0_LIGHT,
-# MODE0_TRUTH), shared with the I/O measurement tool
+# the slices' inputs and keys, shared with the measurement tools
 from larndsim_tpu_torch.tools import slice_run
 from larndsim_tpu_torch.tools.slice_run import (MODE0_LIGHT, MODE0_TRUTH,
-                                                SPILLS)
+                                                NDLAR_SPILLS, NDLAR_TIMED,
+                                                SMEAR_TRUTH, SPILLS,
+                                                SPILLS_2X2)
 
 K1_SOURCE = 'larndsim_tpu_torch/csrc/induced_current.cu'
 K2_SOURCE = 'larndsim_tpu_torch/csrc/fee_fsm.cu'
@@ -196,19 +207,11 @@ P1_KERNELS = dict(probe_window=('tools/probe_folded.py:55, :92', 'a'),
                   probe_async_copy=('tools/probe_folded.py:115', 'g'))
 #: truth contributors per channel in the light phase's truth check
 LIGHT_TRUTH_IDS = 64
-#: the JAX bench's 2x2 "truth on": contributors per channel, threshold
-SMEAR_TRUTH = dict(max_light_truth_ids=50, mc_truth_threshold=0.1)
 #: bench.py's event_group_size (bench.py:216-217)
 GROUP = 4
-#: the 2x2 phase's input: bench.py's 2x2 occupancy (8 spills x 24 tracks x
-#: 42 segments, bench.py:76-95), every TPC with tracks in every spill (3
-#: each), so that the four modules trigger alike
-SPILLS_2X2 = dict(SPILLS, tracks_per_event=24, every_tpc=True)
-#: the ndlar phase's input: bench.py's ND-LAr occupancy (144 tracks x 42
-#: segments a spill, bench.py:120-136, :196-204): 2 warm-up spills (seed 1),
-#: then 4 timed spills (seed 2)
-NDLAR_SPILLS = dict(SPILLS, tracks_per_event=144)
-NDLAR_WARM, NDLAR_TIMED = 2, 4
+#: the ndlar phase's warm-up spills (seed 1), before its NDLAR_TIMED timed
+#: spills (seed 2)
+NDLAR_WARM = 2
 #: bench.py's derived ND-LAr batching (bench.py:115-126): batch_size 10000
 #: at event_group_size 32
 NDLAR_BENCH = dict(batch_size=10000, group=32)
@@ -742,8 +745,8 @@ def truth_phase(tmp: str, out_off: str, kw_l: dict, n_seg: int,
                 light_slice, light_model) -> dict:
     """The charge+light slice with the smearing truth on, once per route:
     physics equal to the truth-off run ``out_off``, the routes' records in
-    agreement.  Returns the device route's run: its keywords, output,
-    launches and wall."""
+    agreement.  Returns each route's run: its keywords, output, launches
+    and wall."""
     from larndsim_tpu_torch.assets.geometry import write_module0
     from larndsim_tpu_torch.io.h5 import File
     from larndsim_tpu_torch.tools import light_check
@@ -820,7 +823,7 @@ def truth_phase(tmp: str, out_off: str, kw_l: dict, n_seg: int,
     log('truth slice', f'device vs host route: {agree["records"]} records '
         f'agree ({agree["near"][0]} / {agree["near"][1]} within 1e-3 of the '
         'threshold)')
-    return runs['device']
+    return runs
 
 
 def grouped_phase(tmp: str, solo: dict, charge_only: dict, n_seg: int,
@@ -1244,6 +1247,7 @@ def ndlar_phase(tmp: str, main_path) -> dict:
         out = os.path.join(tmp, f'ndlar_{name}.h5')
         wall, launches, peak = main_path(out, run_kw, inp=inp)
         runs[name] = dict(out=out, wall=wall, launches=launches, peak=peak,
+                          kw=run_kw, inp=inp,
                           table=phase_table(f'ND-LAr, {name} batching'))
     pk = {}
     for name, r in runs.items():
@@ -1501,6 +1505,124 @@ def ndev_phase(tmp: str, m2m: dict, grouped: dict, main_path) -> dict:
     return out
 
 
+def assigner_walls(slices: dict) -> dict:
+    """The batch assigner on each slice's whole input, at its TPC batch
+    size: the library's groups equal to the numpy version's, both timed
+    (host wall, best of two, in turns)."""
+    from larndsim_tpu_torch.io.h5 import File
+    from larndsim_tpu_torch.params import load_detector, load_sim
+    from larndsim_tpu_torch.utils import batching
+    out = {}
+    for name, run in slices.items():
+        kw = run['kw']
+        layout = kw['pixel_layout']
+        borders = load_detector(kw['detector_properties'],
+                                layout[0] if isinstance(layout, list)
+                                else layout, device='cpu').tpc_borders
+        size = load_sim(kw['simulation_properties']).event_batch_size
+        with File(run['inp'], 'r') as f:
+            tracks = np.array(f['segments'])
+        ms = {}
+        for label, fn in (('native', batching.assign_groups),
+                          ('plain', batching.assign_groups_plain),
+                          ('plain', batching.assign_groups_plain),
+                          ('native', batching.assign_groups)):
+            t0 = time.perf_counter()
+            groups = fn(tracks, borders, size)
+            ms.setdefault(label, []).append(1e3 * (time.perf_counter() - t0))
+            assert np.array_equal(groups, batching.assign_groups_plain(
+                tracks, borders, size)), name
+        out[name] = {k: min(v) for k, v in ms.items()}
+        log('host', f'batch assigner, {name}: {len(tracks)} segments, '
+            f'{len(borders)} TPCs, {size} a batch: groups equal to the '
+            f'numpy version\'s; native {out[name]["native"]:.3f} ms, numpy '
+            f'{out[name]["plain"]:.3f} ms (host wall, best of two, in '
+            'turns)')
+    return out
+
+
+def host_phase(tmp: str, truth_host: dict, slices: dict, main_path) -> dict:
+    """The port's host runtime on the card's host.  The truth slice by the
+    host route (``truth_host``, run at ``truth_workers`` 1 by the truth
+    phase) again at ``truth_workers`` 4, one native emitter call's inputs
+    kept: every dataset equal to the one-worker run's, and the kept call's
+    records equal, byte for byte, to the numpy emitter's on the same inputs,
+    both timed.  Then each run of ``slices`` (the charge-only slice, the
+    2x2 with its production truth, ND-LAr at its YAML's batching) four
+    times more, ``pipeline`` off, on, on, off, launch counters set to 0
+    before and read after, the plain kernel versions forbidden: every
+    dataset and the launches equal to the first run's; the walls.  And the
+    batch assigner on each of their inputs (:func:`assigner_walls`)."""
+    from larndsim_tpu_torch.models import truth_emit
+    from larndsim_tpu_torch.tools.file_check import differences
+    kept, lock = [], threading.Lock()
+    native = truth_emit.records
+
+    def spy(*args, **kwargs):
+        with lock:
+            if not kept:    # the worker's buffers are reused: copies
+                kept.append(([np.array(a) if isinstance(a, np.ndarray)
+                              else a for a in args], dict(kwargs)))
+        return native(*args, **kwargs)
+    truth_emit.records = spy
+    out = os.path.join(tmp, 'slice_truth_host_w4.h5')
+    try:
+        wall4, launches4, _ = main_path(out, dict(truth_host['kw'],
+                                                  truth_workers=4))
+    finally:
+        truth_emit.records = native
+    diff = differences(truth_host['out'], out)
+    assert not diff, f'host: truth_workers 4 differs from 1: {diff}'
+    assert launches4 == truth_host['launches'], launches4
+    args, kwargs = kept[0]
+    got = truth_emit.records(*args, **kwargs)
+    want = truth_emit.records_plain(*args, **kwargs)
+    assert len(got) > 0 and got.tobytes() == want.tobytes(), \
+        'host: the native emitter\'s records differ from the numpy ones'
+    ms = {}
+    for name, fn in (('native', truth_emit.records),
+                     ('plain', truth_emit.records_plain),
+                     ('plain ', truth_emit.records_plain),
+                     ('native ', truth_emit.records)):
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        ms.setdefault(name.strip(), []).append(
+            1e3 * (time.perf_counter() - t0))
+    res = args[0]
+    log('host', f'truth slice, host route: wall {truth_host["wall"]:.3f} s '
+        f'at truth_workers 1, {wall4:.3f} s at 4, every dataset equal; one '
+        f'emitter call ({res.shape[0]} rows x {res.shape[1]} samples, '
+        f'{len(got)} records, {got.nbytes / 1e6:.3f} MB): records equal '
+        'byte for byte to the numpy emitter\'s; native '
+        f'{min(ms["native"]):.3f} ms, numpy {min(ms["plain"]):.3f} ms (host '
+        'wall, best of two, in turns)')
+    walls = dict(truth_host=dict(w1=truth_host['wall'], w4=wall4),
+                 emit_ms={k: min(v) for k, v in ms.items()},
+                 assign_ms=assigner_walls(slices))
+    for name, run in slices.items():
+        runs = {False: [], True: []}
+        for rep, pipeline in enumerate((False, True, True, False)):
+            path = os.path.join(tmp, f'pipeline_{name}_{rep}.h5')
+            wall, launches, peak = main_path(path, dict(run['kw'],
+                                                        pipeline=pipeline),
+                                             inp=run['inp'])
+            diff = differences(run['out'], path)
+            assert not diff, f'host: {name}, pipeline {pipeline}, ' \
+                f'differs from the first run: {diff}'
+            assert launches == run['launches'], (name, launches,
+                                                 run['launches'])
+            runs[pipeline].append(wall)
+            if rep == 2:
+                table = phase_table(f'{name}, pipeline on')
+        log('host', f'{name}: every dataset and the launches of each run '
+            'equal to the first run\'s; walls pipeline off / on / on / off '
+            f'{runs[False][0]:.3f} / {runs[True][0]:.3f} / '
+            f'{runs[True][1]:.3f} / {runs[False][1]:.3f} s (the first '
+            f'run {run["wall"]:.3f} s); peak device memory {peak:.2f} GiB')
+        walls[name] = dict(off=runs[False], on=runs[True], table=table)
+    return walls
+
+
 def io_phase(tmp: str, inp: str, kw: dict, charge_only_out: str,
              main_path) -> None:
     """The charge-only slice from its input rewritten chunked (gzip and
@@ -1687,19 +1809,23 @@ def main(argv=None) -> int:
     from larndsim_tpu_torch.io import lzf
     from larndsim_tpu_torch.kernels import binding, build
     from larndsim_tpu_torch.models import light as light_model
+    from larndsim_tpu_torch.models import truth_emit
     from larndsim_tpu_torch.ops import current, fee
     from larndsim_tpu_torch.params import load_detector
     from larndsim_tpu_torch.tools import light_check
+    from larndsim_tpu_torch.utils import batching
 
     t0 = time.perf_counter()
     build.load()
     log('build', f'{len(build.sources())} CUDA sources -> '
         f'{os.path.basename(build.library_path())} in '
         f'{time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds:.2f} s)')
-    t0 = time.perf_counter()
-    lzf.library()
-    log('build', f'LZF codec ({lzf.SOURCES[0].split("larndsim_tpu_torch/")[1]}'
-        f', host C++) in {time.perf_counter() - t0:.2f} s')
+    for name, mod in (('LZF codec', lzf), ('truth emitter', truth_emit),
+                      ('batch assigner', batching)):
+        t0 = time.perf_counter()
+        mod.library()
+        log('build', f'{name} ({mod.SOURCES[0].split("larndsim_tpu_torch/")[1]}'
+            f', host C++) in {time.perf_counter() - t0:.2f} s')
 
     mark('start+build')
     with tempfile.TemporaryDirectory() as tmp:
@@ -1848,8 +1974,9 @@ def main(argv=None) -> int:
             f'memory {peak_l:.2f} GiB')
         mark('light')
 
-        solo = truth_phase(tmp, out_l, kw_l, n_seg, light_slice,
-                           light_model)
+        truth_runs = truth_phase(tmp, out_l, kw_l, n_seg, light_slice,
+                                 light_model)
+        solo = truth_runs['device']
         mark('truth')
         grouped = grouped_phase(
             tmp, solo, dict(kw=kw, out=out, wall=wall, launches=launches),
@@ -1869,6 +1996,12 @@ def main(argv=None) -> int:
         mark('ndlar')
         mesh = mesh_phase(tmp)
         mark('mesh')
+        host_phase(tmp, truth_runs['host'], dict(
+            charge=dict(kw=kw, inp=inp, out=out, wall=wall,
+                        launches=launches),
+            **{'2x2': dict(m2m['runs'][1], kw=m2m['kw'], inp=m2m['inp'])},
+            ndlar_yaml=ndlar['runs']['yaml']), main_path)
+        mark('host')
 
         if opts.profile:
             profile_slice(inp, os.path.join(tmp, 'profiled.h5'), kw,

@@ -7,8 +7,9 @@ trigger (1) or the threshold trigger (0).  With module-to-module variation
 (the ``2x2`` configuration) the modules run in turn, each with its own
 layout, response, light LUT, thresholds, gains, tracks and channels, as
 the JAX CLI's sequential module loop runs them.  Flag names match the JAX
-CLI for every flag supported here, plus ``--device``, ``--truth_path`` and
-``--unique_guard``.
+CLI for every flag supported here, plus ``--device``, ``--truth_path``,
+``--unique_guard`` and ``--pipeline`` (the JAX CLI's
+``LARNDSIM_PIPELINE=1``).
 ``n_devices`` N spreads the work over N dispatch contexts, as the JAX CLI
 spreads it over N chips: event groups go round-robin over a module's
 contexts (each with its own copy of the module's tensors per card, its
@@ -56,6 +57,7 @@ from ..io import edep, export, lzf
 from ..io.edep import swap_coordinates
 from ..io.h5 import File, partial_path
 from ..models import light as light_model
+from ..models import truth_emit
 from ..models.charge import bucket, generator_draw, simulate_charge_batch
 from ..ops import light as light_ops
 from ..ops.drift import drift, select_active_volume
@@ -65,7 +67,7 @@ from ..parallel.devices import (card_scope, dispatch_stream,
 from ..params import (get_module_ids, load_detector, load_light, load_sim,
                       physics)
 from ..segments import from_structured, from_structured_group, to_structured
-from ..utils import trace
+from ..utils import batching, trace
 from ..utils.batching import TPCBatcher
 from ..utils.memlog import MemoryLogger
 from ..utils.pixel_lut import PixelLUT
@@ -258,7 +260,8 @@ def run_simulation(input_filename: str,
                    truth_workers: int = 1,
                    device='cuda',
                    truth_path: str = 'device',
-                   unique_guard: int = 65536):
+                   unique_guard: int = 65536,
+                   pipeline: bool = False):
     """Simulate the charge and light readout of a pixelated LArTPC.
 
     ``mod2mod_variation`` None follows the configuration; with it on (and
@@ -296,7 +299,12 @@ def run_simulation(input_filename: str,
     by its batch, groups are accumulated in order and each module's file
     writes pass a gate in module order, so every dataset is the same, bit
     for bit, for any N (and the unique-pixel guard decides as it does
-    with one context).  ``save_memory`` names the memory log's file (HDF5
+    with one context).  ``pipeline`` (JAX's ``LARNDSIM_PIPELINE=1``) runs
+    the groups of a module that has one context on a worker thread of that
+    context, with its own CUDA stream, so that the module's thread plans,
+    accumulates and writes while the worker computes; the output is the
+    same, bit for bit (a module with several contexts already runs so).
+    ``save_memory`` names the memory log's file (HDF5
     for .h5 / .hdf5, else npz).  ``truth_compression`` is the light
     truth's filter after the byte shuffle ('lzf', 'gzip', or 'none':
     neither).  Appended datasets are written a chunk at a time as they
@@ -365,9 +373,13 @@ def run_simulation(input_filename: str,
     if truth_compression not in export.TRUTH_COMPRESSION:
         raise ValueError(f'truth_compression {truth_compression!r}, not one '
                          f'of {export.TRUTH_COMPRESSION}')
-    if light.light_simulated and sim.max_mc_truth_ids > 0 \
-            and truth_compression == 'lzf':
-        lzf.library()               # a codec that cannot build fails here
+    # a host library that cannot build fails here
+    batching.library()
+    if light.light_simulated and sim.max_mc_truth_ids > 0:
+        if truth_compression == 'lzf':
+            lzf.library()
+        if truth_path == 'host' and light.enable_lut_smearing:
+            truth_emit.library()
     memlog = MemoryLogger(save_memory is None, device)
     memlog.start()
     t_sim0 = time.time()
@@ -539,12 +551,12 @@ def run_simulation(input_filename: str,
             print(f'Light incidence: {time.time() - t0:.2f} s')
         del segs_all
 
-        # ---- dispatch contexts (JAX cli:482-510) ----
+        # ---- dispatch contexts (JAX cli:482-519) ----
         # one copy of the module's tensors per card, shared by the
-        # contexts on it; with several contexts, each has its own stream
-        # and thread, and waits for the set-up's work before its first
-        # group
-        if len(mod_devices) == 1:
+        # contexts on it; with several contexts, or one with ``pipeline``,
+        # each has its own stream and thread, and waits for the set-up's
+        # work before its first group
+        if len(mod_devices) == 1 and not pipeline:
             ctxs = [home_ctx]
         else:
             copies = {home: home_ctx}

@@ -55,6 +55,7 @@ from ..params.light import LightParams
 from ..params.sim import SimParams
 from ..segments import Segments, stack
 from ..utils import trace
+from . import truth_emit
 
 #: cap on the simulated light ticks of one batch (cli:1125:
 #: min(nticks, 5e4))
@@ -611,41 +612,18 @@ def _emit_truth(res, rows, ids, op_channel, C: int, K: int,
                 keep_override=None, event_id: int = 0, trigger_id: int = 0):
     """Zero-suppress the (rows, S) truth values of the active contributor
     rows (``rows`` = c * K + k, ascending) of trigger ``trigger_id`` into
-    records (TRUTH_DTYPE) or a dict of columns.  Record order is (channel,
-    tick, contributor)."""
+    records (TRUTH_DTYPE, by ``truth_emit.records``; with
+    ``keep_override``, the records it keeps, by its numpy version) or a
+    dict of columns.  Record order is (channel, tick, contributor)."""
     if as_records:
         rows_k = (rows % K).astype(np.int32)
         c_starts = np.searchsorted(rows // K, np.arange(C + 1))
         if keep_override is not None:
-            keep_all = keep_override                       # (R, S)
-        else:
-            ab = _scratch2d('abs', rows.size, digit_samples, np.float32)
-            keep_all = _scratch2d('keep', rows.size, digit_samples,
-                                  np.bool_)
-            np.absolute(res, out=ab)
-            np.greater(ab, threshold, out=keep_all)
-        # count, then fill one preallocated record array channel by
-        # channel (each channel's transpose stays in cache)
-        cum_rows = np.concatenate(
-            [[0], np.cumsum(keep_all.sum(axis=1, dtype=np.int64))])
-        off_ch = cum_rows[c_starts]                        # (C+1,)
-        out_rec = np.empty(int(off_ch[-1]), TRUTH_DTYPE)
-        for c in range(C):
-            i0, i1 = int(c_starts[c]), int(c_starts[c + 1])
-            o0, o1 = int(off_ch[c]), int(off_ch[c + 1])
-            if o0 == o1:
-                continue
-            sub_t = np.ascontiguousarray(res[i0:i1].T)     # (S, kc)
-            keep_c = np.ascontiguousarray(keep_all[i0:i1].T)
-            s_i, k_i = np.nonzero(keep_c)
-            view = out_rec[o0:o1]
-            view['trigger_id'] = trigger_id
-            view['op_channel_id'] = op_channel[c]
-            view['tick'] = s_i
-            view['event_id'] = event_id
-            view['segment_id'] = ids[c, rows_k[i0:i1][k_i]]
-            view['pe_current'] = sub_t[s_i, k_i]
-        return out_rec
+            return truth_emit.records_plain(
+                res, rows_k, c_starts, op_channel, ids, threshold,
+                event_id, trigger_id, keep=keep_override)
+        return truth_emit.records(res, rows_k, c_starts, op_channel, ids,
+                                  threshold, event_id, trigger_id)
 
     dense = _scratch2d('dense', C * digit_samples, K,
                        np.asarray(res).dtype).reshape(C, digit_samples, K)

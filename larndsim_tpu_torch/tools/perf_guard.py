@@ -45,8 +45,10 @@ at the 2x2 production setting (K 50 contributors per channel, threshold
   light_truth_series   the dense (C x K, 16384) contributor series
   light_truth_product  the series times the transfer table, float32
   light_truth_pull     keep mask, nonzero and the kept records to the host
-  light_truth_host     the host route's recompute of one batch (host wall,
-                       no bound)
+  light_truth_host     the host route's recompute of one batch, its records
+                       by the native emitter (``csrc/host/truth_emit.cpp``)
+                       (host wall, no bound)
+  light_truth_host_plain  the same with the emitter's numpy version
 
 For each op: the bytes it must move (each input read once, each output
 written once) and the operations it does on these inputs, counted from this
@@ -583,8 +585,24 @@ def light_truth_calls(lw: dict, k_truth: int = TRUTH_K) -> tuple:
                  light_truth_pull=(lm._pull_dense_truth,
                                    (ids, tw, op_host, TRUTH_THRESHOLD), {})),
             dict(light_truth_host=(lm._host_smeared_truth_sparse, host_args,
-                                   dict(as_records=True))),
+                                   dict(as_records=True)),
+                 light_truth_host_plain=(host_truth_plain, host_args,
+                                         dict(as_records=True))),
             shapes)
+
+
+def host_truth_plain(*args, **kw):
+    """``models.light._host_smeared_truth_sparse`` with the records of
+    ``models.truth_emit.records_plain`` (the numpy emitter) in place of the
+    native emitter's."""
+    from ..models import light as lm
+    from ..models import truth_emit
+    native = truth_emit.records
+    truth_emit.records = truth_emit.records_plain
+    try:
+        return lm._host_smeared_truth_sparse(*args, **kw)
+    finally:
+        truth_emit.records = native
 
 
 def light_truth_costs(calls: dict, n_records: int) -> dict:

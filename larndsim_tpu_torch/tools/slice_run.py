@@ -4,7 +4,8 @@ comparison of two checkouts on the card.
 The mode-0 slice is ``chip_smoke.py``'s: the Module-0-shaped detector of
 ``assets.geometry.write_module0`` with Module-0's light keys in the
 threshold mode (:data:`MODE0_LIGHT`, :data:`MODE0_TRUTH`) and the input
-:data:`SPILLS`.
+:data:`SPILLS`.  The other slices' keys and inputs, which
+``chip_smoke.py`` and ``tools/host_walls.py`` share, are here too.
 
     python larndsim_tpu_torch/tools/slice_run.py run --tree DIR \\
         --input IN.h5 --output OUT.h5 --kw JSON
@@ -52,6 +53,16 @@ SPILLS = dict(n_events=8, tracks_per_event=16, segments_per_track=42,
 MODE0_LIGHT = dict(light_trig_mode=0, light_window=(1.0, 10.0),
                    enable_lut_smearing=False)
 MODE0_TRUTH = dict(max_light_truth_ids=50, mc_truth_threshold=0.1)
+#: the JAX bench's 2x2 "truth on": contributors per channel, threshold
+SMEAR_TRUTH = dict(max_light_truth_ids=50, mc_truth_threshold=0.1)
+#: the 2x2 slice's input: bench.py's 2x2 occupancy (8 spills x 24 tracks x
+#: 42 segments, bench.py:76-95), every TPC with tracks in every spill (3
+#: each), so that the four modules trigger alike
+SPILLS_2X2 = dict(SPILLS, tracks_per_event=24, every_tpc=True)
+#: the ND-LAr slice's input: bench.py's ND-LAr occupancy (144 tracks x 42
+#: segments a spill, bench.py:120-136, :196-204), NDLAR_TIMED spills
+NDLAR_SPILLS = dict(SPILLS, tracks_per_event=144)
+NDLAR_TIMED = 4
 #: seconds between two samples of the resident set during a run
 RSS_PERIOD = 0.005
 #: events of the warm-up run before the timed one: one spill compiles and

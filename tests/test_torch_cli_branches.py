@@ -150,14 +150,15 @@ def test_file_flags_clis_agree(tmp_path, monkeypatch):
 
 def test_run_simulation_takes_jax_parameter_order(monkeypatch):
     """JAX's 27 parameters first, in JAX's order, then the port's
-    ``device``, ``truth_path`` and ``unique_guard``; the argparse ``main``
-    takes every one of them as a flag."""
+    ``device``, ``truth_path``, ``unique_guard`` and ``pipeline``; the
+    argparse ``main`` takes every one of them as a flag."""
     import inspect
     names = list(inspect.signature(tcli.run_simulation).parameters)
     jnames = list(inspect.signature(jcli.run_simulation).parameters)
     assert len(jnames) == 27
     assert names[:27] == jnames
-    assert names[27:] == ['device', 'truth_path', 'unique_guard']
+    assert names[27:] == ['device', 'truth_path', 'unique_guard',
+                          'pipeline']
     seen = {}
     orig = tcli.run_simulation
 
@@ -168,10 +169,11 @@ def test_run_simulation_takes_jax_parameter_order(monkeypatch):
     tcli.main(['in.h5', 'out.h5', '--n_devices', '2', '--truth_compression',
                'none', '--truth_workers', '3', '--device', '[cpu, cpu]',
                '--truth_path', 'host', '--unique_guard', '0',
-               '--step_scale', '4', '--mod2mod_variation', 'true'])
+               '--step_scale', '4', '--mod2mod_variation', 'true',
+               '--pipeline', 'true'])
     assert sorted(seen) == sorted(names)
     assert (seen['n_devices'], seen['truth_compression'],
             seen['truth_workers'], seen['device'], seen['truth_path'],
             seen['unique_guard'], seen['step_scale'],
-            seen['mod2mod_variation']) == (2, 'none', 3, ['cpu', 'cpu'],
-                                           'host', 0, 4.0, True)
+            seen['mod2mod_variation'], seen['pipeline']) == (
+        2, 'none', 3, ['cpu', 'cpu'], 'host', 0, 4.0, True, True)

@@ -44,6 +44,7 @@ from larndsim_tpu_torch.models import charge as tcharge
 from larndsim_tpu_torch.parallel import devices as pdev
 from larndsim_tpu_torch.parallel import mesh as tmesh
 from larndsim_tpu_torch.tools.file_check import differences
+from larndsim_tpu_torch.utils import host_build
 from larndsim_tpu_torch.utils.memlog import MemoryLogger
 
 import torch_port_assets as tpa
@@ -316,7 +317,8 @@ def test_lzf_library_builds_once_under_threads(tmp_path, monkeypatch):
     libs = _together(8, lzf.library)
     assert all(lib is libs[0] for lib in libs)
     assert [p for p in os.listdir(tmp_path / 'build')] == [
-        os.path.basename(lzf.library_path(lzf._compiler()))]
+        os.path.basename(host_build.library_path(
+            'h5lzf', lzf.SOURCES, lzf.BUILD_DIR, host_build.compiler()))]
     raw = np.tile(np.arange(64, dtype=np.uint8), (2, 64))
     streams, sizes, skipped = lzf.encode_chunks(raw, 4)
     assert sizes.shape == (2,) and not skipped.all()

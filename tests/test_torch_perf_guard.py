@@ -198,7 +198,8 @@ def test_light_ops_run_and_have_a_bound(workload):
 def test_light_truth_rows_run_and_have_a_bound(workload):
     """The smearing-truth rows on the guard's batch (tiny here, 4
     contributors): each stage runs, the product's bound is its
-    multiply-adds, and the rows' records are the device route's."""
+    multiply-adds, and the rows' records are the device route's (the host
+    rows' with either emitter)."""
     import dataclasses
     from larndsim_tpu_torch.tools import light_check
     lw = pg.build_light_workload(workload)
@@ -211,8 +212,12 @@ def test_light_truth_rows_run_and_have_a_bound(workload):
     assert set(calls) == {'light_truth_series', 'light_truth_product',
                           'light_truth_pull'}
     outs = {name: fn(*args, **kw) for name, (fn, args, kw) in calls.items()}
-    (fn, args, kw), = host_calls.values()
-    rec = fn(*args, **kw)
+    # the host route's recompute, its records by the native emitter and by
+    # the numpy one: the same bytes
+    assert set(host_calls) == {'light_truth_host', 'light_truth_host_plain'}
+    rec, plain = (fn(*args, **kw) for fn, args, kw in (
+        host_calls['light_truth_host'], host_calls['light_truth_host_plain']))
+    assert len(rec) > 0 and plain.tobytes() == rec.tobytes()
     dev = outs['light_truth_pull']
     assert len(dev['tick']) > 0
     light_check.records_agree(
