@@ -16,17 +16,22 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    the ungrouped card run's and to the CPU's grouped run's, with fewer
    kernel launches, and, with a per-pixel threshold file, equal to the
    ungrouped run with that file;
-4. warm-up: the main path once, capturing the first batch's kernel inputs;
-5. K1 / K2: each kernel against its plain PyTorch version on the card, at
-   the first batch's shapes (and, for the FSM, a drawn case with many
-   hits), bit for bit (max |err| 0, every output equal), with CUDA-event
-   times of both;
+4. warm-up: the main path once, capturing the first batch's inputs of the
+   charge chain's four kernels;
+5. K1 / D1 / K2 / D2: each kernel against its plain PyTorch version on the
+   card, at the first batch's shapes (and, for the FSM, a drawn case with
+   many hits): K1, D1 (the waveform sum) and K2 bit for bit (max |err| 0,
+   every output equal), D2 (the current fractions) at rtol 1e-5 / atol
+   1e-6 with two launches identical, with CUDA-event times of both and
+   D1's ``index_put_`` yardstick;
 6. slice: the main path timed: ``larndsim_tpu_torch.cli.simulate_pixels.
    run_simulation``, charge only, on a Module-0-shaped detector at the
    published widths (2 TPCs x 2x4 tiles of 70x70 pixels, 78,400 pixels),
    the synthetic 45x45x1891 response and 8 spills of 16 tracks x 42
    segments, with every launch counter set to 0 before and read after;
-   the plain versions are forbidden during it; its phase table
+   the plain versions are forbidden during it (every later run of the
+   main path too), D1 launches once per K1 launch and D2 once per batch
+   in which a pixel latched; its phase table
    (``utils.trace``: self wall, thread-CPU and device time per label)
    and the host cost of one phase on the card;
 7. light: the charge+light warm-up (the slice's input on the same
@@ -122,8 +127,9 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    50 ns sampling, 6401 ticks, charge only), ``config='ndlar'`` on
    bench.py's ND-LAr occupancy (144 tracks x 42 segments a spill): a
    warm-up of 2 spills at bench's batching (batch_size 10000,
-   event_group_size 32) keeps K1's and K2's first inputs, each held to its
-   plain version bit for bit and timed, with K1's tile choice on that
+   event_group_size 32) keeps the four chain kernels' first inputs, each
+   held to its plain version (D2 at its tolerance) and timed, with K1's
+   tile choice on that
    batch counted by the kernel in the compared launch
    (``kernels.binding.induced_current_tiling``: its chunks at R 2 and R 1
    and the chunk halvings); then 4 timed spills at bench's batching and at the
@@ -140,8 +146,9 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    noise, top-8 truth) on the guard's 2x2 batch cut into four cells: each
    cell equal bit for bit to ``parallel.mesh.sim_cell`` alone on the
    card, one K1 and one K2 launch a cell, the step's wall; in both the
-   dry run and the timed step, the first K1 and K2 inputs of one cell
-   held to their plain versions bit for bit;
+   dry run and the timed step, the first K1, D1, K2 and D2 inputs of one
+   cell held to their plain versions (D2 at its tolerance), one launch of
+   each a cell;
 16. host: the host runtime.  The truth slice by the host route
    again at ``truth_workers`` 4, one native emitter call's inputs kept:
    every dataset equal to the one-worker run's, the call's records equal
@@ -161,7 +168,8 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    its plain version at the same shapes on a random signal;
 18. guard: ``tools.perf_guard`` times the chain's hot ops (charge, light
    and the light truth) at production shapes, with each one's bound on
-   this card and the share reached; then its ND-LAr workload
+   this card and the share reached (D1 and D2 with their plain versions'
+   times and D1's ``index_put_`` yardstick); then its ND-LAr workload
    (``--config ndlar``: one event of 82 tracks x 42 segments on the
    ND-LAr tree), the charge ops alone, with K1's tile choice.
 By the end neither JAX nor the JAX package ``larndsim_tpu`` may have been
@@ -198,6 +206,22 @@ K1_SOURCE = 'larndsim_tpu_torch/csrc/induced_current.cu'
 K2_SOURCE = 'larndsim_tpu_torch/csrc/fee_fsm.cu'
 K1_REPLACES = 'larndsim_tpu/ops/current_pallas.py:608'
 K2_REPLACES = 'larndsim_tpu/ops/fee_pallas.py:293'
+D1_SOURCE = 'larndsim_tpu_torch/csrc/pixel_sum.cu'
+D2_SOURCE = 'larndsim_tpu_torch/csrc/current_fractions.cu'
+#: D1 and D2 replace device ops of the JAX package that are XLA ops shaped
+#: for the TPU, not pallas_calls
+D1_REPLACES = 'larndsim_tpu/ops/accumulate.py:153'
+D2_REPLACES = 'larndsim_tpu/ops/fee.py:228'
+XLA_OPS = 'XLA ops, not a pallas_call'
+#: the charge chain's four kernels, in the chain's order
+CHAIN = ('induced_current', 'sum_pixel_signals', 'fee_fsm',
+         'current_fractions')
+#: each chain kernel's key in the kept inputs, and its guard row
+KEY = dict(induced_current='k1', sum_pixel_signals='d1', fee_fsm='k2',
+           current_fractions='d2')
+ROW = dict(induced_current='induced_current',
+           sum_pixel_signals='sum_pixel_signals', fee_fsm='fee_fsm',
+           current_fractions='current_fractions_4')
 P1_SOURCE = 'larndsim_tpu_torch/csrc/probe_window.cu'
 P23_SOURCE = 'larndsim_tpu_torch/csrc/probe_fee.cu'
 #: P1's kernels: the JAX probe's pallas_calls each replaces, and the case
@@ -419,32 +443,62 @@ def packet_events(path: str):
 
 @contextlib.contextmanager
 def kernel_inputs():
-    """K1's and K2's first inputs on each thread while the block runs
-    (``ops.current.induced_current`` and ``ops.fee.fee_fsm`` wrapped):
-    ``{thread name: {'k1': args, 'k2': args}}``, in the order of the
-    threads' first calls."""
-    from larndsim_tpu_torch.ops import current, fee
+    """The chain kernels' first inputs on each thread while the block runs
+    (``ops.current.induced_current``, ``ops.accumulate.sum_pixel_signals``,
+    ``ops.fee.fee_fsm`` and ``ops.fee.current_fractions`` wrapped):
+    ``{thread name: {'k1': args, 'k2': args, 'd1': (args, kwargs), 'd2':
+    (args, kwargs)}}``, in the order of the threads' first calls; D2's
+    first call that scans an ADC slot."""
+    from larndsim_tpu_torch.ops import accumulate, current, fee
     kept = collections.defaultdict(dict)
-    origs = (current.induced_current, fee.fee_fsm)
+    targets = ((current, 'induced_current'), (accumulate, 'sum_pixel_signals'),
+               (fee, 'fee_fsm'), (fee, 'current_fractions'))
+    origs = [getattr(mod, name) for mod, name in targets]
 
-    def keep(name, fn):
-        def spy(*args):
-            kept[threading.current_thread().name].setdefault(name, args)
-            return fn(*args)
+    def keep(key, fn):
+        def spy(*args, **kwargs):
+            if key != 'd2' or kwargs['n_adc_scan'] > 0:
+                kept[threading.current_thread().name].setdefault(
+                    key, (args, kwargs) if key[0] == 'd' else args)
+            return fn(*args, **kwargs)
         return spy
-    current.induced_current = keep('k1', origs[0])
-    fee.fee_fsm = keep('k2', origs[1])
+    for (mod, name), fn in zip(targets, origs):
+        setattr(mod, name, keep(KEY[name], fn))
     try:
         yield kept
     finally:
-        current.induced_current, fee.fee_fsm = origs
+        for (mod, name), fn in zip(targets, origs):
+            setattr(mod, name, fn)
+
+
+def kept_gib(kept) -> float:
+    """GiB of the distinct card storages that kept kernel inputs hold."""
+    import torch
+    sizes = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                sizes[x.untyped_storage().data_ptr()] = \
+                    x.untyped_storage().nbytes()
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+        elif isinstance(x, dict):
+            for y in x.values():
+                walk(y)
+    walk(kept)
+    return sum(sizes.values()) / 2 ** 30
 
 
 def hold_cell(kept: dict, cell: str, label: str) -> dict:
-    """K1 and K2 on the first inputs of mesh cell ``cell`` (its thread's
-    name) against their plain versions on the card, bit for bit."""
+    """K1, D1, K2 and D2 on the first inputs of mesh cell ``cell`` (its
+    thread's name) against their plain versions on the card: bit for bit,
+    D2 within its tolerance."""
     return dict(k1=compare_k1(kept[cell]['k1'], label, plain_once=True),
-                k2=_fsm_case(kept[cell]['k2'], label, plain_once=True))
+                d1=compare_d1(kept[cell]['d1'], label, plain_once=True),
+                k2=_fsm_case(kept[cell]['k2'], label, plain_once=True),
+                d2=compare_d2(kept[cell]['d2'], label, plain_once=True))
 
 
 def compare_k1(args, label: str = 'first batch',
@@ -520,6 +574,92 @@ def _fsm_case(args, label: str, plain_once: bool = False):
         f'bound {b["bound_ms"]:.4f} ms by {b["bound_by"]}')
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b['bound_ms'], bound_by=b['bound_by'])
+
+
+def compare_d1(call, label: str = 'first batch', plain_once: bool = False,
+               library: bool = False) -> dict:
+    """D1, the waveform sum, against its plain version on ``call`` ((args,
+    kwargs)), bit for bit, both timed (``plain_once`` as for
+    :func:`compare_k1`); with ``library`` its yardstick too, one
+    ``index_put_`` with accumulate=True of the aligned entries
+    (``tools.perf_guard.pixel_sum_library``; atol 1e-6 x peak: its atomic
+    adds run in any order)."""
+    import torch
+    from larndsim_tpu_torch.ops import accumulate
+    from larndsim_tpu_torch.tools import perf_guard as pg
+    args, kw = call
+    got = accumulate.sum_pixel_signals(*args, **kw)
+    torch.cuda.synchronize()
+    want, plain_once_ms = event_ms(
+        lambda: accumulate.sum_pixel_signals_plain(*args, **kw))
+    peak = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert peak > 0, f'D1 {label}: no waveform'
+    assert torch.equal(got, want), \
+        f'D1 {label} disagrees: max |err| {err} (peak {peak})'
+    ms = cuda_ms(lambda: accumulate.sum_pixel_signals(*args, **kw), reps=5)
+    plain_ms = plain_once_ms if plain_once else cuda_ms(
+        lambda: accumulate.sum_pixel_signals_plain(*args, **kw), reps=1)
+    lib_ms, lib = None, 'not timed on this batch'
+    if library:
+        call_lib, out = pg.pixel_sum_library(args, kw)
+        call_lib()
+        lib_err = float((out - want).abs().max())
+        assert lib_err <= 1e-6 * peak, (lib_err, peak)
+        lib_ms = cuda_ms(call_lib, reps=5)
+        lib = f'{lib_ms:.3f} ms (max |err| {lib_err:.3e})'
+        del out
+    c = pg.sum_costs(*args, kw['n_ticks'], kw['time_sampling'])
+    b = pg.bound(c['bytes'], c['ops'], ms)
+    S, P, T = args[0].shape
+    log('D1', f'waveform sum, {label} (S={S}, P={P}, T={T}, U={args[3]}, '
+        f'n_ticks={kw["n_ticks"]}): max |err| {err:.3e} (peak {peak:.4e}, '
+        f'tolerance 0); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+        f'index_put_ {lib}, bound {b["bound_ms"]:.4f} ms by '
+        f'{b["bound_by"]}')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b['bound_ms'], bound_by=b['bound_by'],
+                library_ms=lib_ms)
+
+
+def compare_d2(call, label: str = 'first batch',
+               plain_once: bool = False) -> dict:
+    """D2, the current fractions, against its plain version on ``call``
+    ((args, kwargs)) at rtol 1e-5 / atol 1e-6, two launches identical,
+    both timed (``plain_once`` as for :func:`compare_k1`)."""
+    import torch
+    from larndsim_tpu_torch.ops import fee
+    from larndsim_tpu_torch.tools import perf_guard as pg
+    args, kw = call
+    got = fee.current_fractions(*args, **kw)
+    again = fee.current_fractions(*args, **kw)
+    torch.cuda.synchronize()
+    want, plain_once_ms = event_ms(
+        lambda: fee.current_fractions_plain(*args, **kw))
+    assert float(want.max()) > 0, f'D2 {label}: no fraction'
+    assert torch.equal(got, again), f'D2 {label}: two launches differ'
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                               msg=lambda m: f'D2 {label}: {m}')
+    ms = cuda_ms(lambda: fee.current_fractions(*args, **kw), reps=5)
+    plain_ms = plain_once_ms if plain_once else cuda_ms(
+        lambda: fee.current_fractions_plain(*args, **kw), reps=1)
+    signals, pix_idx, slot, track_starts, res, det = args
+    U = res.integrals.shape[0]
+    n_a = min(kw['n_adc_scan'], kw['max_adc'])
+    c = pg.fraction_costs(signals, pix_idx, slot, track_starts,
+                          res.reset_start, res.latch_end, kw['max_tracks'],
+                          n_a, det.time_sampling)
+    b = pg.bound(c['bytes'], c['ops'], ms)
+    S, P, T = signals.shape
+    log('D2', f'current fractions, {label} (S={S}, P={P}, T={T}, U={U}, '
+        f'{n_a} of {kw["max_adc"]} ADC slots, {kw["max_tracks"]} tracks): '
+        f'max |err| {err:.3e} (rtol 1e-5 / atol 1e-6), two launches '
+        f'identical; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+        f'{b["bound_ms"]:.4f} ms by {b["bound_by"]}')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b['bound_ms'], bound_by=b['bound_by'],
+                library_ms=None, n_adc_scan=n_a)
 
 
 def compare_k2(args, det) -> dict:
@@ -1156,6 +1296,7 @@ def mod2mod_phase(tmp: str, main_path) -> dict:
     assert overlap >= 0.7, overlap
     for name in ('induced_current', 'fee_fsm'):
         assert grouped['launches'][name] < solo['launches'][name], name
+    for name in CHAIN:
         for r in runs.values():
             assert all(r['per_module'][m][name] > 0 for m in (1, 2, 3, 4)), \
                 (name, r['per_module'])
@@ -1168,13 +1309,13 @@ def mod2mod_phase(tmp: str, main_path) -> dict:
         f'{len(rec)} truth records ({rec.nbytes / 1e6:.3f} MB); light_wvfm '
         f'equal to the truth-off run\'s')
     for g, r in sorted(runs.items()):
-        per = {m: (n['induced_current'], n['fee_fsm'])
+        per = {m: tuple(n[k] for k in CHAIN)
                for m, n in sorted(r['per_module'].items())}
         log('mod2mod', f'event_group_size {g}: wall {r["wall"]:.3f} s, '
-            f'{n_seg / r["wall"]:.1f} segments/s; K1 / K2 launches '
-            f'{r["launches"]["induced_current"]} / '
-            f'{r["launches"]["fee_fsm"]}, per module {per}; peak device '
-            f'memory {r["peak"]:.2f} GiB')
+            f'{n_seg / r["wall"]:.1f} segments/s; K1 / D1 / K2 / D2 '
+            f'launches {tuple(r["launches"][k] for k in CHAIN)} (batches '
+            f'with no latch {r["launches"]["batches_unlatched"]}), per '
+            f'module {per}; peak device memory {r["peak"]:.2f} GiB')
     log('mod2mod', f'grouped: light_wvfm equal to the ungrouped run\'s, '
         f'{agree["records"]} truth records equal ({agree["near"][0]} / '
         f'{agree["near"][1]} within 1e-3 of the threshold), hit-set overlap '
@@ -1238,7 +1379,14 @@ def ndlar_phase(tmp: str, main_path) -> dict:
         f'{time.perf_counter() - t0:.2f} s')
     k1 = compare_k1(captured['k1'], 'ND-LAr batch', plain_once=True,
                     tiling=True)
+    d1 = compare_d1(captured['d1'], 'ND-LAr batch', plain_once=True)
     k2 = _fsm_case(captured['k2'], 'ND-LAr batch', plain_once=True)
+    d2 = compare_d2(captured['d2'], 'ND-LAr batch', plain_once=True)
+    # the kept inputs would count in the timed runs' peak memory
+    held = kept_gib(kept)
+    del captured, kept
+    log('ndlar', f'the warm-up\'s kept kernel inputs ({held:.2f} GiB on the '
+        'card) released before the timed runs')
 
     runs = {}
     for name, run_kw in (('bench', kw), ('yaml', dict(
@@ -1270,13 +1418,14 @@ def ndlar_phase(tmp: str, main_path) -> dict:
     for name, r in runs.items():
         log('ndlar', f'{name} batching: wall {r["wall"]:.3f} s '
             f'({r["wall"] / NDLAR_TIMED:.3f} s a spill), '
-            f'{n_seg / r["wall"]:.1f} segments/s; K1 / K2 launches '
-            f'{r["launches"]["induced_current"]} / {r["launches"]["fee_fsm"]}'
-            f'; {sum(pk[name].values())} data packets on {len(pk[name])} of '
+            f'{n_seg / r["wall"]:.1f} segments/s; K1 / D1 / K2 / D2 '
+            f'launches {tuple(r["launches"][k] for k in CHAIN)} (batches '
+            f'with no latch {r["launches"]["batches_unlatched"]}); '
+            f'{sum(pk[name].values())} data packets on {len(pk[name])} of '
             f'70 io groups; peak device memory {r["peak"]:.2f} GiB')
     log('ndlar', f'hit-set overlap of the two batchings {overlap:.3f} '
         '(>= 0.7; other charge draws)')
-    return dict(k1=k1, k2=k2, runs=runs, n_seg=n_seg)
+    return dict(k1=k1, d1=d1, k2=k2, d2=d2, runs=runs, n_seg=n_seg)
 
 
 #: the mesh phase's grid: two module rows (the second with a shorter
@@ -1315,6 +1464,7 @@ def mesh_phase(tmp: str) -> dict:
         f'({dry["n_packets"]} packets), JAX\'s checks passed, '
         f'{time.perf_counter() - t0:.2f} s')
     dry_held = hold_cell(kept, 'cell-1-0', 'dry run, cell 1-0')
+    del kept
 
     dev = torch.device('cuda', 0)
     w = pg.build_workload(dev, os.path.join(tmp, 'mesh'))
@@ -1396,8 +1546,8 @@ def mesh_phase(tmp: str) -> dict:
             for k in ('adc', 'waveforms', 'trigger_idx', 'n_triggers',
                       'truth_ids', 'truth_contrib'):
                 assert torch.equal(out[k][m][e], want[k]), (k, m, e)
-            assert per_cell[f'cell-{m}-{e}'] == dict(induced_current=1,
-                                                     fee_fsm=1), per_cell
+            assert per_cell[f'cell-{m}-{e}'] == dict.fromkeys(CHAIN, 1), \
+                per_cell
     wv = out['waveforms'][0][0]
     assert wv.shape == (ge.MAX_TRIG, C, shapes['digit_samples'])
     assert out['n_hits_total'] > 0
@@ -1410,9 +1560,9 @@ def mesh_phase(tmp: str) -> dict:
     log('mesh', f'sim step on a 2 x 2 grid on cuda:0 (C {C}, n_ticks '
         f'{shapes["n_ticks"]}, beam trigger with noise, k_truth '
         f'{ge.K_TRUTH}; charge shapes {charge}): wall {wall:.3f} s, '
-        f'{out["n_hits_total"]} pixels with a hit; segments and K1 / K2 '
-        f'launches per cell {cells}; every cell equal to sim_cell alone on '
-        'the card, bit for bit; K1 and K2 equal to their plain versions on '
+        f'{out["n_hits_total"]} pixels with a hit; segments and launches '
+        f'per cell {cells}; every cell equal to sim_cell alone on the card, '
+        'bit for bit; K1, D1, K2 and D2 held to their plain versions on '
         'the inputs of cell 1-1 and of the dry run\'s cell 1-0')
     return dict(wall=wall, launches=launches, cells=cells, held=held,
                 dry_held=dry_held)
@@ -1435,7 +1585,7 @@ def ndev_phase(tmp: str, m2m: dict, grouped: dict, main_path) -> dict:
     from larndsim_tpu_torch.tools.file_check import differences
     from larndsim_tpu_torch.tools.module_tracker import module_tracker
     solo = m2m['runs'][1]
-    want = {m: (n['induced_current'], n['fee_fsm'])
+    want = {m: tuple(n[k] for k in CHAIN)
             for m, n in sorted(solo['per_module'].items())}
     out = {}
 
@@ -1452,7 +1602,7 @@ def ndev_phase(tmp: str, m2m: dict, grouped: dict, main_path) -> dict:
             diff = differences(solo['out'], path)
             assert not diff, f'ndev: 2x2 at {n} on {name} differs from ' \
                 f'one context: {diff}'
-            per = {m: (c['induced_current'], c['fee_fsm'])
+            per = {m: tuple(c[k] for k in CHAIN)
                    for m, c in sorted(t['launches'].items())}
             assert per == want, (per, want)
             assert sorted(t['wall']) == [1, 2, 3, 4], t['wall']
@@ -1463,8 +1613,8 @@ def ndev_phase(tmp: str, m2m: dict, grouped: dict, main_path) -> dict:
             f'equal to the one-context run\'s (twice); wall {walls[0]:.3f} '
             f'/ {walls[1]:.3f} s (first / second run; one context '
             f'{solo["wall"]:.3f} s), {m2m["n_seg"] / walls[1]:.1f} '
-            f'segments/s; K1 / K2 launches per module {per} (one context '
-            f'{want}); each module thread\'s wall to its last write (s) '
+            f'segments/s; K1 / D1 / K2 / D2 launches per module {per} (one '
+            f'context {want}); each module thread\'s wall to its last write (s) '
             f'{module_walls}; peak device memory of the card {peak:.2f} GiB '
             f'(one context {solo["peak"]:.2f} GiB; the modules share it)')
         return dict(wall=walls, launches=launches, per_module=per,
@@ -1687,6 +1837,9 @@ def io_mode0(tmp: str, inp: str, kw0: dict) -> dict:
                                                  truth_compression=comp))
         assert res['launches']['induced_current'] > 0, res['launches']
         assert res['launches']['fee_fsm'] > 0, res['launches']
+        assert res['launches']['sum_pixel_signals'] == \
+            res['launches']['induced_current'], res['launches']
+        assert res['launches']['current_fractions'] > 0, res['launches']
         table = res['stdout'].rsplit('Phase breakdown:\n', 1)[1].split(
             'RESULT ')[0]
         assert 'ms device' in table, f'mode 0, {comp}: no device time'
@@ -1810,7 +1963,7 @@ def main(argv=None) -> int:
     from larndsim_tpu_torch.kernels import binding, build
     from larndsim_tpu_torch.models import light as light_model
     from larndsim_tpu_torch.models import truth_emit
-    from larndsim_tpu_torch.ops import current, fee
+    from larndsim_tpu_torch.ops import accumulate, current, fee
     from larndsim_tpu_torch.params import load_detector
     from larndsim_tpu_torch.tools import light_check
     from larndsim_tpu_torch.utils import batching
@@ -1849,46 +2002,53 @@ def main(argv=None) -> int:
             f'{det.n_tpcs} TPCs, {det.time_ticks} ticks; input {n_seg} '
             f'segments in {SPILLS["n_events"]} spills')
 
-        # warm-up run; the first call of each dispatcher keeps its inputs
-        captured = {}
-
-        def capture(mod, name):
-            orig = getattr(mod, name)
-
-            def spy(*args):
-                captured.setdefault(name, args)
-                return orig(*args)
-            setattr(mod, name, spy)
-            return orig
-
-        orig_k1 = capture(current, 'induced_current')
-        orig_k2 = capture(fee, 'fee_fsm')
-        try:
-            t0 = time.perf_counter()
+        # warm-up run; the first call of each chain kernel keeps its inputs
+        t0 = time.perf_counter()
+        with kernel_inputs() as kept:
             cli.run_simulation(inp, os.path.join(tmp, 'warm.h5'), **kw)
             torch.cuda.synchronize()
-            log('warm-up', f'slice run {time.perf_counter() - t0:.2f} s '
-                '(first call: CUDA context, allocator, response upload)')
-        finally:
-            current.induced_current, fee.fee_fsm = orig_k1, orig_k2
-
-        k1 = compare_k1(captured['induced_current'])
-        k2 = compare_k2(captured['fee_fsm'],
+        log('warm-up', f'slice run {time.perf_counter() - t0:.2f} s '
+            '(first call: CUDA context, allocator, response upload)')
+        captured = next(iter(kept.values()))
+        k1 = compare_k1(captured['k1'])
+        d1 = compare_d1(captured['d1'], library=True)
+        k2 = compare_k2(captured['k2'],
                         load_detector(paths['detector_properties'],
                                       paths['pixel_layout'],
                                       device='cuda').params)
+        d2 = compare_d2(captured['d2'])
+        # the kept inputs would count in the slices' peak memory
+        del captured, kept
 
         def forbidden(name):
             def plain(*args, **kwargs):
                 raise AssertionError(f'{name} ran on the main path')
             return plain
 
+        plain_versions = ((current, 'current_plain'),
+                          (accumulate, 'sum_pixel_signals_plain'),
+                          (fee, 'fee_fsm_plain'),
+                          (fee, 'current_fractions_plain'))
+
         def main_path(out, run_kw, inp=inp):
             """One timed slice run: launch counters set to 0 before, read
-            after; the plain kernel versions forbidden."""
-            plains = (current.current_plain, fee.fee_fsm_plain)
-            current.current_plain = forbidden('current_plain')
-            fee.fee_fsm_plain = forbidden('fee_fsm_plain')
+            after; the plain kernel versions forbidden.  D1 must launch
+            once per K1 launch, D2 once per batch in which a pixel latched
+            (the batches with no latch are counted under
+            ``batches_unlatched``)."""
+            plains = [getattr(mod, name) for mod, name in plain_versions]
+            for mod, name in plain_versions:
+                setattr(mod, name, forbidden(name))
+            batches = collections.Counter()
+            lock = threading.Lock()
+            orig_d2 = fee.current_fractions
+
+            def counted_d2(*args, **kwargs):
+                with lock:
+                    batches['latched' if kwargs['n_adc_scan'] > 0
+                            else 'unlatched'] += 1
+                return orig_d2(*args, **kwargs)
+            fee.current_fractions = counted_d2
             try:
                 torch.cuda.reset_peak_memory_stats()
                 binding.reset_launches()
@@ -1898,9 +2058,16 @@ def main(argv=None) -> int:
                 wall = time.perf_counter() - t0
                 launches = dict(binding.launches)
             finally:
-                current.current_plain, fee.fee_fsm_plain = plains
+                for (mod, name), fn in zip(plain_versions, plains):
+                    setattr(mod, name, fn)
+                fee.current_fractions = orig_d2
             assert launches['induced_current'] > 0, launches
             assert launches['fee_fsm'] > 0, launches
+            assert launches['sum_pixel_signals'] == \
+                launches['induced_current'], launches
+            assert launches['current_fractions'] == batches['latched'] > 0, \
+                (launches, batches)
+            launches['batches_unlatched'] = batches['unlatched']
             return wall, launches, torch.cuda.max_memory_allocated() / 2 ** 30
 
         out = os.path.join(tmp, 'slice.h5')
@@ -2019,64 +2186,111 @@ def main(argv=None) -> int:
                      if m.split('.')[0] in ('jax', 'flax', 'larndsim_tpu'))
     assert not foreign, f'the port imported {foreign}'
 
-    def on_2x2(name, k):
+    def on_2x2(name, k=None):
         """The kernel on the 2x2 path: launches per module (ungrouped and
-        grouped) and its check on a module-1 and a module-3 batch."""
+        grouped), and K1's / K2's checks on a module-1 and a module-3
+        batch."""
         return dict(launches_2x2={
             f'g{g}': {m: n[name] for m, n in sorted(r['per_module'].items())}
             for g, r in m2m['runs'].items()}, **{
-                f'module{m}_batch': k[m] for m in (1, 3)})
+                f'module{m}_batch': k[m] for m in (1, 3) if k})
 
     def on_ndev(name):
         """The kernel's launches under dispatch: per module of the 2x2 at
         n_devices 4, and the truth slice's at n_devices 2."""
         return dict(launches_ndev_2x2={
-            m: n[0 if name == 'induced_current' else 1]
+            m: n[CHAIN.index(name)]
             for m, n in ndev['2x2']['per_module'].items()},
             launches_ndev_module0=ndev['module0_2']['launches'][name])
 
     def at_production(name):
-        return dict(guard_ms=guard['ops_ms'][name]['min_ms'],
+        """The guard's row of the kernel at production shapes; D1 and D2
+        with their plain versions' times and the library call's there."""
+        k, row = guard['kernels'][name], ROW[name]
+        extra = {f'guard_{x}': k[x] for x in ('plain_ms', 'library_ms')
+                 if x in k}
+        return dict(guard_ms=guard['ops_ms'][row]['min_ms'],
                     guard_shapes=guard['shapes'], **{
-                        f'guard_{k}': v for k, v in
-                        guard['roofline'][name].items()},
-                    launches_per_batch=guard['kernels'][name][
-                        'launches_per_batch'],
-                    library_ms=None, library=guard['kernels'][name]['library'])
+                        f'guard_{x}': v for x, v in
+                        guard['roofline'][row].items()}, **extra,
+                    launches_per_batch=k['launches_per_batch'],
+                    library=k['library'])
 
     def on_ndlar(name, k):
         """The kernel on ND-LAr: launches of the timed spills at bench's
         batching (and at the YAML's), its check on an ND-LAr batch, and the
         guard's ND-LAr row; and on the mesh: its launches per cell and its
         checks on a cell of the step and of the dry run."""
-        key = 'k1' if name == 'induced_current' else 'k2'
+        key, row = KEY[name], ROW[name]
+        g = guard_ndlar['kernels'].get(name, {})
         return dict(
             launches_ndlar=ndlar['runs']['bench']['launches'][name],
             launches_ndlar_yaml=ndlar['runs']['yaml']['launches'][name],
             launches_mesh={c: n.get(name, 0)
                            for c, (_, n) in mesh['cells'].items()},
             mesh_cell=mesh['held'][key], dryrun_cell=mesh['dry_held'][key],
-            ndlar_batch=k, ndlar_guard_ms=guard_ndlar['ops_ms'][name][
+            ndlar_batch=k, ndlar_guard_ms=guard_ndlar['ops_ms'][row][
                 'min_ms'], ndlar_guard_shapes=guard_ndlar['shapes'], **{
-                f'ndlar_guard_{k}': v for k, v in
-                guard_ndlar['roofline'][name].items()})
+                f'ndlar_guard_{x}': g[x] for x in ('plain_ms', 'library_ms')
+                if x in g}, **{
+                f'ndlar_guard_{x}': v for x, v in
+                guard_ndlar['roofline'][row].items()})
+
+    def unlatched(run):
+        """Batches of ``run`` in which no pixel latched (no D2 launch)."""
+        return run['launches']['batches_unlatched']
 
     kernels = [
         dict(name='induced_current', route='cuda', source=K1_SOURCE,
              replaces=K1_REPLACES, launches=launches['induced_current'],
              launches_charge_light=launches_l['induced_current'],
              launches_grouped=grouped['launches']['induced_current'],
-             **k1, **at_production('induced_current'),
+             **k1, library_ms=None, **at_production('induced_current'),
              **on_2x2('induced_current', m2m['k1']),
              **on_ndev('induced_current'),
              **on_ndlar('induced_current', ndlar['k1'])),
+        dict(name='sum_pixel_signals', route='cuda', source=D1_SOURCE,
+             replaces=D1_REPLACES, replaces_kind=XLA_OPS,
+             launches=launches['sum_pixel_signals'],
+             launches_charge_light=launches_l['sum_pixel_signals'],
+             launches_grouped=grouped['launches']['sum_pixel_signals'],
+             **d1, **at_production('sum_pixel_signals'),
+             **on_2x2('sum_pixel_signals'), **on_ndev('sum_pixel_signals'),
+             **on_ndlar('sum_pixel_signals', ndlar['d1'])),
         dict(name='fee_fsm', route='cuda', source=K2_SOURCE,
              replaces=K2_REPLACES, launches=launches['fee_fsm'],
              launches_charge_light=launches_l['fee_fsm'],
              launches_grouped=grouped['launches']['fee_fsm'], **k2,
-             **at_production('fee_fsm'), **on_2x2('fee_fsm', m2m['k2']),
+             library_ms=None, **at_production('fee_fsm'),
+             **on_2x2('fee_fsm', m2m['k2']),
              **on_ndev('fee_fsm'), **on_ndlar('fee_fsm', ndlar['k2'])),
+        dict(name='current_fractions', route='cuda', source=D2_SOURCE,
+             replaces=D2_REPLACES, replaces_kind=XLA_OPS,
+             launches=launches['current_fractions'],
+             batches_unlatched=launches['batches_unlatched'],
+             launches_charge_light=launches_l['current_fractions'],
+             launches_grouped=grouped['launches']['current_fractions'],
+             batches_unlatched_grouped=unlatched(grouped),
+             batches_unlatched_2x2={f'g{g}': unlatched(r)
+                                    for g, r in m2m['runs'].items()},
+             batches_unlatched_ndlar={
+                 name: unlatched(r) for name, r in ndlar['runs'].items()},
+             **d2, **at_production('current_fractions'),
+             **on_2x2('current_fractions'), **on_ndev('current_fractions'),
+             **on_ndlar('current_fractions', ndlar['d2'])),
     ] + probes
+    for k in kernels[:4]:
+        log('kernels', f'{k["name"]}: launches slice {k["launches"]}, '
+            f'grouped {k["launches_grouped"]}, 2x2 '
+            f'{sum(k["launches_2x2"]["g1"].values())} / '
+            f'{sum(k["launches_2x2"][f"g{GROUP}"].values())}, ND-LAr '
+            f'{k["launches_ndlar"]} / {k["launches_ndlar_yaml"]}, mesh '
+            f'{k["launches_mesh"]}'
+            + (f'; batches with no latch: slice {k["batches_unlatched"]}, '
+               f'grouped {k["batches_unlatched_grouped"]}, 2x2 '
+               f'{k["batches_unlatched_2x2"]}, ND-LAr '
+               f'{k["batches_unlatched_ndlar"]}'
+               if 'batches_unlatched' in k else ''))
     log('time', 'seconds by phase: ' + ', '.join(spans))
     log('done', f'every phase passed in {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
@@ -2117,7 +2331,9 @@ def profile_slice(inp: str, out: str, kw: dict, directory: str, cli) -> None:
                  for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA}
     ours = {name: round(v, 3) for k, v in device_ms.items()
-            for name in ('induced_current_kernel', 'fee_fsm_kernel')
+            for name in ('induced_current_kernel', 'pixel_sum_kernel',
+                         'fee_fsm_kernel', 'fraction_sums_kernel',
+                         'fraction_norm_kernel')
             if name in k}
     busy_ms = sum(device_ms.values())
     log('profile', f'wall {wall:.3f} s under the profiler; device kernels '

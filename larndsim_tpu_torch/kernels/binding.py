@@ -7,7 +7,8 @@ raises if the launch reports an error, and counts the launch in
 :data:`launches` (under a lock: module and dispatch threads launch at
 once).  Callers reach them
 through the dispatching functions ``ops.current.induced_current``,
-``ops.fee.fee_fsm`` and those of the card probes in ``tools/``
+``ops.accumulate.sum_pixel_signals``, ``ops.fee.fee_fsm``,
+``ops.fee.current_fractions`` and those of the card probes in ``tools/``
 (``probe_folded``, ``probe_fee``, ``probe_fee2``).
 """
 from __future__ import annotations
@@ -25,7 +26,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: kernel launches by kernel name since the last :func:`reset_launches`;
 #: a run reads them to show that its main path went through the kernels
-launches = {'induced_current': 0, 'fee_fsm': 0, 'probe_window': 0,
+launches = {'induced_current': 0, 'sum_pixel_signals': 0, 'fee_fsm': 0,
+            'current_fractions': 0, 'probe_window': 0,
             'probe_roll': 0, 'probe_async_copy': 0, 'probe_fee': 0,
             'probe_fee2': 0}
 _COUNT_LOCK = threading.Lock()
@@ -34,6 +36,8 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     'induced_current_launch': [_P] * 12 + [_I] * 8 + [_F] * 5 + [_P] * 2,
     'fee_fsm_launch': [_P] * 10 + [_F] * 7 + [_I] * 7 + [_P],
+    'pixel_sum_launch': [_P] * 5 + [_I] * 4 + [_P],
+    'current_fractions_launch': [_P] * 7 + [_F] + [_P] + [_I] * 7 + [_P],
     'probe_window_launch': [_P] * 2 + [_I] * 5 + [_P],
     'probe_roll_launch': [_P] * 2 + [_I] * 4 + [_P],
     'probe_async_copy_launch': [_P] * 2 + [_I] * 6 + [_P],
@@ -194,6 +198,68 @@ def fee_fsm(sig_rows, noise, q_init, thresholds, tick_times, s):
     _raise_on(err, 'fee_fsm')
     _count('fee_fsm')
     return integrals, ticks, n_adc, reset_start, latch_end
+
+
+def sum_pixel_signals(signals, entries, offsets, start,
+                      n_ticks: int) -> torch.Tensor:
+    """Launch ``csrc/pixel_sum.cu``; see ops.accumulate.sum_pixel_signals
+    and ops.accumulate.pixel_sum_inputs (the CSR ``entries`` / ``offsets``
+    and the clamped ``start`` ticks).  Returns (U, n_ticks) float32."""
+    dev = _cuda(signals, 'sum_pixel_signals')
+    S, P, T = signals.shape
+    U = offsets.shape[0] - 1
+    for name, t, dt, shape in (
+            ('signals', signals, torch.float32, (S, P, T)),
+            ('entries', entries, torch.int64, (S * P,)),
+            ('offsets', offsets, torch.int32, (U + 1,)),
+            ('start', start, torch.int32, (S,))):
+        _check(name, t, dt, shape, dev)
+    out = torch.empty((U, n_ticks), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    err = _launch(_lib().pixel_sum_launch, dev, signals.data_ptr(),
+                  entries.data_ptr(), offsets.data_ptr(), start.data_ptr(),
+                  out.data_ptr(), U, P, T, n_ticks)
+    _raise_on(err, 'sum_pixel_signals')
+    _count('sum_pixel_signals')
+    return out
+
+
+def current_fractions(signals, pix_idx, slot, start, reset_start,
+                      latch_end, A, dt: float, *, max_adc: int,
+                      max_tracks: int, n_adc_scan: int) -> torch.Tensor:
+    """Launch ``csrc/current_fractions.cu``; see ops.fee.current_fractions
+    and ops.fee.fraction_inputs (``start`` ticks and the 0-d ``A``).
+    The first ``n_adc_scan`` slots are evaluated; with none the fractions
+    are zeros and nothing is launched.  Returns (U, max_adc, max_tracks)
+    float32."""
+    dev = _cuda(signals, 'current_fractions')
+    S, P, T = signals.shape
+    U = reset_start.shape[0]
+    if not 0 <= n_adc_scan <= max_adc:
+        raise ValueError(f'n_adc_scan {n_adc_scan} outside [0, {max_adc}]')
+    f32, i32 = torch.float32, torch.int32
+    for name, t, dtype, shape in (
+            ('signals', signals, f32, (S, P, T)),
+            ('pix_idx', pix_idx, i32, (S, P)), ('slot', slot, i32, (S, P)),
+            ('start', start, i32, (S,)),
+            ('reset_start', reset_start, i32, (U, max_adc)),
+            ('latch_end', latch_end, i32, (U, max_adc)),
+            ('A', A, f32, ())):
+        _check(name, t, dtype, shape, dev)
+    if n_adc_scan == 0:
+        return torch.zeros((U, max_adc, max_tracks), dtype=f32, device=dev)
+    num = torch.empty((U, max_adc, max_tracks), dtype=f32, device=dev)
+    if num.numel() == 0:
+        return num
+    err = _launch(
+        _lib().current_fractions_launch, dev, signals.data_ptr(),
+        pix_idx.data_ptr(), slot.data_ptr(), start.data_ptr(),
+        reset_start.data_ptr(), latch_end.data_ptr(), A.data_ptr(), dt,
+        num.data_ptr(), S, P, T, U, max_adc, max_tracks, n_adc_scan)
+    _raise_on(err, 'current_fractions')
+    _count('current_fractions')
+    return num
 
 
 def _cuda(t: torch.Tensor, kernel: str) -> torch.device:

@@ -4,7 +4,9 @@ Counterpart of ``larndsim_tpu.ops.accumulate``: sort / searchsorted
 primitives in place of the reference's atomic scatter-adds and linear
 searches (detsim.py:468-607).  Every reduction here is deterministic:
 scatters write each address at most once, and the per-pixel waveform sum
-adds contributions in a fixed order (see :func:`sum_pixel_signals`).
+adds contributions in a fixed order (see :func:`sum_pixel_signals`): on
+CUDA tensors the kernel ``csrc/pixel_sum.cu``, on CPU tensors
+:func:`sum_pixel_signals_plain`, the same bits.
 """
 from __future__ import annotations
 
@@ -116,10 +118,71 @@ def track_pixel_map(pix_idx: torch.Tensor, distances: torch.Tensor,
         overflow[:n_unique_cap]
 
 
+def _start_ticks(track_starts: torch.Tensor, T: int, n_ticks: int,
+                 dt: torch.Tensor) -> torch.Tensor:
+    """Each entry window's first global tick, round(track_start / dt),
+    clamped as the JAX op clamps it (int64)."""
+    start_tick = torch.round(track_starts / dt).to(torch.int64)
+    # the JAX op places each window at clip(start + T, 0, n_ticks + T) in a
+    # buffer padded by T ticks in front
+    return torch.clamp(start_tick + T, 0, n_ticks + T) - T
+
+
+def _sort_by_pixel(pix_idx: torch.Tensor):
+    """The flat (segment, pixel) entries stably sorted by pixel, padding
+    (-1) last: (sorted keys, entry indices)."""
+    flat_pix = pix_idx.reshape(-1)
+    return torch.sort(torch.where(flat_pix < 0, _INT_MAX, flat_pix),
+                      stable=True)
+
+
+def pixel_sum_inputs(signals: torch.Tensor, pix_idx: torch.Tensor,
+                     track_starts: torch.Tensor, n_unique_cap: int, *,
+                     n_ticks: int, time_sampling: float):
+    """The waveform-sum kernel's inputs, made on the tensors' device with
+    no read to the host: ``entries`` (S * P,) int64, the flat entries in
+    :func:`sum_pixel_signals_plain`'s order (stable by pixel); ``offsets``
+    (n_unique_cap + 1,) int32, pixel u's entries being
+    ``entries[offsets[u]:offsets[u + 1]]``; ``start`` (S,) int32, each
+    segment's clamped first tick, by the plain version's expressions."""
+    T = signals.shape[2]
+    dev = signals.device
+    # a fill, not a copy from the host: the same float32 as torch.tensor
+    dt = torch.full((), time_sampling, dtype=torch.float32, device=dev)
+    start = _start_ticks(track_starts, T, n_ticks, dt).to(torch.int32)
+    keys, entries = _sort_by_pixel(pix_idx)
+    offsets = torch.searchsorted(
+        keys, torch.arange(n_unique_cap + 1, dtype=keys.dtype, device=dev),
+        out_int32=True)
+    return entries, offsets, start
+
+
 def sum_pixel_signals(signals: torch.Tensor, pix_idx: torch.Tensor,
                       track_starts: torch.Tensor, n_unique_cap: int, *,
                       n_ticks: int, time_sampling: float):
-    """Sum per-(segment, pixel) signal windows into per-pixel waveforms.
+    """Sum per-(segment, pixel) signal windows into per-pixel waveforms;
+    the kernel ``csrc/pixel_sum.cu`` on CUDA tensors (inputs from
+    :func:`pixel_sum_inputs`), :func:`sum_pixel_signals_plain` on CPU
+    tensors, the same bits.
+
+    Returns:
+        (n_unique_cap, n_ticks) float32 summed waveforms.
+    """
+    if signals.device.type == 'cpu':
+        return sum_pixel_signals_plain(
+            signals, pix_idx, track_starts, n_unique_cap, n_ticks=n_ticks,
+            time_sampling=time_sampling)
+    from ..kernels import binding
+    return binding.sum_pixel_signals(
+        signals, *pixel_sum_inputs(signals, pix_idx, track_starts,
+                                   n_unique_cap, n_ticks=n_ticks,
+                                   time_sampling=time_sampling), n_ticks)
+
+
+def sum_pixel_signals_plain(signals: torch.Tensor, pix_idx: torch.Tensor,
+                            track_starts: torch.Tensor, n_unique_cap: int, *,
+                            n_ticks: int, time_sampling: float):
+    """Plain PyTorch version of the waveform-sum kernel.
 
     (reference detsim.sum_pixel_signals.)  Each entry's window starts at
     global tick round(track_start / dt), clamped as the JAX op clamps it;
@@ -127,7 +190,7 @@ def sum_pixel_signals(signals: torch.Tensor, pix_idx: torch.Tensor,
     added in ascending segment order: pass k adds every pixel's k-th
     entry, and within a pass every address is written once, so the sum is
     the same bits on every run and every device.  The number of passes is
-    the one value read back to the host.
+    read back to the host.
 
     Returns:
         (n_unique_cap, n_ticks) float32 summed waveforms.
@@ -136,14 +199,9 @@ def sum_pixel_signals(signals: torch.Tensor, pix_idx: torch.Tensor,
     U = n_unique_cap
     dev = signals.device
     dt = torch.tensor(time_sampling, dtype=torch.float32, device=dev)
-    start_tick = torch.round(track_starts / dt).to(torch.int64)
-    # the JAX op places each window at clip(start + T, 0, n_ticks + T) in a
-    # buffer padded by T ticks in front
-    start_tick = torch.clamp(start_tick + T, 0, n_ticks + T) - T
+    start_tick = _start_ticks(track_starts, T, n_ticks, dt)
 
-    flat_pix = pix_idx.reshape(-1)
-    order = torch.sort(torch.where(flat_pix < 0, _INT_MAX, flat_pix),
-                       stable=True)
+    order = _sort_by_pixel(pix_idx)
     present = order.values != _INT_MAX
     rank = torch.where(present, _group_rank(order.values), -1)
     n_pass = int(rank.max()) + 1 if rank.numel() else 0

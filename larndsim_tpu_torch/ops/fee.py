@@ -5,7 +5,9 @@ fee.py:517-656, and fee.digitize, fee.py:499-515).  The filtered charge is
 the exact O(1)-per-tick IIR of the JAX package:
 S(t) = A*S(t-1) + I(t), q(t) = S(t)*dt*(1-A), A = exp(-dt/tau).  The FSM
 runs in :func:`fee_fsm`: on CUDA tensors the kernel ``csrc/fee_fsm.cu``,
-on CPU tensors :func:`fee_fsm_plain`.
+on CPU tensors :func:`fee_fsm_plain`; the current fractions in
+:func:`current_fractions`: the kernel ``csrc/current_fractions.cu``, or
+:func:`current_fractions_plain`.
 """
 from __future__ import annotations
 
@@ -193,11 +195,51 @@ def get_adc_values(pixels_signals: torch.Tensor, tick_times: torch.Tensor,
         s))
 
 
+def fraction_inputs(track_starts: torch.Tensor, det: DetectorParams):
+    """The fraction kernel's inputs besides the chain's tensors, made on
+    the tensors' device with no read to the host, by the plain version's
+    expressions: ``start`` (S,) int32, round(track_start / dt), not
+    clamped; ``A`` 0-d float32, exp(-dt / buffer_risetime)."""
+    # a fill, not a copy from the host: the same float32 as torch.tensor
+    dt_t = torch.full((), det.time_sampling, dtype=torch.float32,
+                      device=track_starts.device)
+    return (torch.round(track_starts / dt_t).to(torch.int32),
+            torch.exp(-dt_t / det.buffer_risetime))
+
+
 def current_fractions(signals: torch.Tensor, pix_idx: torch.Tensor,
                       slot: torch.Tensor, track_starts: torch.Tensor,
                       fee: FeeResult, det: DetectorParams, *, max_adc: int,
                       max_tracks: int, n_adc_scan: int) -> torch.Tensor:
-    """Per-(pixel, adc, track-slot) current fractions, closed form.
+    """Per-(pixel, adc, track-slot) current fractions; the kernel
+    ``csrc/current_fractions.cu`` on CUDA tensors (no launch when no ADC
+    slot is scanned: the fractions are then zeros; another device
+    raises), and
+    :func:`current_fractions_plain` on CPU tensors.  The two agree at
+    rtol 1e-5 / atol 1e-6 (their sums run in other orders).
+
+    Returns:
+        (U, max_adc, max_tracks) float32.
+    """
+    if signals.device.type == 'cpu':
+        return current_fractions_plain(
+            signals, pix_idx, slot, track_starts, fee, det, max_adc=max_adc,
+            max_tracks=max_tracks, n_adc_scan=n_adc_scan)
+    from ..kernels import binding
+    start, A = fraction_inputs(track_starts, det)
+    return binding.current_fractions(
+        signals, pix_idx, slot, start, fee.reset_start, fee.latch_end,
+        A.reshape(()), float(np.float32(det.time_sampling)),
+        max_adc=max_adc, max_tracks=max_tracks,
+        n_adc_scan=max(min(n_adc_scan, max_adc), 0))
+
+
+def current_fractions_plain(signals: torch.Tensor, pix_idx: torch.Tensor,
+                            slot: torch.Tensor, track_starts: torch.Tensor,
+                            fee: FeeResult, det: DetectorParams, *,
+                            max_adc: int, max_tracks: int,
+                            n_adc_scan: int) -> torch.Tensor:
+    """Plain PyTorch version of the fraction kernel, closed form.
 
     The weight of current I(j) in an ADC with accumulation window [r, e] is
     dt*(1 - A^(e-j+1)); fractions are normalized by the total accumulated

@@ -56,9 +56,13 @@ run's shapes and data; the bound on this card (the larger of bytes / 3.35
 TB/s and float32 operations / 33.5e12 per second, from an H100 SXM's
 published peaks); which of the two sets it; and the share of the bound
 reached (the light ops: bytes only, but the truth product: its
-multiply-adds at the FMA rate, 67e12 FLOP/s counting one as two).  K1 and
-K2 also get their launches per batch and the time of one PyTorch call
-that computes the same function, where one exists.
+multiply-adds at the FMA rate, 67e12 FLOP/s counting one as two).  The
+four kernels of the charge chain (K1, K2, the waveform sum D1 and the
+current fractions D2) also get their launches per batch and the time of
+one PyTorch call that computes the same function, where one exists (D1:
+``Tensor.index_put_(..., accumulate=True)`` of the aligned entries, timed
+here only and checked against the kernel once; the port never calls it);
+D1 and D2 also the time of their plain versions on the same inputs.
 
 ``--config ndlar`` stages instead the JAX guard's ND-LAr workload (one
 event of 82 tracks x 42 segments, the same cut, padded to 4096 segments;
@@ -126,8 +130,8 @@ N_ADC_SCAN = 4
 #: float32 operations per (tick, pixel) of the FSM body (ops/fee.py step():
 #: integrator 2, charge 2, sum 1, ADC 2, latch test 3, fire test 5)
 FSM_OPS = 15
-#: per (slot, segment, pixel, tick) of current_fractions: window tests 3,
-#: exponent 3, weight 3, product, select, sum
+#: per (slot, segment, pixel, tick) of current_fractions inside the slot's
+#: window: window tests 3, exponent 3, weight 3, product, select, sum
 FRACTION_OPS = 12
 #: per value of digitize: gain, offsets, clamp, scale, divide, round, clamp
 DIGITIZE_OPS = 8
@@ -145,7 +149,18 @@ LIBRARY = dict(
     '(segment, pixel, step) picks its own response row and shift); no one '
     'PyTorch call computes it',
     fee_fsm='none: a sequential per-pixel state machine with data-dependent '
-    'writes; no one PyTorch call computes it')
+    'writes; no one PyTorch call computes it',
+    sum_pixel_signals='Tensor.index_put_(accumulate=True) of the aligned '
+    'entries into the zeroed (U, n_ticks) waveforms (atomic adds, in '
+    'another order on each run); timed here only, never called by the '
+    'port',
+    current_fractions='none: weighted sums over data-dependent tick '
+    'windows, scattered by track slot and normalised; no one PyTorch call '
+    'computes it')
+#: the guard's row of D1 and D2, the chain's kernels timed beside their
+#: plain versions
+CHAIN_ROWS = dict(sum_pixel_signals='sum_pixel_signals',
+                  current_fractions='current_fractions_4')
 
 
 class Timing(NamedTuple):
@@ -235,16 +250,28 @@ def k1_costs(args) -> dict:
                 ops=adds + muls + ROW_OPS * lookups)
 
 
+def _start_ticks(track_starts, time_sampling: float) -> torch.Tensor:
+    """Each segment's first global tick, round(track_start / dt) in
+    float32 as the waveform sum and the fractions compute it (int64)."""
+    dt = torch.full((), time_sampling, dtype=torch.float32,
+                    device=track_starts.device)
+    return torch.round(track_starts / dt).long()
+
+
 def sum_costs(signals, pix_idx, track_starts, n_unique_cap: int,
               n_ticks: int, time_sampling: float) -> dict:
-    """The (S, P, T) signals, the maps and the (U, n_ticks) output once;
-    one add per valid entry's tick that lands inside [0, n_ticks)."""
+    """One add per valid entry's tick that lands inside [0, n_ticks); the
+    signal values those adds read (the rest of the (S, P, T) signals, the
+    padding entries' rows and the ticks outside the readout, is not
+    needed: this run's data sets the count), the maps and the (U,
+    n_ticks) output once."""
     S, P, T = signals.shape
-    start = torch.round(track_starts.double() / time_sampling).long()
+    start = _start_ticks(track_starts, time_sampling)
     inside = (torch.clamp(start + T, max=n_ticks)
               - torch.clamp(start, min=0)).clamp(min=0)             # (S,)
     adds = int(((pix_idx >= 0).sum(dim=1) * inside).sum())
-    return dict(bytes=nbytes(signals, pix_idx, track_starts)
+    return dict(bytes=adds * signals.element_size()
+                + nbytes(pix_idx, track_starts)
                 + n_unique_cap * n_ticks * 4, ops=adds)
 
 
@@ -262,17 +289,96 @@ def fsm_costs(n_scan: int, n_pix: int, max_adc: int, n_times: int, *,
     return dict(bytes=n_in + out, ops=FSM_OPS * n_scan * n_pix)
 
 
-def fraction_costs(signals, pix_idx, slot, track_starts, n_pix: int,
-                   max_adc: int, max_tracks: int, n_adc_scan: int) -> dict:
-    """Signals and maps in, the ADC windows of the scanned slots in, the
-    (U, max_adc, max_tracks) fractions out; FRACTION_OPS per scanned
-    (slot, valid entry, tick)."""
-    S, P, T = signals.shape
-    ok = int(((pix_idx >= 0) & (slot >= 0)).sum())
-    return dict(bytes=nbytes(signals, pix_idx, slot, track_starts)
+def window_ticks(signals, pix_idx, slot, track_starts, reset_start,
+                 latch_end, n_adc_scan: int, time_sampling: float) -> int:
+    """The (scanned slot, valid entry, tick) triples of the current
+    fractions: the ticks of each entry's row inside its pixel's window
+    [reset_start, latch_end] of each scanned slot that latched.  A
+    pixel's windows do not overlap, so each is also a signal value read
+    once."""
+    T = signals.shape[2]
+    ok = (pix_idx >= 0) & (slot >= 0)
+    u = torch.where(ok, pix_idx, 0).long()
+    st = _start_ticks(track_starts, time_sampling)[:, None]
+    n = 0
+    for a in range(n_adc_scan):
+        r, e = reset_start[:, a].long()[u], latch_end[:, a].long()[u]
+        length = (torch.clamp(e - st, max=T - 1)
+                  - torch.clamp(r - st, min=0) + 1).clamp(min=0)
+        n += int(torch.where(ok & (e >= 0), length, 0).sum())
+    return n
+
+
+def fraction_costs(signals, pix_idx, slot, track_starts, reset_start,
+                   latch_end, max_tracks: int, n_adc_scan: int,
+                   time_sampling: float) -> dict:
+    """FRACTION_OPS per (scanned slot, valid entry, tick inside the slot's
+    window), :func:`window_ticks`; the signal values in those windows
+    (this run's data sets the count, not the whole (S, P, T) signals),
+    the maps and the windows of the scanned slots in, the (U, max_adc,
+    max_tracks) fractions out."""
+    n_pix, max_adc = reset_start.shape
+    n_in = window_ticks(signals, pix_idx, slot, track_starts, reset_start,
+                        latch_end, n_adc_scan, time_sampling)
+    return dict(bytes=n_in * signals.element_size()
+                + nbytes(pix_idx, slot, track_starts)
                 + 2 * n_pix * n_adc_scan * 4 + n_pix * max_adc
                 * max_tracks * 4,
-                ops=FRACTION_OPS * n_adc_scan * ok * T)
+                ops=FRACTION_OPS * n_in)
+
+
+def aligned_entries(signals, pix_idx, track_starts, n_unique_cap: int, *,
+                    n_ticks: int, time_sampling: float):
+    """The waveform sum's yardstick inputs: the flat address u * n_ticks +
+    g and the value of every valid entry's tick g inside [0, n_ticks), its
+    window placed by ``ops.accumulate.pixel_sum_inputs``."""
+    from ..ops import accumulate
+    T = signals.shape[2]
+    _, _, start = accumulate.pixel_sum_inputs(
+        signals, pix_idx, track_starts, n_unique_cap, n_ticks=n_ticks,
+        time_sampling=time_sampling)
+    g = start.long()[:, None, None] + torch.arange(T, device=signals.device)
+    keep = (pix_idx >= 0)[:, :, None] & (g >= 0) & (g < n_ticks)
+    addr = pix_idx.long()[:, :, None] * n_ticks + g
+    return addr[keep], signals[keep]
+
+
+def pixel_sum_library(args, kw) -> tuple:
+    """D1's yardstick: (one call of ``index_put_`` with accumulate=True of
+    the aligned entries into a (U, n_ticks) buffer, that buffer), the
+    entries made once, outside the call."""
+    addr, vals = aligned_entries(*args, **kw)
+    out = torch.zeros((args[3], kw['n_ticks']), dtype=torch.float32,
+                      device=vals.device)
+    flat = out.view(-1)
+    return (lambda: flat.index_put_((addr,), vals, accumulate=True)), out
+
+
+def chain_kernel_rows(calls: dict) -> dict:
+    """D1's and D2's plain versions timed on their rows' inputs, and D1's
+    yardstick timed and checked once against the kernel (atol 1e-6 x
+    peak: its atomic adds run in any order): {kernel: {plain_ms,
+    library_ms}}."""
+    from ..ops import accumulate, fee
+    plains = dict(sum_pixel_signals=accumulate.sum_pixel_signals_plain,
+                  current_fractions=fee.current_fractions_plain)
+    rows = {}
+    for name, row in CHAIN_ROWS.items():
+        _, args, kw = calls[row]
+        rows[name] = dict(row=row, library_ms=None,
+                          plain_ms=timed(plains[name], *args, **kw).min_ms)
+    _, args, kw = calls['sum_pixel_signals']
+    call, out = pixel_sum_library(args, kw)
+    call()
+    want = accumulate.sum_pixel_signals(*args, **kw)
+    peak = float(want.abs().max())
+    err = float((out - want).abs().max())
+    if not err <= 1e-6 * peak:
+        raise AssertionError(f'index_put_ yardstick disagrees with the '
+                             f'waveform sum: max |err| {err}, peak {peak}')
+    rows['sum_pixel_signals']['library_ms'] = timed(call).min_ms
+    del out
+    return rows
 
 
 def build_workload(device, directory: str, *, workload: dict = WORKLOAD,
@@ -698,8 +804,10 @@ def op_costs(w: dict, calls: dict) -> dict:
         fee_fsm=fsm_costs(n_scan, U, m, n_times, drawn=False),
         get_adc_values=fsm_costs(n_scan, U, m, n_times, drawn=True),
         current_fractions_4=fraction_costs(
-            signals, st.pix_idx, st.slot, st.track_starts, U, m,
-            sim.max_tracks_per_pixel, N_ADC_SCAN),
+            *calls['current_fractions_4'][1][:4],
+            calls['current_fractions_4'][1][4].reset_start,
+            calls['current_fractions_4'][1][4].latch_end,
+            sim.max_tracks_per_pixel, N_ADC_SCAN, det.time_sampling),
         digitize=dict(bytes=2 * U * m * 4, ops=DIGITIZE_OPS * U * m))
 
 
@@ -812,6 +920,9 @@ def main(argv=None) -> dict:
         kernels={name: dict(launches_per_batch=launches[name],
                             library_ms=None, library=LIBRARY[name])
                  for name in ('induced_current', 'fee_fsm')})
+    for name, r in chain_kernel_rows(calls).items():
+        entry['kernels'][name] = dict(launches_per_batch=launches[name],
+                                      library=LIBRARY[name], **r)
     from ..kernels import binding
     entry['kernels']['induced_current']['tiling'] = \
         binding.induced_current_tiling(*w['k1_args'])[1]
@@ -824,6 +935,12 @@ def main(argv=None) -> dict:
               f'({ops_ms[name]["mean_ms"]:.3f} mean), bound '
               f'{r["bound_ms"]:.4f} ms by {r["bound_by"]}, share '
               f'{r["share"]:.4f}  [{c["smi"]}]', flush=True)
+    for name, k in entry['kernels'].items():
+        if 'plain_ms' in k:
+            lib = 'none' if k['library_ms'] is None else \
+                f'{k["library_ms"]:.3f} ms'
+            print(f'guard {k["row"]:>20}: plain version {k["plain_ms"]:9.3f}'
+                  f' ms min, library call {lib}  [{c["smi"]}]', flush=True)
     for name, t in host_ms.items():
         print(f'guard {name:>20}: {t["min_ms"]:9.3f} ms min '
               f'({t["mean_ms"]:.3f} mean), host wall, no bound  '

@@ -89,7 +89,7 @@ def child(opts) -> None:
     from larndsim_tpu_torch.cli import simulate_pixels as cli
     from larndsim_tpu_torch.kernels import binding, build
     from larndsim_tpu_torch.models import light as light_model
-    from larndsim_tpu_torch.ops import current, fee
+    from larndsim_tpu_torch.ops import accumulate, current, fee
     from larndsim_tpu_torch.utils import trace
     kw = json.loads(opts.kw)
     on_card = kw.get('device', 'cuda') == 'cuda'
@@ -101,6 +101,8 @@ def child(opts) -> None:
         def forbidden(*args, **kwargs):
             raise AssertionError('a plain kernel version ran on the card')
         current.current_plain = fee.fee_fsm_plain = forbidden
+        accumulate.sum_pixel_signals_plain = forbidden
+        fee.current_fractions_plain = forbidden
     warm = opts.output + '.warm'
     cli.run_simulation(opts.input, warm, n_events=WARM_EVENTS, **kw)
     os.remove(warm)

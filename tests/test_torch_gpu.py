@@ -37,7 +37,14 @@ as one mode-0 group call against their solo calls, bit for bit.
 Multi-device dispatch: K1 launched from a new thread on each card's
 tensors equals its plain version; the CLI with two contexts on card 0
 (and, with two cards, the 2x2 over both) gives every dataset of the
-one-context run, bit for bit.
+one-context run, bit for bit.  The waveform sum (D1) equals its plain
+version under ``torch.equal`` on random inputs and on a chain batch, and
+makes no synchronising call; the current fractions (D2) agree with theirs
+at rtol 1e-5 / atol 1e-6 (JAX's tolerance for the op; the sums run in
+other orders) and two launches give the same bits; both bindings refuse a
+wrong dtype or a non-contiguous tensor; the CLI on the card runs none of
+the four plain versions, D1 once per K1 launch and D2 once per batch in
+which a pixel latched.
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ from larndsim_tpu_torch.assets.response import make_response
 from larndsim_tpu_torch.io.h5 import File
 from larndsim_tpu_torch.kernels import binding
 from larndsim_tpu_torch.models.charge import pixel_centers
-from larndsim_tpu_torch.ops import current, fee, pixelize
+from larndsim_tpu_torch.ops import accumulate, current, fee, pixelize
 from larndsim_tpu_torch.ops.drift import drift
 from larndsim_tpu_torch.ops.quench import quench
 from larndsim_tpu_torch.params import physics
@@ -1031,3 +1038,192 @@ def test_sim_step_cells_on_card_equal_sim_cell(cuda, tmp_path):
                       'truth_ids', 'truth_contrib'):
                 assert torch.equal(out[k][m][e], want[k]), (k, m, e)
     assert out['n_hits_total'] > 0
+
+
+# --------------------------------------------------------------------------
+# the charge chain's waveform sum (D1) and current fractions (D2)
+# --------------------------------------------------------------------------
+
+def _pixel_sum_case(device, seed, S=64, P=12, T=300, U=200, n_ticks=1500):
+    """D1's arguments on random inputs: padding, empty pixels, windows
+    clamped at both ends of the readout."""
+    rng = np.random.default_rng(seed)
+    pix = rng.integers(0, U // 2, (S, P)).astype(np.int32) * 2
+    pix[rng.uniform(size=(S, P)) < 0.3] = -1
+    pix[:, 0] = 7                       # a pixel with an entry a segment
+    signals = rng.normal(size=(S, P, T)).astype(np.float32) * 1e3
+    starts = np.round(rng.uniform(-45.0, 160.0, S), 2).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    return (t(signals), t(pix), t(starts), U), dict(n_ticks=n_ticks,
+                                                    time_sampling=0.1)
+
+
+@pytest.fixture(scope='module')
+def chain_batch(cuda, tmp_path_factory):
+    """D1's and D2's arguments as the chain makes them on the card: the
+    guard's Module-0-shaped batch (1 event of 6 tracks, padded to 256)."""
+    from larndsim_tpu_torch.tools import perf_guard as pg
+    w = pg.build_workload(cuda, str(tmp_path_factory.mktemp('chain')),
+                          pad_n=256, workload=dict(pg.WORKLOAD, n_events=1,
+                                                   tracks_per_event=6))
+    calls = pg.op_calls(w)
+    return dict(d1=calls['sum_pixel_signals'][1:],
+                d2=calls['current_fractions_4'][1:])
+
+
+def _assert_pixel_sum_is_plain(args, kw):
+    before = binding.launches['sum_pixel_signals']
+    got = accumulate.sum_pixel_signals(*args, **kw)
+    torch.cuda.synchronize()
+    assert binding.launches['sum_pixel_signals'] == before + 1
+    want = accumulate.sum_pixel_signals_plain(*args, **kw)
+    assert float(want.abs().max()) > 0
+    assert got.shape == want.shape and torch.equal(got, want), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_pixel_sum_kernel_equals_plain(cuda, seed):
+    _assert_pixel_sum_is_plain(*_pixel_sum_case(cuda, seed))
+
+
+def test_pixel_sum_kernel_on_a_chain_batch(chain_batch):
+    _assert_pixel_sum_is_plain(*chain_batch['d1'])
+
+
+def test_pixel_sum_makes_no_synchronising_call(chain_batch):
+    """The kernel's inputs are made on the card: no read to the host."""
+    args, kw = chain_batch['d1']
+    accumulate.sum_pixel_signals(*args, **kw)      # the library loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = accumulate.sum_pixel_signals(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert torch.equal(got, accumulate.sum_pixel_signals_plain(*args, **kw))
+
+
+def _fractions_case(device, det, seed, S=48, P=10, T=400, U=96, max_adc=5,
+                    max_tracks=8):
+    """D2's arguments on random inputs: every (pixel, slot) once, windows
+    with r > e, unlatched slots (e = -1) and windows partly outside the
+    entries' rows."""
+    rng = np.random.default_rng(seed)
+    pix = np.full((S, P), -1, np.int32)
+    slot = np.full((S, P), -1, np.int32)
+    used = set()
+    for s in range(S):
+        for p in range(P):
+            u, k = int(rng.integers(U)), int(rng.integers(max_tracks))
+            if (u, k) not in used:
+                used.add((u, k))
+                pix[s, p], slot[s, p] = u, k
+    starts = np.round(rng.uniform(0.0, 40.0, S), 2).astype(np.float32)
+    r = rng.integers(0, 700, (U, max_adc)).astype(np.int32)
+    e = (r + rng.integers(-5, 300, (U, max_adc))).astype(np.int32)
+    e[rng.uniform(size=(U, max_adc)) < 0.2] = -1
+    signals = (rng.normal(size=(S, P, T)) * 1e3 + 300.0).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    res = fee.FeeResult(torch.zeros((U, max_adc), device=device),
+                        torch.zeros((U, max_adc), device=device),
+                        torch.zeros(U, dtype=torch.int32, device=device),
+                        t(r), t(e))
+    return (t(signals), t(pix), t(slot), t(starts), res, det), dict(
+        max_adc=max_adc, max_tracks=max_tracks, n_adc_scan=max_adc - 1)
+
+
+def _assert_fractions_match_plain(args, kw):
+    """Within rtol 1e-5 / atol 1e-6 of the plain version, and two launches
+    give the same bits."""
+    before = binding.launches['current_fractions']
+    got = fee.current_fractions(*args, **kw)
+    again = fee.current_fractions(*args, **kw)
+    torch.cuda.synchronize()
+    assert binding.launches['current_fractions'] == before + 2
+    want = fee.current_fractions_plain(*args, **kw)
+    assert float(want.max()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_current_fractions_kernel_matches_plain(cuda, tmp_path, seed):
+    det = tpa.load_port(tpa.write_tree(tmp_path), cuda).params
+    _assert_fractions_match_plain(*_fractions_case(cuda, det, seed))
+
+
+def test_current_fractions_kernel_on_a_chain_batch(chain_batch):
+    _assert_fractions_match_plain(*chain_batch['d2'])
+
+
+def test_chain_kernels_refuse_wrong_inputs(cuda, tmp_path):
+    det = tpa.load_port(tpa.write_tree(tmp_path), cuda).params
+    (sig, pix, starts, U), kw = _pixel_sum_case(cuda, 3)
+    entries, offsets, start = accumulate.pixel_sum_inputs(sig, pix, starts,
+                                                          U, **kw)
+    n = kw['n_ticks']
+    with pytest.raises(TypeError, match='signals'):
+        binding.sum_pixel_signals(sig.double(), entries, offsets, start, n)
+    with pytest.raises(TypeError, match='offsets'):
+        binding.sum_pixel_signals(sig, entries, offsets.long(), start, n)
+    odd = sig.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match='not contiguous'):
+        binding.sum_pixel_signals(odd, entries, offsets, start, n)
+    (sig, pix, slot, starts, res, det), kw = _fractions_case(cuda, det, 4)
+    st, A = fee.fraction_inputs(starts, det)
+    good = (sig, pix, slot, st, res.reset_start, res.latch_end, A, 0.1)
+    kw = dict(max_adc=kw['max_adc'], max_tracks=kw['max_tracks'],
+              n_adc_scan=2)
+    for i, bad in ((0, sig.half()), (3, st.long()), (4, res.reset_start.t()
+                                                      .contiguous().t())):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises((TypeError, ValueError)):
+            binding.current_fractions(*args, **kw)
+    with pytest.raises(ValueError, match='n_adc_scan'):
+        binding.current_fractions(*good, **dict(kw, n_adc_scan=6))
+    before = binding.launches['current_fractions']
+    none = binding.current_fractions(*good, **dict(kw, n_adc_scan=0))
+    assert binding.launches['current_fractions'] == before
+    assert none.shape == (res.reset_start.shape[0], 5, 8) and not none.any()
+
+
+def test_main_path_runs_the_four_kernels(cuda, tmp_path):
+    """The CLI on the card with every plain version forbidden: D1 launches
+    once per K1 launch, D2 once per batch in which a pixel latched."""
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    paths = tpa.write_tree(tmp_path / 'tree')
+    inp = str(tmp_path / 'in.h5')
+    write_input(inp, tpa.load_port(paths).tpc_borders, n_events=3,
+                tracks_per_event=3, segments_per_track=6, segment_length=0.4,
+                dEdx=8.0, seed=2)
+    calls = collections.Counter()
+    orig = fee.current_fractions
+
+    def counted(*args, **kw):
+        calls['latched' if kw['n_adc_scan'] > 0 else 'unlatched'] += 1
+        return orig(*args, **kw)
+
+    def forbidden(*args, **kw):
+        raise AssertionError('a plain version ran on the card')
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name in ((current, 'current_plain'),
+                          (accumulate, 'sum_pixel_signals_plain'),
+                          (fee, 'fee_fsm_plain'),
+                          (fee, 'current_fractions_plain')):
+            mp.setattr(mod, name, forbidden)
+        mp.setattr(fee, 'current_fractions', counted)
+        mp.setattr(binding, 'launches', dict(binding.launches))
+        binding.reset_launches()
+        run_simulation(inp, str(tmp_path / 'out.h5'), device='cuda',
+                       config='module0',
+                       detector_properties=paths['detector_properties'],
+                       pixel_layout=paths['pixel_layout'],
+                       simulation_properties=paths['simulation_properties'],
+                       response_file=str(tmp_path / 'r.npy'), rand_seed=7,
+                       step_scale=2.0)
+        n = dict(binding.launches)
+    assert n['induced_current'] > 0 and calls['latched'] > 0
+    assert n['sum_pixel_signals'] == n['induced_current'], n
+    assert n['current_fractions'] == calls['latched'], (n, calls)

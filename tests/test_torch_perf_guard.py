@@ -83,21 +83,50 @@ def test_k1_count_matches_a_hand_count():
 
 def test_other_counts_match_hand_counts():
     # two segments of three pixels (one padding), windows at ticks 2 and
-    # -1 of 4 ticks each, 5 output ticks: 2 x 3 + 2 x 3 adds
+    # -1 of 4 ticks each, 5 output ticks: 2 x 3 + 2 x 3 adds, each reading
+    # one signal value (the padding's and the outside ticks' are not read)
     signals = torch.zeros((2, 3, 4))
     pix_idx = torch.tensor([[0, 1, -1], [1, 2, -1]], dtype=torch.int32)
     starts = torch.tensor([0.2, -0.1])
     c = pg.sum_costs(signals, pix_idx, starts, 8, 5, 0.1)
     assert c['ops'] == 2 * 3 + 2 * 3
-    assert c['bytes'] == (24 + 6 + 2) * 4 + 8 * 5 * 4
+    assert c['bytes'] == (12 + 6 + 2) * 4 + 8 * 5 * 4
     c = pg.fsm_costs(100, 64, 30, 11, drawn=False)
     assert c['ops'] == pg.FSM_OPS * 100 * 64
     assert c['bytes'] == (100 * 6 * 64 + 2 * 64 + 11) * 4 + 64 * 121 * 4
     c = pg.fsm_costs(100, 64, 30, 11, drawn=True)
     assert c['bytes'] == (64 * 10 + 64 + 11) * 4 + 64 * 121 * 4
+    # three entries with a slot (pixels 0 and 1 at row start 2, pixels 1
+    # and 2 at -1); slot 0: pixel 0's window [0, 3] holds its entry's ticks
+    # 0-1, pixel 1's [0, 10] ticks 1-3; slot 1: pixel 0's r > e and pixel
+    # 1's [20, 30] hold none, pixel 2's [0, 0] tick 1; the rest unlatched
     slot = torch.tensor([[0, -1, -1], [0, 0, -1]], dtype=torch.int32)
-    c = pg.fraction_costs(signals, pix_idx, slot, starts, 8, 30, 50, 4)
-    assert c['ops'] == pg.FRACTION_OPS * 4 * 3 * 4
+    r = torch.full((8, 30), -1, dtype=torch.int32)
+    e = torch.full((8, 30), -1, dtype=torch.int32)
+    r[:3, 0], e[:3, 0] = torch.tensor([0, 0, 0]), torch.tensor([3, 10, -1])
+    r[:3, 1], e[:3, 1] = torch.tensor([5, 20, 0]), torch.tensor([4, 30, 0])
+    c = pg.fraction_costs(signals, pix_idx, slot, starts, r, e, 50, 4, 0.1)
+    assert c['ops'] == pg.FRACTION_OPS * (2 + 3 + 1)
+    assert c['bytes'] == (6 + 6 + 6 + 2) * 4 + 2 * 8 * 4 * 4 + 8 * 30 * 50 * 4
+
+
+def test_pixel_sum_yardstick_computes_the_sum(workload):
+    """D1's yardstick (``index_put_`` of the aligned entries, timed only on
+    the card) computes the waveform sum: atol 1e-6 x peak against the
+    plain version (its adds run in another order), one address per valid
+    entry's tick inside the readout."""
+    from larndsim_tpu_torch.ops import accumulate
+    _, args, kw = pg.op_calls(workload)['sum_pixel_signals']
+    call, out = pg.pixel_sum_library(args, kw)
+    call()
+    want = accumulate.sum_pixel_signals_plain(*args, **kw)
+    peak = float(want.abs().max())
+    assert peak > 0
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-6 * peak)
+    addr, vals = pg.aligned_entries(*args, **kw)
+    assert len(addr) == len(vals) == pg.sum_costs(
+        *args, kw['n_ticks'], kw['time_sampling'])['ops']
+    assert set(pg.CHAIN_ROWS) <= set(pg.LIBRARY)
 
 
 def test_bound_takes_the_larger_time():
