@@ -20,10 +20,12 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    charge chain's four kernels;
 5. K1 / D1 / K2 / D2: each kernel against its plain PyTorch version on the
    card, at the first batch's shapes (and, for the FSM, a drawn case with
-   many hits): K1, D1 (the waveform sum) and K2 bit for bit (max |err| 0,
-   every output equal), D2 (the current fractions) at rtol 1e-5 / atol
-   1e-6 with two launches identical, with CUDA-event times of both and
-   D1's ``index_put_`` yardstick;
+   many hits): K1, D1 (the waveform sum, in the FSM's tick-major rows
+   form and the (U, n_ticks) form) and K2 bit for bit (max |err| 0, every
+   output equal), D2 (the current fractions) at rtol 1e-5 / atol 1e-6
+   with two launches, and one on a CSR made for it, identical, with
+   CUDA-event times of both (D1 and D2 alone and with their input build)
+   and D1's ``index_put_`` yardstick;
 6. slice: the main path timed: ``larndsim_tpu_torch.cli.simulate_pixels.
    run_simulation``, charge only, on a Module-0-shaped detector at the
    published widths (2 TPCs x 2x4 tiles of 70x70 pixels, 78,400 pixels),
@@ -198,9 +200,9 @@ import numpy as np
 # the slices' inputs and keys, shared with the measurement tools
 from larndsim_tpu_torch.tools import slice_run
 from larndsim_tpu_torch.tools.slice_run import (MODE0_LIGHT, MODE0_TRUTH,
-                                                NDLAR_SPILLS, NDLAR_TIMED,
-                                                SMEAR_TRUTH, SPILLS,
-                                                SPILLS_2X2)
+                                                NDLAR_BENCH, NDLAR_SPILLS,
+                                                NDLAR_TIMED, SMEAR_TRUTH,
+                                                SPILLS, SPILLS_2X2)
 
 K1_SOURCE = 'larndsim_tpu_torch/csrc/induced_current.cu'
 K2_SOURCE = 'larndsim_tpu_torch/csrc/fee_fsm.cu'
@@ -220,8 +222,8 @@ CHAIN = ('induced_current', 'sum_pixel_signals', 'fee_fsm',
 KEY = dict(induced_current='k1', sum_pixel_signals='d1', fee_fsm='k2',
            current_fractions='d2')
 ROW = dict(induced_current='induced_current',
-           sum_pixel_signals='sum_pixel_signals', fee_fsm='fee_fsm',
-           current_fractions='current_fractions_4')
+           sum_pixel_signals='sum_pixel_signals_with_csr', fee_fsm='fee_fsm',
+           current_fractions='current_fractions_4_with_csr')
 P1_SOURCE = 'larndsim_tpu_torch/csrc/probe_window.cu'
 P23_SOURCE = 'larndsim_tpu_torch/csrc/probe_fee.cu'
 #: P1's kernels: the JAX probe's pallas_calls each replaces, and the case
@@ -236,9 +238,6 @@ GROUP = 4
 #: the ndlar phase's warm-up spills (seed 1), before its NDLAR_TIMED timed
 #: spills (seed 2)
 NDLAR_WARM = 2
-#: bench.py's derived ND-LAr batching (bench.py:115-126): batch_size 10000
-#: at event_group_size 32
-NDLAR_BENCH = dict(batch_size=10000, group=32)
 
 
 def log(phase: str, msg: str) -> None:
@@ -578,75 +577,110 @@ def _fsm_case(args, label: str, plain_once: bool = False):
 
 def compare_d1(call, label: str = 'first batch', plain_once: bool = False,
                library: bool = False) -> dict:
-    """D1, the waveform sum, against its plain version on ``call`` ((args,
-    kwargs)), bit for bit, both timed (``plain_once`` as for
+    """D1, the waveform sum, on ``call`` ((args, kwargs) as the chain
+    passes them: the FSM's ``rows`` and the batch's CSR) against its plain
+    version, bit for bit, in the rows form and in the (U, n_ticks) form;
+    timed alone (the CSR given) and with its input build (the CSR made in
+    the call), the plain version too (``plain_once`` as for
     :func:`compare_k1`); with ``library`` its yardstick too, one
-    ``index_put_`` with accumulate=True of the aligned entries
-    (``tools.perf_guard.pixel_sum_library``; atol 1e-6 x peak: its atomic
-    adds run in any order)."""
+    ``index_put_`` with accumulate=True of the aligned entries into the
+    (rows, U) buffer (``tools.perf_guard.pixel_sum_library``; atol 1e-6 x
+    peak: its atomic adds run in any order)."""
     import torch
+    from larndsim_tpu_torch.kernels import binding
     from larndsim_tpu_torch.ops import accumulate
     from larndsim_tpu_torch.tools import perf_guard as pg
     args, kw = call
-    got = accumulate.sum_pixel_signals(*args, **kw)
+    signals, pix_idx, track_starts, U = args
+    base = dict(n_ticks=kw['n_ticks'], time_sampling=kw['time_sampling'])
+    rows = kw.get('rows') or kw['n_ticks']
+    csr = kw.get('csr') or accumulate.pixel_csr(
+        pix_idx, track_starts, U, time_sampling=kw['time_sampling'])
+    got = accumulate.sum_pixel_signals(*args, **base, rows=rows, csr=csr)
+    got_u = accumulate.sum_pixel_signals(*args, **base)
     torch.cuda.synchronize()
-    want, plain_once_ms = event_ms(
-        lambda: accumulate.sum_pixel_signals_plain(*args, **kw))
+    want_u, plain_once_ms = event_ms(
+        lambda: accumulate.sum_pixel_signals_plain(*args, **base))
+    want = accumulate.sum_pixel_signals_plain(*args, **base, rows=rows)
     peak = float(want.abs().max())
-    err = float((got - want).abs().max())
+    err = max(float((got - want).abs().max()),
+              float((got_u - want_u).abs().max()))
     assert peak > 0, f'D1 {label}: no waveform'
-    assert torch.equal(got, want), \
+    assert torch.equal(got, want) and torch.equal(got_u, want_u), \
         f'D1 {label} disagrees: max |err| {err} (peak {peak})'
-    ms = cuda_ms(lambda: accumulate.sum_pixel_signals(*args, **kw), reps=5)
+    del got_u, want_u
+    ms = cuda_ms(lambda: binding.sum_pixel_rows(
+        signals, csr.pairs, csr.offsets, kw['n_ticks'], rows), reps=5)
+    ms_inputs = cuda_ms(lambda: accumulate.sum_pixel_signals(
+        *args, **base, rows=rows), reps=5)
     plain_ms = plain_once_ms if plain_once else cuda_ms(
-        lambda: accumulate.sum_pixel_signals_plain(*args, **kw), reps=1)
+        lambda: accumulate.sum_pixel_signals_plain(*args, **base, rows=rows),
+        reps=1)
     lib_ms, lib = None, 'not timed on this batch'
     if library:
-        call_lib, out = pg.pixel_sum_library(args, kw)
+        call_lib, out = pg.pixel_sum_library(args, dict(base, rows=rows))
         call_lib()
         lib_err = float((out - want).abs().max())
         assert lib_err <= 1e-6 * peak, (lib_err, peak)
         lib_ms = cuda_ms(call_lib, reps=5)
         lib = f'{lib_ms:.3f} ms (max |err| {lib_err:.3e})'
         del out
-    c = pg.sum_costs(*args, kw['n_ticks'], kw['time_sampling'])
+    c = pg.sum_costs(*args, kw['n_ticks'], kw['time_sampling'], rows=rows)
     b = pg.bound(c['bytes'], c['ops'], ms)
-    S, P, T = args[0].shape
-    log('D1', f'waveform sum, {label} (S={S}, P={P}, T={T}, U={args[3]}, '
-        f'n_ticks={kw["n_ticks"]}): max |err| {err:.3e} (peak {peak:.4e}, '
-        f'tolerance 0); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
-        f'index_put_ {lib}, bound {b["bound_ms"]:.4f} ms by '
-        f'{b["bound_by"]}')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b['bound_ms'], bound_by=b['bound_by'],
-                library_ms=lib_ms)
+    S, P, T = signals.shape
+    log('D1', f'waveform sum, {label} (S={S}, P={P}, T={T}, U={U}, '
+        f'n_ticks={kw["n_ticks"]}, rows={rows}): max |err| {err:.3e} (peak '
+        f'{peak:.4e}, tolerance 0; rows and (U, n_ticks) forms); kernel '
+        f'{ms:.3f} ms alone, {ms_inputs:.3f} ms with its CSR made, plain '
+        f'{plain_ms:.3f} ms, index_put_ {lib}, bound {b["bound_ms"]:.4f} '
+        f'ms by {b["bound_by"]} (share {b["share"]:.4f})')
+    return dict(max_abs_err=err, ms=ms, ms_with_inputs=ms_inputs,
+                plain_ms=plain_ms, bound_ms=b['bound_ms'],
+                bound_by=b['bound_by'], library_ms=lib_ms)
 
 
 def compare_d2(call, label: str = 'first batch',
                plain_once: bool = False) -> dict:
-    """D2, the current fractions, against its plain version on ``call``
-    ((args, kwargs)) at rtol 1e-5 / atol 1e-6, two launches identical,
-    both timed (``plain_once`` as for :func:`compare_k1`)."""
+    """D2, the current fractions, on ``call`` ((args, kwargs) as the chain
+    passes them, with the batch's CSR) against its plain version at rtol
+    1e-5 / atol 1e-6; two launches, and a launch whose CSR is made in the
+    call, identical; timed alone (the CSR and A given) and with its input
+    build, the plain version too (``plain_once`` as for
+    :func:`compare_k1`)."""
     import torch
-    from larndsim_tpu_torch.ops import fee
+    from larndsim_tpu_torch.kernels import binding
+    from larndsim_tpu_torch.ops import accumulate, fee
     from larndsim_tpu_torch.tools import perf_guard as pg
     args, kw = call
-    got = fee.current_fractions(*args, **kw)
-    again = fee.current_fractions(*args, **kw)
+    kw = pg.plain_kw(kw)
+    signals, pix_idx, slot, track_starts, res, det = args
+    U = res.integrals.shape[0]
+    csr = call[1].get('csr') or accumulate.pixel_csr(
+        pix_idx, track_starts, U, time_sampling=det.time_sampling)
+    got = fee.current_fractions(*args, **kw, csr=csr)
+    again = fee.current_fractions(*args, **kw, csr=csr)
+    built = fee.current_fractions(*args, **kw)
     torch.cuda.synchronize()
     want, plain_once_ms = event_ms(
         lambda: fee.current_fractions_plain(*args, **kw))
     assert float(want.max()) > 0, f'D2 {label}: no fraction'
     assert torch.equal(got, again), f'D2 {label}: two launches differ'
+    assert torch.equal(got, built), \
+        f'D2 {label}: the shared CSR and a CSR made for it differ'
     err = float((got - want).abs().max())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
                                msg=lambda m: f'D2 {label}: {m}')
-    ms = cuda_ms(lambda: fee.current_fractions(*args, **kw), reps=5)
+    n_a = min(kw['n_adc_scan'], kw['max_adc'])
+    A = fee.fraction_decay(det, signals.device)
+    dt = float(np.float32(det.time_sampling))
+    ms = cuda_ms(lambda: binding.current_fractions(
+        signals, csr.pairs, csr.offsets, slot, res.reset_start,
+        res.latch_end, A, dt, max_adc=kw['max_adc'],
+        max_tracks=kw['max_tracks'], n_adc_scan=n_a,
+        n_weights=fee.scan_ticks(det) + 2), reps=5)
+    ms_inputs = cuda_ms(lambda: fee.current_fractions(*args, **kw), reps=5)
     plain_ms = plain_once_ms if plain_once else cuda_ms(
         lambda: fee.current_fractions_plain(*args, **kw), reps=1)
-    signals, pix_idx, slot, track_starts, res, det = args
-    U = res.integrals.shape[0]
-    n_a = min(kw['n_adc_scan'], kw['max_adc'])
     c = pg.fraction_costs(signals, pix_idx, slot, track_starts,
                           res.reset_start, res.latch_end, kw['max_tracks'],
                           n_a, det.time_sampling)
@@ -654,12 +688,14 @@ def compare_d2(call, label: str = 'first batch',
     S, P, T = signals.shape
     log('D2', f'current fractions, {label} (S={S}, P={P}, T={T}, U={U}, '
         f'{n_a} of {kw["max_adc"]} ADC slots, {kw["max_tracks"]} tracks): '
-        f'max |err| {err:.3e} (rtol 1e-5 / atol 1e-6), two launches '
-        f'identical; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
-        f'{b["bound_ms"]:.4f} ms by {b["bound_by"]}')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b['bound_ms'], bound_by=b['bound_by'],
-                library_ms=None, n_adc_scan=n_a)
+        f'max |err| {err:.3e} (rtol 1e-5 / atol 1e-6), two launches and the '
+        f'CSR made for it identical; kernel {ms:.3f} ms alone, '
+        f'{ms_inputs:.3f} ms with its inputs made, plain {plain_ms:.3f} ms, '
+        f'bound {b["bound_ms"]:.4f} ms by {b["bound_by"]} (share '
+        f'{b["share"]:.4f})')
+    return dict(max_abs_err=err, ms=ms, ms_with_inputs=ms_inputs,
+                plain_ms=plain_ms, bound_ms=b['bound_ms'],
+                bound_by=b['bound_by'], library_ms=None, n_adc_scan=n_a)
 
 
 def compare_k2(args, det) -> dict:
@@ -670,7 +706,7 @@ def compare_k2(args, det) -> dict:
     dev = args[0].device
     gen = torch.Generator(dev).manual_seed(11)
     U = 16384
-    n_scan = det.time_ticks + det.integrate_ticks + det.busy_ticks + 4
+    n_scan = fee.scan_ticks(det)
     sig = torch.rand((n_scan, U), generator=gen, device=dev) * 30000.0
     sig = torch.where(torch.rand((n_scan, U), generator=gen, device=dev)
                       > 0.97, sig, 0.0)
@@ -2209,6 +2245,9 @@ def main(argv=None) -> int:
         k, row = guard['kernels'][name], ROW[name]
         extra = {f'guard_{x}': k[x] for x in ('plain_ms', 'library_ms')
                  if x in k}
+        if 'kernel_row' in k:
+            extra['guard_kernel_ms'] = guard['ops_ms'][k['kernel_row']][
+                'min_ms']
         return dict(guard_ms=guard['ops_ms'][row]['min_ms'],
                     guard_shapes=guard['shapes'], **{
                         f'guard_{x}': v for x, v in
@@ -2232,7 +2271,9 @@ def main(argv=None) -> int:
             ndlar_batch=k, ndlar_guard_ms=guard_ndlar['ops_ms'][row][
                 'min_ms'], ndlar_guard_shapes=guard_ndlar['shapes'], **{
                 f'ndlar_guard_{x}': g[x] for x in ('plain_ms', 'library_ms')
-                if x in g}, **{
+                if x in g}, **({'ndlar_guard_kernel_ms': guard_ndlar[
+                    'ops_ms'][g['kernel_row']]['min_ms']}
+                    if 'kernel_row' in g else {}), **{
                 f'ndlar_guard_{x}': v for x, v in
                 guard_ndlar['roofline'][row].items()})
 
@@ -2240,6 +2281,8 @@ def main(argv=None) -> int:
         """Batches of ``run`` in which no pixel latched (no D2 launch)."""
         return run['launches']['batches_unlatched']
 
+    # D1's and D2's ms is the kernel alone (the batch's CSR given),
+    # ms_with_inputs the call that also makes the CSR
     kernels = [
         dict(name='induced_current', route='cuda', source=K1_SOURCE,
              replaces=K1_REPLACES, launches=launches['induced_current'],

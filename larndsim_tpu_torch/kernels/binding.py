@@ -36,8 +36,9 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     'induced_current_launch': [_P] * 12 + [_I] * 8 + [_F] * 5 + [_P] * 2,
     'fee_fsm_launch': [_P] * 10 + [_F] * 7 + [_I] * 7 + [_P],
-    'pixel_sum_launch': [_P] * 5 + [_I] * 4 + [_P],
-    'current_fractions_launch': [_P] * 7 + [_F] + [_P] + [_I] * 7 + [_P],
+    'pixel_sum_launch': [_P] * 4 + [_I] * 4 + [_P],
+    'current_fractions_launch': [_P] * 7 + [_F] + [_P] * 2 + [_I] * 6
+    + [_P],
     'probe_window_launch': [_P] * 2 + [_I] * 5 + [_P],
     'probe_roll_launch': [_P] * 2 + [_I] * 4 + [_P],
     'probe_async_copy_launch': [_P] * 2 + [_I] * 6 + [_P],
@@ -200,66 +201,80 @@ def fee_fsm(sig_rows, noise, q_init, thresholds, tick_times, s):
     return integrals, ticks, n_adc, reset_start, latch_end
 
 
-def sum_pixel_signals(signals, entries, offsets, start,
-                      n_ticks: int) -> torch.Tensor:
-    """Launch ``csrc/pixel_sum.cu``; see ops.accumulate.sum_pixel_signals
-    and ops.accumulate.pixel_sum_inputs (the CSR ``entries`` / ``offsets``
-    and the clamped ``start`` ticks).  Returns (U, n_ticks) float32."""
-    dev = _cuda(signals, 'sum_pixel_signals')
+def _csr_checks(kernel: str, signals, pairs, offsets) -> tuple:
+    """Check the CSR of ``ops.accumulate.pixel_csr`` against the (S, P, T)
+    signals; (device, U)."""
+    dev = _cuda(signals, kernel)
     S, P, T = signals.shape
+    if S * P >= 2 ** 31:
+        raise ValueError(f'{kernel}: {S * P} entries overflow int32')
     U = offsets.shape[0] - 1
     for name, t, dt, shape in (
             ('signals', signals, torch.float32, (S, P, T)),
-            ('entries', entries, torch.int64, (S * P,)),
-            ('offsets', offsets, torch.int32, (U + 1,)),
-            ('start', start, torch.int32, (S,))):
+            ('pairs', pairs, torch.int32, (S * P, 2)),
+            ('offsets', offsets, torch.int32, (U + 1,))):
         _check(name, t, dt, shape, dev)
-    out = torch.empty((U, n_ticks), dtype=torch.float32, device=dev)
+    if pairs.data_ptr() % 8:
+        raise ValueError(f'{kernel}: pairs not 8-byte aligned')
+    return dev, U
+
+
+def sum_pixel_rows(signals, pairs, offsets, n_ticks: int,
+                   rows: int) -> torch.Tensor:
+    """Launch ``csrc/pixel_sum.cu``; see ops.accumulate.sum_pixel_signals
+    and ops.accumulate.pixel_csr (the CSR's (entry, start tick) ``pairs``
+    and ``offsets``).  Returns the (rows, U) float32 tick-major sums, rows
+    from n_ticks on zeros."""
+    dev, U = _csr_checks('sum_pixel_signals', signals, pairs, offsets)
+    if rows < 0 or n_ticks < 0:
+        raise ValueError(f'rows {rows}, n_ticks {n_ticks}: negative')
+    out = torch.empty((rows, U), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     err = _launch(_lib().pixel_sum_launch, dev, signals.data_ptr(),
-                  entries.data_ptr(), offsets.data_ptr(), start.data_ptr(),
-                  out.data_ptr(), U, P, T, n_ticks)
+                  pairs.data_ptr(), offsets.data_ptr(), out.data_ptr(), U,
+                  signals.shape[2], n_ticks, rows)
     _raise_on(err, 'sum_pixel_signals')
     _count('sum_pixel_signals')
     return out
 
 
-def current_fractions(signals, pix_idx, slot, start, reset_start,
+def current_fractions(signals, pairs, offsets, slot, reset_start,
                       latch_end, A, dt: float, *, max_adc: int,
-                      max_tracks: int, n_adc_scan: int) -> torch.Tensor:
-    """Launch ``csrc/current_fractions.cu``; see ops.fee.current_fractions
-    and ops.fee.fraction_inputs (``start`` ticks and the 0-d ``A``).
-    The first ``n_adc_scan`` slots are evaluated; with none the fractions
-    are zeros and nothing is launched.  Returns (U, max_adc, max_tracks)
-    float32."""
-    dev = _cuda(signals, 'current_fractions')
-    S, P, T = signals.shape
-    U = reset_start.shape[0]
+                      max_tracks: int, n_adc_scan: int,
+                      n_weights: int) -> torch.Tensor:
+    """Launch ``csrc/current_fractions.cu``; see ops.fee.current_fractions,
+    ops.accumulate.pixel_csr (the CSR's ``pairs`` and ``offsets``) and
+    ops.fee.fraction_decay (the 0-d ``A``).  The kernel tables the
+    weights dt * (1 - A^m) of m = 0 .. n_weights - 1 once per launch.  The first ``n_adc_scan`` slots are evaluated; with none the
+    fractions are zeros and nothing is launched.  Returns (U, max_adc,
+    max_tracks) float32."""
+    dev, U = _csr_checks('current_fractions', signals, pairs, offsets)
+    S, P, _ = signals.shape
     if not 0 <= n_adc_scan <= max_adc:
         raise ValueError(f'n_adc_scan {n_adc_scan} outside [0, {max_adc}]')
     f32, i32 = torch.float32, torch.int32
     for name, t, dtype, shape in (
-            ('signals', signals, f32, (S, P, T)),
-            ('pix_idx', pix_idx, i32, (S, P)), ('slot', slot, i32, (S, P)),
-            ('start', start, i32, (S,)),
+            ('slot', slot, i32, (S, P)),
             ('reset_start', reset_start, i32, (U, max_adc)),
             ('latch_end', latch_end, i32, (U, max_adc)),
             ('A', A, f32, ())):
         _check(name, t, dtype, shape, dev)
     if n_adc_scan == 0:
         return torch.zeros((U, max_adc, max_tracks), dtype=f32, device=dev)
-    num = torch.empty((U, max_adc, max_tracks), dtype=f32, device=dev)
-    if num.numel() == 0:
-        return num
+    out = torch.empty((U, max_adc, max_tracks), dtype=f32, device=dev)
+    if out.numel() == 0:
+        return out
+    weights = torch.empty((max(n_weights, 0),), dtype=f32, device=dev)
     err = _launch(
         _lib().current_fractions_launch, dev, signals.data_ptr(),
-        pix_idx.data_ptr(), slot.data_ptr(), start.data_ptr(),
+        pairs.data_ptr(), offsets.data_ptr(), slot.data_ptr(),
         reset_start.data_ptr(), latch_end.data_ptr(), A.data_ptr(), dt,
-        num.data_ptr(), S, P, T, U, max_adc, max_tracks, n_adc_scan)
+        weights.data_ptr(), out.data_ptr(), weights.shape[0], U,
+        signals.shape[2], max_adc, max_tracks, n_adc_scan)
     _raise_on(err, 'current_fractions')
     _count('current_fractions')
-    return num
+    return out
 
 
 def _cuda(t: torch.Tensor, kernel: str) -> torch.device:

@@ -97,6 +97,7 @@ class BatchStage:
     track_map: torch.Tensor       # (n_unique_cap, max_tracks)
     slot: torch.Tensor            # (S, max_nb) track slot, -1 if none
     overflow: torch.Tensor        # (n_unique_cap,) bool
+    csr: accumulate.PixelCSR      # each pixel's entries, for D1 and D2
     px: torch.Tensor              # (S, max_nb) pixel centres [cm]
     py: torch.Tensor
     track_starts: torch.Tensor    # (S,) signal window starts [us]
@@ -196,6 +197,9 @@ def stage_batch(segs: Segments, det_model: DetectorModel, sim: SimParams, *,
         # the centres of the pixels themselves, not of their keys
         px, py = pixel_centers(torch.clamp(pixels, min=0), det)
         track_starts, _ = pixelize.time_intervals(segs, det)
+        # made once, walked by the waveform sum and the current fractions
+        csr = accumulate.pixel_csr(pix_idx, track_starts, n_unique_cap,
+                                   time_sampling=det.time_sampling)
 
         # per-pixel values by pixel id: a grouped event's key is the id
         # plus its slot's offset (the JAX package looks the key up, so an
@@ -212,7 +216,8 @@ def stage_batch(segs: Segments, det_model: DetectorModel, sim: SimParams, *,
         t_sig=t_sig,
         n_steps=n_steps, min_step=min_step, n_unique_cap=n_unique_cap,
         pixels=pixels, uniq=uniq, n_unique=n_unique, pix_idx=pix_idx,
-        track_map=track_map, slot=slot, overflow=overflow, px=px, py=py,
+        track_map=track_map, slot=slot, overflow=overflow, csr=csr,
+        px=px, py=py,
         track_starts=track_starts, thresholds=thresholds, gains=gains,
         shift_band=current.host_shift_band(seg_np, det, mc_smear=True))
 
@@ -243,23 +248,27 @@ def charge_step(segs: Segments, det: DetectorParams, response: torch.Tensor,
         draw('smear', (3, segs.size, n_steps)), n_steps=n_steps,
         t_sig=t_sig, shift_band=shift_band, min_step=min_step)
     track_starts, _ = pixelize.time_intervals(segs, det)
-    pixels_signals = accumulate.sum_pixel_signals(
+    csr = accumulate.pixel_csr(pix_idx, track_starts, n_unique_cap,
+                               time_sampling=det.time_sampling)
+    n_scan = fee.scan_ticks(det)
+    sig_rows = accumulate.sum_pixel_signals(
         signals, pix_idx, track_starts, n_unique_cap,
-        n_ticks=det.time_ticks, time_sampling=det.time_sampling)
+        n_ticks=det.time_ticks, time_sampling=det.time_sampling,
+        rows=n_scan, csr=csr)
     if thresholds is None:
         thresholds = torch.full((n_unique_cap,),
                                 det.f32('discrimination_threshold'),
                                 dtype=torch.float32, device=dev)
-    n_scan = det.time_ticks + det.integrate_ticks + det.busy_ticks + 4
     s = fee.fsm_scalars(det, max_adc=max_adc)
-    fee_res = fee.get_adc_values(
-        pixels_signals, fee.tick_times(det, dev), thresholds, det,
-        max_adc=max_adc, n_scan=n_scan,
+    fee_res = fee.get_adc_values_rows(
+        sig_rows, fee.tick_times(det, dev), thresholds, det,
+        max_adc=max_adc,
         noise=draw('fee_noise', (n_scan, 5, n_unique_cap)),
         q_init=draw('q_init', (n_unique_cap,)) * s.sigma_reset)
     fractions = fee.current_fractions(
         signals, pix_idx, slot, track_starts, fee_res, det,
-        max_adc=max_adc, max_tracks=max_tracks, n_adc_scan=max_adc)
+        max_adc=max_adc, max_tracks=max_tracks, n_adc_scan=max_adc,
+        csr=csr)
     adc = fee.digitize(fee_res.integrals, det, gain=gains)
     return uniq, n_unique, adc, fee_res, fractions, track_map, overflow
 
@@ -310,20 +319,22 @@ def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
     # --- waveform sum + FEE ---
     a_full = sim.max_adc_values
     with trace.phase('charge/fee_stage', dev):
-        pixels_signals = accumulate.sum_pixel_signals(
+        # the waveform sum writes the FSM's tick-major rows itself
+        n_scan = fee.scan_ticks(det)
+        sig_rows = accumulate.sum_pixel_signals(
             signals, st.pix_idx, st.track_starts, n_unique_cap,
-            n_ticks=det.time_ticks, time_sampling=det.time_sampling)
+            n_ticks=det.time_ticks, time_sampling=det.time_sampling,
+            rows=n_scan, csr=st.csr)
         thresholds = st.thresholds
         if thresholds is None:
             thresholds = torch.full((n_unique_cap,),
                                     det.f32('discrimination_threshold'),
                                     dtype=torch.float32, device=dev)
-        n_scan = det.time_ticks + det.integrate_ticks + det.busy_ticks + 4
         s = fee.fsm_scalars(det, max_adc=a_full)
         q_init = draw('q_init', (n_unique_cap,)) * s.sigma_reset
-        fee_res = fee.get_adc_values(
-            pixels_signals, fee.tick_times(det, dev), thresholds, det,
-            max_adc=a_full, n_scan=n_scan,
+        fee_res = fee.get_adc_values_rows(
+            sig_rows, fee.tick_times(det, dev), thresholds, det,
+            max_adc=a_full,
             noise=draw('fee_noise', (n_scan, 5, n_unique_cap)),
             q_init=q_init)
 
@@ -342,7 +353,7 @@ def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
         fractions = fee.current_fractions(
             signals, st.pix_idx, st.slot, st.track_starts, fee_res, det,
             max_adc=a_full, max_tracks=sim.max_tracks_per_pixel,
-            n_adc_scan=max_hits)
+            n_adc_scan=max_hits, csr=st.csr)
         adc = fee.digitize(fee_res.integrals, det, gain=st.gains)
 
     # pull only the hit entries and the occupied track prefix

@@ -6,9 +6,13 @@ searches (detsim.py:468-607).  Every reduction here is deterministic:
 scatters write each address at most once, and the per-pixel waveform sum
 adds contributions in a fixed order (see :func:`sum_pixel_signals`): on
 CUDA tensors the kernel ``csrc/pixel_sum.cu``, on CPU tensors
-:func:`sum_pixel_signals_plain`, the same bits.
+:func:`sum_pixel_signals_plain`, the same bits.  The kernel and the
+current fractions' (``ops.fee.current_fractions``) walk each pixel's
+entries in one CSR, :func:`pixel_csr`, made once a batch.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -136,52 +140,71 @@ def _sort_by_pixel(pix_idx: torch.Tensor):
                       stable=True)
 
 
-def pixel_sum_inputs(signals: torch.Tensor, pix_idx: torch.Tensor,
-                     track_starts: torch.Tensor, n_unique_cap: int, *,
-                     n_ticks: int, time_sampling: float):
-    """The waveform-sum kernel's inputs, made on the tensors' device with
-    no read to the host: ``entries`` (S * P,) int64, the flat entries in
-    :func:`sum_pixel_signals_plain`'s order (stable by pixel); ``offsets``
-    (n_unique_cap + 1,) int32, pixel u's entries being
-    ``entries[offsets[u]:offsets[u + 1]]``; ``start`` (S,) int32, each
-    segment's clamped first tick, by the plain version's expressions."""
-    T = signals.shape[2]
-    dev = signals.device
+class PixelCSR(NamedTuple):
+    """Each pixel's (segment, pixel) entries, in ascending flat order:
+    pixel u's are ``pairs[offsets[u]:offsets[u + 1]]``."""
+    pairs: torch.Tensor    # (S * P, 2) int32 (flat entry s * P + p, start
+    #                        tick of segment s); padding entries last
+    offsets: torch.Tensor  # (n_unique_cap + 1,) int32
+
+
+def pixel_csr(pix_idx: torch.Tensor, track_starts: torch.Tensor,
+              n_unique_cap: int, *, time_sampling: float) -> PixelCSR:
+    """The CSR that the waveform-sum and current-fraction kernels walk,
+    made on the tensors' device with no read to the host: the flat
+    entries in :func:`sum_pixel_signals_plain`'s order (stable by pixel),
+    each beside its segment's first tick, round(track_start / dt) in
+    float32 (not clamped: the fractions take it as it is, and the clamp of
+    the plain waveform sum only moves windows that miss the readout)."""
+    S, P = pix_idx.shape
+    dev = pix_idx.device
     # a fill, not a copy from the host: the same float32 as torch.tensor
     dt = torch.full((), time_sampling, dtype=torch.float32, device=dev)
-    start = _start_ticks(track_starts, T, n_ticks, dt).to(torch.int32)
+    start = torch.round(track_starts / dt).to(torch.int32)
     keys, entries = _sort_by_pixel(pix_idx)
     offsets = torch.searchsorted(
         keys, torch.arange(n_unique_cap + 1, dtype=keys.dtype, device=dev),
         out_int32=True)
-    return entries, offsets, start
+    pairs = torch.stack([entries.to(torch.int32),
+                         start[torch.div(entries, P,
+                                         rounding_mode='floor')]], dim=1)
+    return PixelCSR(pairs, offsets)
 
 
 def sum_pixel_signals(signals: torch.Tensor, pix_idx: torch.Tensor,
                       track_starts: torch.Tensor, n_unique_cap: int, *,
-                      n_ticks: int, time_sampling: float):
+                      n_ticks: int, time_sampling: float,
+                      rows: int | None = None,
+                      csr: PixelCSR | None = None):
     """Sum per-(segment, pixel) signal windows into per-pixel waveforms;
-    the kernel ``csrc/pixel_sum.cu`` on CUDA tensors (inputs from
-    :func:`pixel_sum_inputs`), :func:`sum_pixel_signals_plain` on CPU
+    the kernel ``csrc/pixel_sum.cu`` on CUDA tensors (its CSR ``csr``, or
+    :func:`pixel_csr` made here), :func:`sum_pixel_signals_plain` on CPU
     tensors, the same bits.
 
     Returns:
-        (n_unique_cap, n_ticks) float32 summed waveforms.
+        (n_unique_cap, n_ticks) float32 summed waveforms; with ``rows``,
+        the FSM's (rows, n_unique_cap) tick-major input instead: the
+        waveforms transposed, cut or zero-padded to ``rows`` ticks (on the
+        card written so by the kernel; the first form is a transposed view
+        of its rows).
     """
     if signals.device.type == 'cpu':
         return sum_pixel_signals_plain(
             signals, pix_idx, track_starts, n_unique_cap, n_ticks=n_ticks,
-            time_sampling=time_sampling)
+            time_sampling=time_sampling, rows=rows)
     from ..kernels import binding
-    return binding.sum_pixel_signals(
-        signals, *pixel_sum_inputs(signals, pix_idx, track_starts,
-                                   n_unique_cap, n_ticks=n_ticks,
-                                   time_sampling=time_sampling), n_ticks)
+    if csr is None:
+        csr = pixel_csr(pix_idx, track_starts, n_unique_cap,
+                        time_sampling=time_sampling)
+    out = binding.sum_pixel_rows(signals, csr.pairs, csr.offsets, n_ticks,
+                                 n_ticks if rows is None else rows)
+    return out.t() if rows is None else out
 
 
 def sum_pixel_signals_plain(signals: torch.Tensor, pix_idx: torch.Tensor,
                             track_starts: torch.Tensor, n_unique_cap: int, *,
-                            n_ticks: int, time_sampling: float):
+                            n_ticks: int, time_sampling: float,
+                            rows: int | None = None):
     """Plain PyTorch version of the waveform-sum kernel.
 
     (reference detsim.sum_pixel_signals.)  Each entry's window starts at
@@ -193,7 +216,8 @@ def sum_pixel_signals_plain(signals: torch.Tensor, pix_idx: torch.Tensor,
     read back to the host.
 
     Returns:
-        (n_unique_cap, n_ticks) float32 summed waveforms.
+        (n_unique_cap, n_ticks) float32 summed waveforms; with ``rows``,
+        their zero-padded (or cut) transpose, (rows, n_unique_cap).
     """
     S, P, T = signals.shape
     U = n_unique_cap
@@ -223,4 +247,9 @@ def sum_pixel_signals_plain(signals: torch.Tensor, pix_idx: torch.Tensor,
         idx = torch.where(keep, row0 + g, sink)
         acc[idx] = acc[idx] + torch.where(keep, sig[torch.clamp(e, min=0)],
                                           0.0)
-    return acc[:sink].view(U, n_ticks)
+    wave = acc[:sink].view(U, n_ticks)
+    if rows is None:
+        return wave
+    out = torch.zeros((rows, U), dtype=torch.float32, device=dev)
+    out[:min(rows, n_ticks)] = wave.t()[:rows]
+    return out

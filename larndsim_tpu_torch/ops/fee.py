@@ -7,7 +7,10 @@ S(t) = A*S(t-1) + I(t), q(t) = S(t)*dt*(1-A), A = exp(-dt/tau).  The FSM
 runs in :func:`fee_fsm`: on CUDA tensors the kernel ``csrc/fee_fsm.cu``,
 on CPU tensors :func:`fee_fsm_plain`; the current fractions in
 :func:`current_fractions`: the kernel ``csrc/current_fractions.cu``, or
-:func:`current_fractions_plain`.
+:func:`current_fractions_plain`.  The chain calls :func:`get_adc_values_rows`
+on the tick-major rows that the waveform sum writes
+(``ops.accumulate.sum_pixel_signals(..., rows=scan_ticks(det))``);
+:func:`get_adc_values` is the JAX package's signature over it.
 """
 from __future__ import annotations
 
@@ -160,13 +163,20 @@ def tick_times(det: DetectorParams, device=None) -> torch.Tensor:
         det.device if device is None else device)
 
 
+def scan_ticks(det: DetectorParams) -> int:
+    """The FSM's scan length: the readout's ticks plus one integration and
+    busy window (and 4), as the charge chain scans them."""
+    return det.time_ticks + det.integrate_ticks + det.busy_ticks + 4
+
+
 def get_adc_values(pixels_signals: torch.Tensor, tick_times: torch.Tensor,
                    pixel_thresholds: torch.Tensor, det: DetectorParams, *,
                    max_adc: int, n_scan: int, time_padding: float = 0.0,
                    noise: torch.Tensor | None = None,
                    q_init: torch.Tensor | None = None,
                    generator: torch.Generator | None = None) -> FeeResult:
-    """Run the self-trigger cycle on per-pixel waveforms.
+    """Run the self-trigger cycle on per-pixel waveforms: the JAX
+    package's signature over :func:`get_adc_values_rows`.
 
     Args:
         pixels_signals: (U, T) induced current per unique pixel.
@@ -174,49 +184,70 @@ def get_adc_values(pixels_signals: torch.Tensor, tick_times: torch.Tensor,
         pixel_thresholds: (U,) discriminator thresholds [e-].
         max_adc: hits per pixel (sim.max_adc_values).
         n_scan: scan length; covers T plus one integration + busy window.
+        noise, q_init, generator: as :func:`get_adc_values_rows`.
+    """
+    U, T = pixels_signals.shape
+    sig_rows = torch.zeros((n_scan, U), dtype=torch.float32,
+                           device=pixels_signals.device)
+    sig_rows[:min(n_scan, T)] = pixels_signals.t()[:min(n_scan, T)]
+    return get_adc_values_rows(
+        sig_rows, tick_times, pixel_thresholds, det, max_adc=max_adc,
+        time_padding=time_padding, noise=noise, q_init=q_init,
+        generator=generator)
+
+
+def get_adc_values_rows(sig_rows: torch.Tensor, tick_times: torch.Tensor,
+                        pixel_thresholds: torch.Tensor, det: DetectorParams,
+                        *, max_adc: int, time_padding: float = 0.0,
+                        noise: torch.Tensor | None = None,
+                        q_init: torch.Tensor | None = None,
+                        generator: torch.Generator | None = None
+                        ) -> FeeResult:
+    """Run the self-trigger cycle on the FSM's tick-major input.
+
+    Args:
+        sig_rows: (n_scan, U) float32 induced current, tick-major (the
+            waveform sum's ``rows`` form); n_scan is the scan length.
         noise: (n_scan, 5, U) standard normals, drawn from ``generator``
             when None (the shape of the JAX draw ``normal(k_scan, ...)``).
         q_init: (U,) initial q_sum; ``randn(U) * sigma_reset`` from
             ``generator`` when None.
     """
-    U, T = pixels_signals.shape
-    dev = pixels_signals.device
+    n_scan, U = sig_rows.shape
+    dev = sig_rows.device
     s = fsm_scalars(det, max_adc=max_adc, time_padding=time_padding)
     if q_init is None:
         q_init = torch.randn((U,), generator=generator,
                              device=dev) * s.sigma_reset
     if noise is None:
         noise = torch.randn((n_scan, 5, U), generator=generator, device=dev)
-    sig_rows = torch.zeros((n_scan, U), dtype=torch.float32, device=dev)
-    sig_rows[:min(n_scan, T)] = pixels_signals.t()[:min(n_scan, T)]
     return FeeResult(*fee_fsm(
         sig_rows, noise.float().contiguous(), q_init.float().contiguous(),
         pixel_thresholds.float().contiguous(), tick_times.float().contiguous(),
         s))
 
 
-def fraction_inputs(track_starts: torch.Tensor, det: DetectorParams):
-    """The fraction kernel's inputs besides the chain's tensors, made on
-    the tensors' device with no read to the host, by the plain version's
-    expressions: ``start`` (S,) int32, round(track_start / dt), not
-    clamped; ``A`` 0-d float32, exp(-dt / buffer_risetime)."""
+def fraction_decay(det: DetectorParams, device) -> torch.Tensor:
+    """A = exp(-dt / buffer_risetime), 0-d float32 on ``device``, by the
+    plain version's expression, made there with no copy from the host."""
     # a fill, not a copy from the host: the same float32 as torch.tensor
     dt_t = torch.full((), det.time_sampling, dtype=torch.float32,
-                      device=track_starts.device)
-    return (torch.round(track_starts / dt_t).to(torch.int32),
-            torch.exp(-dt_t / det.buffer_risetime))
+                      device=device)
+    return torch.exp(-dt_t / det.buffer_risetime)
 
 
 def current_fractions(signals: torch.Tensor, pix_idx: torch.Tensor,
                       slot: torch.Tensor, track_starts: torch.Tensor,
                       fee: FeeResult, det: DetectorParams, *, max_adc: int,
-                      max_tracks: int, n_adc_scan: int) -> torch.Tensor:
+                      max_tracks: int, n_adc_scan: int,
+                      csr=None) -> torch.Tensor:
     """Per-(pixel, adc, track-slot) current fractions; the kernel
     ``csrc/current_fractions.cu`` on CUDA tensors (no launch when no ADC
     slot is scanned: the fractions are then zeros; another device
-    raises), and
-    :func:`current_fractions_plain` on CPU tensors.  The two agree at
-    rtol 1e-5 / atol 1e-6 (their sums run in other orders).
+    raises), walking the batch's ``ops.accumulate.pixel_csr`` ``csr``
+    (made here when None), and :func:`current_fractions_plain` on CPU
+    tensors.  The two agree at rtol 1e-5 / atol 1e-6 (their sums run in
+    other orders).
 
     Returns:
         (U, max_adc, max_tracks) float32.
@@ -226,12 +257,18 @@ def current_fractions(signals: torch.Tensor, pix_idx: torch.Tensor,
             signals, pix_idx, slot, track_starts, fee, det, max_adc=max_adc,
             max_tracks=max_tracks, n_adc_scan=n_adc_scan)
     from ..kernels import binding
-    start, A = fraction_inputs(track_starts, det)
+    from .accumulate import pixel_csr
+    U = fee.reset_start.shape[0]
+    if csr is None:
+        csr = pixel_csr(pix_idx, track_starts, U,
+                        time_sampling=det.time_sampling)
     return binding.current_fractions(
-        signals, pix_idx, slot, start, fee.reset_start, fee.latch_end,
-        A.reshape(()), float(np.float32(det.time_sampling)),
+        signals, csr.pairs, csr.offsets, slot, fee.reset_start,
+        fee.latch_end, fraction_decay(det, signals.device),
+        float(np.float32(det.time_sampling)),
         max_adc=max_adc, max_tracks=max_tracks,
-        n_adc_scan=max(min(n_adc_scan, max_adc), 0))
+        n_adc_scan=max(min(n_adc_scan, max_adc), 0),
+        n_weights=scan_ticks(det) + 2)
 
 
 def current_fractions_plain(signals: torch.Tensor, pix_idx: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Walls of the port's host runtime, parent against change, on the card.
+"""Walls of the port's host runtime and of its charge chain, parent
+against change, on the card.
 
     python -m larndsim_tpu_torch.tools.host_walls --parent DIR [SLICE ...]
 
@@ -8,19 +9,29 @@ are ``chip_smoke.py``'s, their assets and inputs made once:
 * ``truth_host_w1`` / ``truth_host_w4``: the truth slice (the
   Module-0-shaped detector with one 2x2 module's light keys, LUT smearing,
   :data:`slice_run.SMEAR_TRUTH`) by the host route at ``truth_workers`` 1 /
-  4, run by the parent, the change, the change and the parent;
+  4; ``ndlar_bench``: ND-LAr at bench's batching
+  (:data:`slice_run.NDLAR_BENCH`).  Each run by the parent, the change,
+  the change and the parent;
 * ``charge``: the charge-only slice; ``2x2``: the 2x2 with module variation
   and its production truth (device route); ``ndlar_yaml``: ND-LAr at its
   YAML's batching (2500 segments, two TPCs a batch, ungrouped).  Each run
   by the parent, the change, the change with ``pipeline=True`` twice, the
-  change, and the parent.
+  change, and the parent;
+* ``chain``: the charge chain's waveform sum (D1) and current fractions
+  (D2) alone and with their inputs made, on the charge-only slice's first
+  batch and on ``tools.perf_guard``'s 2x2 and ND-LAr batches
+  (``slice_run.kernels``), run by the parent, the change, the change and
+  the parent.
 
 Each run is a process of its own (``slice_run.run``: a one-spill warm-up,
 then the timed run, its launch counters set to 0 before it).  One JSON line
-per run: its wall, the self seconds of its phases and its launches; then
-one line per slice with each side's walls.  Every run's datasets must equal
-the slice's first run's (``tools.file_check``): the change moves no byte.
-Exits 1 where one differs.  With no slice named, all five run.
+per run: its wall, the self seconds of its phases, the charge chain's
+``charge/fee_stage`` device ms, its peak device memory and its launches
+(``chain``: its times); then one line per slice with each side's walls.
+Every run's datasets must equal the slice's first run's
+(``tools.file_check``; ``chain``: the SHA-256 of D1's waveforms and D2's
+fractions on each batch): the change moves no byte.  Exits 1 where one
+differs.  With no slice named, all of them run.
 """
 from __future__ import annotations
 
@@ -35,11 +46,14 @@ from . import slice_run
 from .file_check import differences
 
 #: each slice's runs in order: (tree, pipeline)
-TRUTH_ORDER = (('parent', False), ('change', False), ('change', False),
-               ('parent', False))
+TURNS = (('parent', False), ('change', False), ('change', False),
+         ('parent', False))
 PIPELINE_ORDER = (('parent', False), ('change', False), ('change', True),
                   ('change', True), ('change', False), ('parent', False))
-SLICES = ('truth_host_w1', 'truth_host_w4', 'charge', '2x2', 'ndlar_yaml')
+SLICES = ('truth_host_w1', 'truth_host_w4', 'charge', '2x2', 'ndlar_yaml',
+          'ndlar_bench', 'chain')
+#: the slices run with ``pipeline`` too
+PIPELINED = ('charge', '2x2', 'ndlar_yaml')
 
 
 def make_slices(directory: str, names, device: str = 'cuda') -> dict:
@@ -55,7 +69,7 @@ def make_slices(directory: str, names, device: str = 'cuda') -> dict:
 
     common = dict(rand_seed=7, step_scale=1.0, device=device)
     out = {}
-    if {'truth_host_w1', 'truth_host_w4', 'charge'} & set(names):
+    if {'truth_host_w1', 'truth_host_w4', 'charge', 'chain'} & set(names):
         inp = os.path.join(directory, 'spills.h5')
         charge = write_module0(os.path.join(directory, 'module0'))
         write_input(inp, borders(charge), **slice_run.SPILLS)
@@ -72,6 +86,7 @@ def make_slices(directory: str, names, device: str = 'cuda') -> dict:
                                   'simulation_properties')})
         for n in (1, 4):
             out[f'truth_host_w{n}'] = inp, dict(kw_t, truth_workers=n)
+        out['chain'] = out['charge']
     if '2x2' in names:
         paths = write_2x2(os.path.join(directory, '2x2'),
                           sim_overrides=slice_run.SMEAR_TRUTH)
@@ -85,16 +100,25 @@ def make_slices(directory: str, names, device: str = 'cuda') -> dict:
                                                   'noise_2x2.npy'),
             **{k: paths[k] for k in ('detector_properties', 'pixel_layout',
                                      'simulation_properties')})
-    if 'ndlar_yaml' in names:
+    if {'ndlar_yaml', 'ndlar_bench'} & set(names):
         paths = write_ndlar(os.path.join(directory, 'ndlar'))
         inp = os.path.join(directory, 'ndlar_spills.h5')
         write_input(inp, borders(paths), **dict(
             slice_run.NDLAR_SPILLS, n_events=slice_run.NDLAR_TIMED))
-        out['ndlar_yaml'] = inp, dict(
-            common, config='ndlar',
-            response_file=os.path.join(directory, 'response_38.npy'),
-            **{k: paths[k] for k in ('detector_properties', 'pixel_layout',
-                                     'simulation_properties')})
+        kw = dict(common, config='ndlar',
+                  response_file=os.path.join(directory, 'response_38.npy'),
+                  **{k: paths[k] for k in ('detector_properties',
+                                           'pixel_layout',
+                                           'simulation_properties')})
+        out['ndlar_yaml'] = inp, kw
+        # bench.py's derived simulation properties: the YAML's, batch_size
+        # raised, and its event groups
+        bench = slice_run.NDLAR_BENCH
+        out['ndlar_bench'] = inp, dict(
+            kw, event_group_size=bench['group'],
+            simulation_properties=write_ndlar(
+                os.path.join(directory, 'ndlar_bench'), sim_overrides=dict(
+                    batch_size=bench['batch_size']))['simulation_properties'])
     return {name: out[name] for name in names}
 
 
@@ -107,29 +131,43 @@ def compare(parent: str, names, device: str = 'cuda') -> int:
     trees = dict(parent=parent, change=slice_run._ROOT)
     with tempfile.TemporaryDirectory() as tmp:
         for name, (inp, kw) in make_slices(tmp, names, device).items():
-            order = TRUTH_ORDER if name.startswith('truth') \
-                else PIPELINE_ORDER
+            order = PIPELINE_ORDER if name in PIPELINED else TURNS
             first, walls = None, {}
             for i, (tree, pipeline) in enumerate(order):
                 out = os.path.join(tmp, f'{name}_run{i}.h5')
-                res = slice_run.run(trees[tree], inp, out,
-                                    dict(kw, pipeline=True) if pipeline
-                                    else kw)
-                first = first or out
-                diff = differences(first, out)
-                side = f'{tree}{" pipeline" if pipeline else ""}'
-                walls.setdefault(side, []).append(res['wall'])
-                print(json.dumps(dict(
-                    slice=name, run=i, tree=tree, pipeline=pipeline,
-                    wall_s=res['wall'], launches=res['launches'],
-                    phases_self_s=res['phases'],
-                    equal_to_run0=not diff)), flush=True)
+                if name == 'chain':
+                    res = slice_run.kernels(trees[tree], inp, out, kw)
+                    res.pop('stdout')
+                    shas = {b: (v['d1_sha'], v['d2_sha'])
+                            for b, v in res.items()}
+                    first = first or shas
+                    diff = None if shas == first else (shas, first)
+                    print(json.dumps(dict(slice=name, run=i, tree=tree,
+                                          card=smi, equal_to_run0=not diff,
+                                          **res)), flush=True)
+                else:
+                    res = slice_run.run(trees[tree], inp, out,
+                                        dict(kw, pipeline=True) if pipeline
+                                        else kw)
+                    first = first or out
+                    diff = differences(first, out)
+                    side = f'{tree}{" pipeline" if pipeline else ""}'
+                    walls.setdefault(side, []).append(res['wall'])
+                    print(json.dumps(dict(
+                        slice=name, run=i, tree=tree, pipeline=pipeline,
+                        wall_s=res['wall'], launches=res['launches'],
+                        phases_self_s=res['phases'],
+                        fee_stage_device_ms=res['phases_device_ms'].get(
+                            'charge/fee_stage'),
+                        peak_device_gib=res['peak_device_gib'],
+                        equal_to_run0=not diff)), flush=True)
                 if diff:
                     print(f'{name}: run {i} differs from run 0: {diff}',
                           file=sys.stderr)
                     return 1
-            print(json.dumps(dict(slice=name, walls_s=walls, card=smi)),
-                  flush=True)
+            if walls:
+                print(json.dumps(dict(slice=name, walls_s=walls, card=smi)),
+                      flush=True)
     return 0
 
 
@@ -147,6 +185,9 @@ def main(argv=None) -> int:
     unknown = sorted(set(opts.slices) - set(SLICES))
     if unknown:
         ap.error(f'unknown slices {unknown}')
+    if opts.device == 'cpu' and 'chain' in (opts.slices or SLICES):
+        ap.error("the chain slice times the card's kernels: name the "
+                 'slices to rehearse')
     return compare(os.path.abspath(opts.parent), opts.slices or SLICES,
                    opts.device)
 

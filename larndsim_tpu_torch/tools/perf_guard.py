@@ -8,10 +8,19 @@ YAMLs are not in the repository; the output says so), then times with CUDA
 events the ops the JAX guard times:
 
   induced_current      the induced-current kernel (K1) alone
-  sum_pixel_signals    the per-pixel waveform sum
-  fee_fsm              the FEE FSM kernel (K2) alone
-  get_adc_values       the FSM as the chain calls it, noise draws included
-  current_fractions_4  current fractions over 4 ADC slots
+  sum_pixel_signals_with_csr  the per-pixel waveform sum (D1) into the
+                       FSM's tick-major rows, its CSR made in the call
+  sum_pixel_signals_kernel  the same with the batch's CSR given (the
+                       chain's call): D1 alone
+  fee_fsm              the FEE FSM kernel (K2) alone, on D1's rows
+  get_adc_values_rows  the FSM as the chain calls it (``ops.fee.
+                       get_adc_values_rows`` on D1's rows), noise draws
+                       included
+  current_fractions_4_with_csr  current fractions (D2) over 4 ADC slots,
+                       the CSR made in the call
+  current_fractions_4_kernel  the same with the batch's CSR given (the
+                       chain's call): D2 and the three launches that make
+                       its A
   digitize             charge -> ADC counts
 
 and, on the same batch with the light keys of one 2x2 module (96
@@ -107,6 +116,10 @@ F32_FLOP_PER_S = 67e12
 F32_OPS_PER_S = F32_FLOP_PER_S / 2
 #: timed calls of each op, after one warm-up call
 REPS = 3
+#: launches between two events in a ``*_kernel`` row: the host enqueues
+#: them behind each other, so the row is the device's time of one launch
+#: without the host's call overhead (:func:`timed_queued`)
+QUEUED = 10
 REGRESSION_FACTOR = 1.5
 LOG_PATH = os.path.join(BUILD_DIR, 'perf_guard.jsonl')
 #: the JAX guard's 2x2 workload (tools/perf_guard.py: build_workload)
@@ -151,16 +164,22 @@ LIBRARY = dict(
     fee_fsm='none: a sequential per-pixel state machine with data-dependent '
     'writes; no one PyTorch call computes it',
     sum_pixel_signals='Tensor.index_put_(accumulate=True) of the aligned '
-    'entries into the zeroed (U, n_ticks) waveforms (atomic adds, in '
+    'entries into the zeroed (n_scan, U) tick-major rows (atomic adds, in '
     'another order on each run); timed here only, never called by the '
     'port',
     current_fractions='none: weighted sums over data-dependent tick '
     'windows, scattered by track slot and normalised; no one PyTorch call '
     'computes it')
 #: the guard's row of D1 and D2, the chain's kernels timed beside their
-#: plain versions
-CHAIN_ROWS = dict(sum_pixel_signals='sum_pixel_signals',
-                  current_fractions='current_fractions_4')
+#: plain versions (their CSR made in the call), and the row of each alone.
+#: The rows of D1, D2 and the FSM as the chain calls it are named for the
+#: work they time (the CSR built, the FSM's rows given), so that the log
+#: never compares them with the older rows of other work (the (U, n_ticks)
+#: waveforms, the FSM with their transpose copied in)
+CHAIN_ROWS = dict(sum_pixel_signals='sum_pixel_signals_with_csr',
+                  current_fractions='current_fractions_4_with_csr')
+KERNEL_ROWS = dict(sum_pixel_signals_with_csr='sum_pixel_signals_kernel',
+                   current_fractions_4_with_csr='current_fractions_4_kernel')
 
 
 class Timing(NamedTuple):
@@ -182,6 +201,24 @@ def timed(fn, *args, reps: int = REPS, **kw) -> Timing:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return Timing(min(times), sum(times) / len(times))
+
+
+def timed_queued(fn, *args, n: int = QUEUED, **kw) -> Timing:
+    """Device time of one of ``n`` calls of ``fn(*args, **kw)`` enqueued
+    behind each other between two CUDA events, after one warm-up call;
+    minimum and mean over ``REPS`` such runs, in ms a call."""
+    fn(*args, **kw)
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return Timing(min(times), sum(times) / len(times))
 
 
@@ -259,31 +296,36 @@ def _start_ticks(track_starts, time_sampling: float) -> torch.Tensor:
 
 
 def sum_costs(signals, pix_idx, track_starts, n_unique_cap: int,
-              n_ticks: int, time_sampling: float) -> dict:
-    """One add per valid entry's tick that lands inside [0, n_ticks); the
-    signal values those adds read (the rest of the (S, P, T) signals, the
-    padding entries' rows and the ticks outside the readout, is not
-    needed: this run's data sets the count), the maps and the (U,
-    n_ticks) output once."""
+              n_ticks: int, time_sampling: float,
+              rows: int | None = None) -> dict:
+    """One add per valid entry's tick that lands inside [0, n_ticks) (and
+    below ``rows``); the signal values those adds read (the rest of the
+    (S, P, T) signals, the padding entries' rows and the ticks outside the
+    readout, is not needed: this run's data sets the count), the maps and
+    the output once: the (U, n_ticks) waveforms, or with ``rows`` the
+    (rows, U) tick-major rows the kernel writes for the FSM."""
     S, P, T = signals.shape
+    n_out = n_ticks if rows is None else rows
+    g_sum = min(n_ticks, n_out)
     start = _start_ticks(track_starts, time_sampling)
-    inside = (torch.clamp(start + T, max=n_ticks)
+    inside = (torch.clamp(start + T, max=g_sum)
               - torch.clamp(start, min=0)).clamp(min=0)             # (S,)
     adds = int(((pix_idx >= 0).sum(dim=1) * inside).sum())
     return dict(bytes=adds * signals.element_size()
                 + nbytes(pix_idx, track_starts)
-                + n_unique_cap * n_ticks * 4, ops=adds)
+                + n_unique_cap * n_out * 4, ops=adds)
 
 
 def fsm_costs(n_scan: int, n_pix: int, max_adc: int, n_times: int, *,
               drawn: bool) -> dict:
     """K2 alone: signal rows, noise, q_init, thresholds and tick times in,
-    the five outputs out.  ``drawn`` (get_adc_values): the (U, T) waveforms
-    in, the noise made inside (its bytes and its generator's operations
-    are not counted, so the bound is a lower bound)."""
+    the five outputs out.  ``drawn`` (get_adc_values_rows): the signal
+    rows, thresholds and tick times in, the noise made inside (its bytes
+    and its generator's operations are not counted, so the bound is a
+    lower bound)."""
     out = n_pix * max_adc * 4 * 4 + n_pix * 4
     if drawn:
-        n_in = n_pix * (n_times - 1) * 4 + n_pix * 4 + n_times * 4
+        n_in = n_pix * n_scan * 4 + n_pix * 4 + n_times * 4
     else:
         n_in = (n_scan * 6 * n_pix + 2 * n_pix + n_times) * 4
     return dict(bytes=n_in + out, ops=FSM_OPS * n_scan * n_pix)
@@ -328,30 +370,38 @@ def fraction_costs(signals, pix_idx, slot, track_starts, reset_start,
 
 
 def aligned_entries(signals, pix_idx, track_starts, n_unique_cap: int, *,
-                    n_ticks: int, time_sampling: float):
-    """The waveform sum's yardstick inputs: the flat address u * n_ticks +
-    g and the value of every valid entry's tick g inside [0, n_ticks), its
-    window placed by ``ops.accumulate.pixel_sum_inputs``."""
-    from ..ops import accumulate
+                    n_ticks: int, time_sampling: float,
+                    rows: int | None = None):
+    """The waveform sum's yardstick inputs: the flat address g * U + u of
+    the (rows, U) tick-major rows the kernel writes and the value of every
+    valid entry's tick g inside [0, min(n_ticks, rows)), its window
+    placed at round(track_start / dt) (the start ticks of
+    ``ops.accumulate.pixel_csr``).  ``rows`` None: n_ticks."""
     T = signals.shape[2]
-    _, _, start = accumulate.pixel_sum_inputs(
-        signals, pix_idx, track_starts, n_unique_cap, n_ticks=n_ticks,
-        time_sampling=time_sampling)
-    g = start.long()[:, None, None] + torch.arange(T, device=signals.device)
-    keep = (pix_idx >= 0)[:, :, None] & (g >= 0) & (g < n_ticks)
-    addr = pix_idx.long()[:, :, None] * n_ticks + g
+    g_sum = min(n_ticks, n_ticks if rows is None else rows)
+    start = _start_ticks(track_starts, time_sampling)
+    g = start[:, None, None] + torch.arange(T, device=signals.device)
+    keep = (pix_idx >= 0)[:, :, None] & (g >= 0) & (g < g_sum)
+    addr = g * n_unique_cap + pix_idx.long()[:, :, None]
     return addr[keep], signals[keep]
 
 
 def pixel_sum_library(args, kw) -> tuple:
     """D1's yardstick: (one call of ``index_put_`` with accumulate=True of
-    the aligned entries into a (U, n_ticks) buffer, that buffer), the
+    the aligned entries into a zeroed (rows, U) buffer, that buffer), the
     entries made once, outside the call."""
     addr, vals = aligned_entries(*args, **kw)
-    out = torch.zeros((args[3], kw['n_ticks']), dtype=torch.float32,
+    rows = kw.get('rows') or kw['n_ticks']
+    out = torch.zeros((rows, args[3]), dtype=torch.float32,
                       device=vals.device)
     flat = out.view(-1)
     return (lambda: flat.index_put_((addr,), vals, accumulate=True)), out
+
+
+def plain_kw(kw: dict) -> dict:
+    """A chain kernel's keywords without the CSR its plain version does
+    not take."""
+    return {k: v for k, v in kw.items() if k != 'csr'}
 
 
 def chain_kernel_rows(calls: dict) -> dict:
@@ -365,9 +415,10 @@ def chain_kernel_rows(calls: dict) -> dict:
     rows = {}
     for name, row in CHAIN_ROWS.items():
         _, args, kw = calls[row]
-        rows[name] = dict(row=row, library_ms=None,
-                          plain_ms=timed(plains[name], *args, **kw).min_ms)
-    _, args, kw = calls['sum_pixel_signals']
+        rows[name] = dict(row=row, kernel_row=KERNEL_ROWS[row],
+                          library_ms=None, plain_ms=timed(
+                              plains[name], *args, **plain_kw(kw)).min_ms)
+    _, args, kw = calls[CHAIN_ROWS['sum_pixel_signals']]
     call, out = pixel_sum_library(args, kw)
     call()
     want = accumulate.sum_pixel_signals(*args, **kw)
@@ -758,35 +809,37 @@ def op_calls(w: dict) -> dict:
     dev = det.device
     U, m = st.n_unique_cap, sim.max_adc_values
     signals = current.induced_current(*w['k1_args'])
-    sum_kw = dict(n_ticks=det.time_ticks, time_sampling=det.time_sampling)
-    pixels_signals = accumulate.sum_pixel_signals(
-        signals, st.pix_idx, st.track_starts, U, **sum_kw)
-    n_scan = det.time_ticks + det.integrate_ticks + det.busy_ticks + 4
+    n_scan = fee.scan_ticks(det)
+    sum_args = (signals, st.pix_idx, st.track_starts, U)
+    sum_kw = dict(n_ticks=det.time_ticks, time_sampling=det.time_sampling,
+                  rows=n_scan)
+    # the FSM's rows as D1 writes them on the chain
+    sig_rows = accumulate.sum_pixel_signals(*sum_args, **sum_kw,
+                                            csr=st.csr)
     s = fee.fsm_scalars(det, max_adc=m)
     thresholds = torch.full((U,), det.f32('discrimination_threshold'),
                             device=dev)
     times = fee.tick_times(det)
-    sig_rows = torch.zeros((n_scan, U), device=dev)
-    sig_rows[:det.time_ticks] = pixels_signals.t()
     noise = torch.randn((n_scan, 5, U), generator=gen, device=dev)
     q_init = torch.randn((U,), generator=gen, device=dev) * s.sigma_reset
     fsm_args = (sig_rows, noise, q_init, thresholds, times, s)
     fee_res = fee.FeeResult(*fee.fee_fsm(*fsm_args))
+    d2_args = (signals, st.pix_idx, st.slot, st.track_starts, fee_res, det)
+    d2_kw = dict(max_adc=m, max_tracks=sim.max_tracks_per_pixel,
+                 n_adc_scan=N_ADC_SCAN)
     return dict(
         induced_current=(current.induced_current, w['k1_args'], {}),
-        sum_pixel_signals=(accumulate.sum_pixel_signals,
-                           (signals, st.pix_idx, st.track_starts, U),
-                           sum_kw),
+        sum_pixel_signals_with_csr=(accumulate.sum_pixel_signals, sum_args,
+                                    sum_kw),
+        sum_pixel_signals_kernel=(accumulate.sum_pixel_signals, sum_args,
+                                  dict(sum_kw, csr=st.csr)),
         fee_fsm=(fee.fee_fsm, fsm_args, {}),
-        get_adc_values=(fee.get_adc_values,
-                        (pixels_signals, times, thresholds, det),
-                        dict(max_adc=m, n_scan=n_scan, generator=gen)),
-        current_fractions_4=(fee.current_fractions,
-                             (signals, st.pix_idx, st.slot,
-                              st.track_starts, fee_res, det),
-                             dict(max_adc=m,
-                                  max_tracks=sim.max_tracks_per_pixel,
-                                  n_adc_scan=N_ADC_SCAN)),
+        get_adc_values_rows=(fee.get_adc_values_rows,
+                             (sig_rows, times, thresholds, det),
+                             dict(max_adc=m, generator=gen)),
+        current_fractions_4_with_csr=(fee.current_fractions, d2_args, d2_kw),
+        current_fractions_4_kernel=(fee.current_fractions, d2_args,
+                                    dict(d2_kw, csr=st.csr)),
         digitize=(fee.digitize, (fee_res.integrals, det), {}))
 
 
@@ -794,21 +847,24 @@ def op_costs(w: dict, calls: dict) -> dict:
     """Bytes and operations of each guarded op on this run's inputs."""
     det, sim, st = w['det'], w['sim'], w['stage']
     U, m = st.n_unique_cap, sim.max_adc_values
-    signals = calls['sum_pixel_signals'][1][0]
+    d1_row, d2_row = CHAIN_ROWS.values()
+    signals = calls[d1_row][1][0]
     sig_rows = calls['fee_fsm'][1][0]
     n_scan, n_times = sig_rows.shape[0], calls['fee_fsm'][1][4].shape[0]
-    return dict(
-        induced_current=k1_costs(w['k1_args']),
-        sum_pixel_signals=sum_costs(signals, st.pix_idx, st.track_starts, U,
-                                    det.time_ticks, det.time_sampling),
-        fee_fsm=fsm_costs(n_scan, U, m, n_times, drawn=False),
-        get_adc_values=fsm_costs(n_scan, U, m, n_times, drawn=True),
-        current_fractions_4=fraction_costs(
-            *calls['current_fractions_4'][1][:4],
-            calls['current_fractions_4'][1][4].reset_start,
-            calls['current_fractions_4'][1][4].latch_end,
+    d2_args = calls[d2_row][1]
+    costs = {
+        'induced_current': k1_costs(w['k1_args']),
+        d1_row: sum_costs(signals, st.pix_idx, st.track_starts, U,
+                          det.time_ticks, det.time_sampling, rows=n_scan),
+        'fee_fsm': fsm_costs(n_scan, U, m, n_times, drawn=False),
+        'get_adc_values_rows': fsm_costs(n_scan, U, m, n_times, drawn=True),
+        d2_row: fraction_costs(
+            *d2_args[:4], d2_args[4].reset_start, d2_args[4].latch_end,
             sim.max_tracks_per_pixel, N_ADC_SCAN, det.time_sampling),
-        digitize=dict(bytes=2 * U * m * 4, ops=DIGITIZE_OPS * U * m))
+        'digitize': dict(bytes=2 * U * m * 4, ops=DIGITIZE_OPS * U * m)}
+    # a kernel alone does the function's work: the same bound
+    costs.update({k: costs[row] for row, k in KERNEL_ROWS.items()})
+    return costs
 
 
 def launches_per_batch(w: dict) -> dict:
@@ -900,7 +956,8 @@ def main(argv=None) -> dict:
                      truth_shapes=dict(truth_shapes, records=n_records))
     ops_ms = {}
     for name, (fn, args, kw) in calls.items():
-        t = timed(fn, *args, **kw)
+        t = (timed_queued if name in KERNEL_ROWS.values() else timed)(
+            fn, *args, **kw)
         ops_ms[name] = dict(min_ms=t.min_ms, mean_ms=t.mean_ms)
     host_ms = {}
     for name, (fn, args, kw) in host_calls.items():

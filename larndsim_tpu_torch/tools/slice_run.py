@@ -17,11 +17,21 @@ first :data:`WARM_EVENTS` events (on the card, the plain kernel versions
 raise); its
 last line is ``RESULT {json}``: the run's wall, kernel launches (counters
 set to 0 just before the run), phase table (self seconds by label,
-``truth/h5`` among them), host memory (resident at the run's start; the
-run's peak, VmRSS sampled every :data:`RSS_PERIOD` s by a thread; the
-process's peak, warm-up included), peak device memory, output bytes and,
-in mode 0, each light group call's (event, n_ticks, triggers).
-:func:`run` starts it and returns that JSON.
+``truth/h5`` among them; on the card also self device ms), host memory
+(resident at the run's start; the run's peak, VmRSS sampled every
+:data:`RSS_PERIOD` s by a thread; the process's peak, warm-up included),
+peak device memory, output bytes and, in mode 0, each light group call's
+(event, n_ticks, triggers).  :func:`run` starts it and returns that JSON.
+
+    python larndsim_tpu_torch/tools/slice_run.py kernels --tree DIR \
+        --input IN.h5 --output OUT.h5 --kw JSON
+
+times the charge chain's waveform sum (D1) and current fractions (D2) of
+the checkout ``DIR`` on the card (:func:`kernels_child`; through the
+names both keep: the ops' ``sum_pixel_signals`` / ``current_fractions``,
+the launch counters, ``tools.perf_guard``'s ``build_workload`` and
+``op_calls``), on the first batch of a one-spill run of IN.h5 and on the
+guard's 2x2 and ND-LAr batches; :func:`kernels` starts it.
 
     python -m larndsim_tpu_torch.tools.slice_run compare --parent DIR
 
@@ -63,11 +73,18 @@ SPILLS_2X2 = dict(SPILLS, tracks_per_event=24, every_tpc=True)
 #: segments a spill, bench.py:120-136, :196-204), NDLAR_TIMED spills
 NDLAR_SPILLS = dict(SPILLS, tracks_per_event=144)
 NDLAR_TIMED = 4
+#: bench.py's derived ND-LAr batching (bench.py:115-126): batch_size 10000
+#: at event_group_size 32
+NDLAR_BENCH = dict(batch_size=10000, group=32)
 #: seconds between two samples of the resident set during a run
 RSS_PERIOD = 0.005
 #: events of the warm-up run before the timed one: one spill compiles and
 #: loads everything the timed run then calls
 WARM_EVENTS = 1
+#: calls between two CUDA events in a queued time (:func:`device_ms`)
+QUEUED = 10
+#: the chain's kernels that ``kernels`` times, by their launch counters
+CHAIN_KERNELS = dict(d1='sum_pixel_signals', d2='current_fractions')
 _HERE = os.path.abspath(__file__)
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 
@@ -139,6 +156,7 @@ def child(opts) -> None:
     print('RESULT ' + json.dumps(dict(
         wall=wall, launches=dict(binding.launches),
         phases={k: v[0] for k, v in trace.summary().items()},
+        phases_device_ms=trace.summary_device() if on_card else {},
         rss_before_gib=rss[0],
         peak_rss_gib=max(rss[1], _status_gib('VmRSS')),
         process_peak_rss_gib=resource.getrusage(
@@ -148,20 +166,183 @@ def child(opts) -> None:
         file_bytes=os.path.getsize(opts.output), calls=calls)), flush=True)
 
 
+def device_ms(fn, reps: int = 3) -> dict:
+    """The card's time of ``fn()`` after one warm-up call: ``single_ms``,
+    the least of ``reps`` calls each between two CUDA events and
+    synchronised (the host's call overhead included, as the guard times
+    an op), and ``queued_ms``, the least of ``reps`` runs of
+    :data:`QUEUED` calls enqueued between two events, a call's share (the
+    device's time of a call)."""
+    import torch
+    fn()
+    out = {}
+    for key, n in (('single_ms', 1), ('queued_ms', QUEUED)):
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / n)
+        out[key] = min(times)
+    return out
+
+
+def kernels_child(opts) -> None:
+    """D1 and D2 of the checkout ``opts.tree`` on the card; prints RESULT.
+
+    Batches: the first of a one-spill CLI run of ``opts.input`` (D2's
+    first with a scanned ADC slot), as the chain calls the ops there, and
+    the guard's 2x2 and ND-LAr batches (``tools.perf_guard.op_calls``: the
+    op's call with its CSR made in it).  Each kernel is timed with its
+    inputs made (the op's call, a CSR given by the chain dropped) and
+    alone (the binding's call that launched it in the op, again on the
+    same arguments); on the guard's batches the FSM as the chain calls it
+    on D1's output too (the ``get_adc_values*`` row).  Each batch gives the
+    SHA-256 of D1's (U, n_ticks) waveforms and of D2's fractions."""
+    sys.path[0] = os.path.abspath(opts.tree)
+    import hashlib
+    import inspect
+
+    import torch
+    from larndsim_tpu_torch.cli import simulate_pixels as cli
+    from larndsim_tpu_torch.kernels import binding, build
+    from larndsim_tpu_torch.ops import accumulate, fee
+    from larndsim_tpu_torch.tools import perf_guard as pg
+    build.load()
+    dev = torch.device('cuda')
+    ops = dict(d1=(accumulate, 'sum_pixel_signals'),
+               d2=(fee, 'current_fractions'))
+    wrappers = {n: f for n, f in vars(binding).items()
+                if inspect.isfunction(f) and f.__module__ == binding.__name__
+                and not n.startswith('_')}
+    launched = []
+
+    def spy(fn):
+        def call(*args, **kwargs):
+            before = dict(binding.launches)
+            out = fn(*args, **kwargs)
+            if any(binding.launches.get(c, 0) > before.get(c, 0)
+                   for c in CHAIN_KERNELS.values()):
+                launched.append((fn, args, kwargs))
+            return out
+        return call
+
+    def spying(on: bool) -> None:
+        for name, fn in wrappers.items():
+            setattr(binding, name, spy(fn) if on else fn)
+
+    def sha(t) -> str:
+        return hashlib.sha256(
+            t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+    def measure(d1, d2) -> dict:
+        """d1, d2: (op, args, kwargs, the binding calls that launched)."""
+        res = {}
+        for key, (op, args, kw, calls) in (('d1', d1), ('d2', d2)):
+            kw = {k: v for k, v in kw.items() if k != 'csr'}
+            res[f'{key}_with_inputs'] = device_ms(lambda: op(*args, **kw))
+            res[f'{key}_alone'] = device_ms(
+                lambda: [f(*a, **k) for f, a, k in calls])
+            res[f'{key}_launches'] = len(calls)
+        signals, pix_idx, ts, U = d1[1][:4]
+        res['d1_sha'] = sha(accumulate.sum_pixel_signals(
+            signals, pix_idx, ts, U, n_ticks=d1[2]['n_ticks'],
+            time_sampling=d1[2]['time_sampling']))
+        d2_kw = {k: v for k, v in d2[2].items() if k != 'csr'}
+        res['d2_sha'] = sha(d2[0](*d2[1], **d2_kw))
+        S, P, T = signals.shape
+        res['shapes'] = dict(S=S, P=P, T=T, U=U, n_ticks=d1[2]['n_ticks'],
+                             rows=d1[2].get('rows'),
+                             n_adc_scan=d2_kw['n_adc_scan'],
+                             max_tracks=d2_kw['max_tracks'])
+        return res
+
+    # the first batch: the ops' first calls in a one-spill run, and the
+    # binding calls inside each
+    kept = {}
+    origs = {key: getattr(mod, name) for key, (mod, name) in ops.items()}
+
+    def keep(key):
+        def call(*args, **kwargs):
+            n = len(launched)
+            out = origs[key](*args, **kwargs)
+            if key == 'd1' or kwargs['n_adc_scan'] > 0:
+                kept.setdefault(key, (origs[key], args, kwargs,
+                                      launched[n:]))
+            return out
+        return call
+    for key, (mod, name) in ops.items():
+        setattr(mod, name, keep(key))
+    spying(True)
+    try:
+        cli.run_simulation(opts.input, opts.output, n_events=WARM_EVENTS,
+                           **json.loads(opts.kw))
+    finally:
+        spying(False)
+        for key, (mod, name) in ops.items():
+            setattr(mod, name, origs[key])
+    launched.clear()
+    out = dict(first_batch=measure(kept['d1'], kept['d2']))
+    del kept
+    for config in ('module0', 'ndlar'):
+        with tempfile.TemporaryDirectory() as tmp:
+            w = pg.build_workload(dev, tmp, workload=pg.CONFIGS[config][0],
+                                  config=config)
+        calls = pg.op_calls(w)
+        rows = {}
+        for key, (mod, name) in ops.items():
+            op, args, kw = next(c for c in calls.values()
+                                if c[0] is origs[key] and 'csr' not in c[2])
+            n = len(launched)
+            spying(True)
+            try:
+                op(*args, **kw)
+            finally:
+                spying(False)
+            rows[key] = (op, args, kw, launched[n:])
+        launched.clear()
+        res = measure(rows['d1'], rows['d2'])
+        fsm_row, (fsm, args, kw) = next(
+            (k, c) for k, c in calls.items() if k.startswith('get_adc_values'))
+        res['fsm_as_chain'] = dict(row=fsm_row,
+                                   **device_ms(lambda: fsm(*args, **kw)))
+        out[f'guard_{config}'] = res
+        del w, calls, rows
+        torch.cuda.empty_cache()
+    print('RESULT ' + json.dumps(out), flush=True)
+
+
+def _result(argv: list, tree: str, timeout: float) -> dict:
+    """This script's ``argv`` run in a process of its own; its RESULT,
+    with the process's standard output under ``stdout``."""
+    proc = subprocess.run([sys.executable, _HERE, *argv],
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode:
+        raise RuntimeError(f'the {argv[0]} run in {tree} failed '
+                           f'({proc.returncode}):\n{proc.stdout[-3000:]}\n'
+                           f'{proc.stderr[-3000:]}')
+    last = [line for line in proc.stdout.splitlines()
+            if line.startswith('RESULT ')][-1]
+    return dict(json.loads(last[len('RESULT '):]), stdout=proc.stdout)
+
+
 def run(tree: str, inp: str, out: str, kw: dict,
         timeout: float = 600) -> dict:
     """One run in a process of its own (see the module docstring); its
     RESULT, with the process's standard output under ``stdout``."""
-    proc = subprocess.run(
-        [sys.executable, _HERE, 'run', '--tree', tree, '--input', inp,
-         '--output', out, '--kw', json.dumps(kw)],
-        capture_output=True, text=True, timeout=timeout)
-    if proc.returncode:
-        raise RuntimeError(f'the run in {tree} failed ({proc.returncode}):\n'
-                           f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
-    last = [line for line in proc.stdout.splitlines()
-            if line.startswith('RESULT ')][-1]
-    return dict(json.loads(last[len('RESULT '):]), stdout=proc.stdout)
+    return _result(['run', '--tree', tree, '--input', inp, '--output', out,
+                    '--kw', json.dumps(kw)], tree, timeout)
+
+
+def kernels(tree: str, inp: str, out: str, kw: dict,
+            timeout: float = 900) -> dict:
+    """:func:`kernels_child` in a process of its own; its RESULT."""
+    return _result(['kernels', '--tree', tree, '--input', inp, '--output',
+                    out, '--kw', json.dumps(kw)], tree, timeout)
 
 
 def mode0_slice(directory: str, device: str = 'cuda') -> tuple[str, dict]:
@@ -230,16 +411,15 @@ def compare(parent: str) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest='cmd', required=True)
-    r = sub.add_parser('run')
-    r.add_argument('--tree', required=True)
-    r.add_argument('--input', required=True)
-    r.add_argument('--output', required=True)
-    r.add_argument('--kw', required=True)
+    for cmd in ('run', 'kernels'):
+        r = sub.add_parser(cmd)
+        for name in ('--tree', '--input', '--output', '--kw'):
+            r.add_argument(name, required=True)
     c = sub.add_parser('compare')
     c.add_argument('--parent', required=True)
     opts = ap.parse_args(argv)
-    if opts.cmd == 'run':
-        child(opts)
+    if opts.cmd in ('run', 'kernels'):
+        (child if opts.cmd == 'run' else kernels_child)(opts)
         return 0
     return compare(os.path.abspath(opts.parent))
 

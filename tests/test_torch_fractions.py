@@ -1,15 +1,21 @@
 """Port parity: the current fractions (D2) and its kernel's inputs.
 
 The kernel ``csrc/current_fractions.cu`` runs only on the card; here its
-inputs (``ops.fee.fraction_inputs``: the start ticks and A) and a numpy
-transcription of its arithmetic, in its order (per valid entry and scanned
-ADC slot, the entry's row clipped to the window [r, e], 32 strided partial
-sums and a shuffle tree; then each (pixel, slot) row normalised over k in
-ascending order), are held to ``current_fractions_plain``, and the wrapper
-on CPU tensors to the JAX op on ``tests/test_torch_fee.py``'s chain.
+inputs (the CSR of ``ops.accumulate.pixel_csr``, shared with the waveform
+sum, and A of ``ops.fee.fraction_decay``), its weight table
+(:func:`fraction_weights`) and a numpy transcription of its
+arithmetic, in its order (each (pixel, scanned slot, track slot) summed by
+one warp, whichever of its block's warps takes the entry: the entry's row
+clipped to the slot's window, 32 strided partial sums, each lane's ticks
+in ascending order with the tabled weights (the expression itself past
+the table), and a shuffle tree; then each slot normalised over k in
+ascending order), are held to ``current_fractions_plain``, and the
+wrapper on CPU tensors to the JAX op on ``tests/test_torch_fee.py``'s
+chain.
 
 Tolerance: rtol 1e-5 / atol 1e-6, the JAX package's for this op (the sums
-run in other orders, and the transcription's power is numpy's).
+run in other orders, and the transcription's power is numpy's); the
+weight table and the per-tick weights bit for bit.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 
 from larndsim_tpu.ops import fee as jfee
 from larndsim_tpu_torch.kernels import binding
+from larndsim_tpu_torch.ops import accumulate as tacc
 from larndsim_tpu_torch.ops import fee as tfee
 from larndsim_tpu_torch.tools import perf_guard as pg
 
@@ -26,6 +33,14 @@ import torch_port_assets as tpa
 from test_torch_fee import chain, det  # noqa: F401  (shared fixtures)
 
 LANES = 32
+
+
+def fraction_weights(A: torch.Tensor, det, n: int) -> torch.Tensor:
+    """The weights dt * (1 - A^m) of m = 0 .. n - 1 by the plain
+    version's expression: the table the fraction kernel makes once per
+    launch (with powf) for m up to ``scan_ticks(det) + 1``."""
+    m = torch.arange(n, dtype=torch.float32, device=A.device)
+    return det.time_sampling * (1.0 - torch.pow(A, m))
 
 
 def _warp_sum(part):
@@ -38,43 +53,53 @@ def _warp_sum(part):
     return part[0]
 
 
-def kernel_order_fractions(signals, pix_idx, slot, start, A, dt,
-                           reset_start, latch_end, max_tracks, n_scan):
+def _weight(A, dt, m):
+    f = np.float32
+    return f(f(dt) * f(f(1.0) - np.power(f(A), f(m))))
+
+
+def kernel_order_fractions(signals, pairs, offsets, slot, A, dt,
+                           reset_start, latch_end, max_tracks, n_scan, n_w):
     """csrc/current_fractions.cu in numpy float32: (fractions, the number
-    of (slot, entry, tick) terms summed)."""
+    of (slot, entry, tick) terms summed).  Pixel by pixel: which of the
+    kernel's warps sums an (entry, slot) does not change its bits."""
     S, P, T = signals.shape
     U, max_adc = reset_start.shape
     f = np.float32
-    num = np.zeros((U, max_adc, max_tracks), f)
+    table = np.array([_weight(A, dt, m) for m in range(n_w)], f)
+    rows = signals.reshape(S * P, T)
+    flat_slot = slot.reshape(-1)
+    out = np.zeros((U, max_adc, max_tracks), f)
     terms = 0
-    for i in range(S * P):
-        s, p = divmod(i, P)
-        u, k = int(pix_idx[s, p]), int(slot[s, p])
-        if u < 0 or k < 0:
-            continue
-        st = int(start[s])
-        for a in range(n_scan):
-            e, r = int(latch_end[u, a]), int(reset_start[u, a])
-            if e < 0:
-                continue
-            t_lo, t_hi = max(r - st, 0), min(e - st, T - 1)
-            if t_lo > t_hi:
-                continue
-            part = np.zeros(LANES, f)
-            terms += t_hi + 1 - t_lo
-            for t in range(t_lo, t_hi + 1):
-                expo = f(e - (st + t) + 1)
-                w = f(f(dt) * f(f(1.0) - np.power(f(A), expo)))
-                lane = (t - t_lo) % LANES
-                part[lane] = f(part[lane] + f(signals[s, p, t] * w))
-            num[u, a, k] = _warp_sum(part)
     for u in range(U):
+        win = list(zip(reset_start[u, :n_scan].tolist(),
+                       latch_end[u, :n_scan].tolist()))
+        lo, hi = int(offsets[u]), int(offsets[u + 1])
+        if not any(e >= 0 for _, e in win) or lo == hi:
+            continue
+        num = np.zeros((n_scan, max_tracks), f)
+        for i, st in pairs[lo:hi].tolist():
+            k = int(flat_slot[i])
+            if k < 0:
+                continue
+            for a, (r, e) in enumerate(win):
+                t_lo, t_hi = max(r - st, 0), min(e - st, T - 1)
+                if e < 0 or t_lo > t_hi:
+                    continue
+                part = np.zeros(LANES, f)
+                terms += t_hi + 1 - t_lo
+                for t in range(t_lo, t_hi + 1):
+                    m = e - (st + t) + 1
+                    w = table[m] if m < n_w else _weight(A, dt, m)
+                    lane = (t - t_lo) % LANES
+                    part[lane] = f(part[lane] + f(rows[i, t] * w))
+                num[a, k] = _warp_sum(part)
         for a in range(n_scan):
             total = f(0.0)
             for k in range(max_tracks):
-                total = f(total + num[u, a, k])
-            num[u, a] = num[u, a] / total if total > 0 else 0.0
-    return num, terms
+                total = f(total + num[a, k])
+            out[u, a] = num[a] / total if total > 0 else 0.0
+    return out, terms
 
 
 def _case(name, rng):
@@ -113,6 +138,20 @@ def _case(name, rng):
 
 
 CASES = ('random', 'r_after_e', 'unlatched', 'partly_outside')
+#: the guard's staging at a tiny input (as tests/test_torch_perf_guard.py)
+TINY = dict(n_events=1, tracks_per_event=3, segments_per_track=6,
+            segment_length=0.4, dEdx=8.0, seed=2)
+
+
+def _fractions_inputs(pix, starts, U, det, n_w=None):
+    """The kernel's CSR, A and table length, as ``ops.fee.
+    current_fractions`` makes them on the card."""
+    pairs, offsets = tacc.pixel_csr(torch.from_numpy(pix),
+                                    torch.from_numpy(starts), U,
+                                    time_sampling=det.time_sampling)
+    A = tfee.fraction_decay(det, 'cpu')
+    return pairs.numpy(), offsets.numpy(), float(A), \
+        tfee.scan_ticks(det) + 2 if n_w is None else n_w
 
 
 @pytest.mark.parametrize('name', CASES)
@@ -125,19 +164,18 @@ def test_kernel_order_matches_plain(det, name):  # noqa: F811
                          torch.zeros(U, dtype=torch.int32),
                          torch.from_numpy(r), torch.from_numpy(e))
     ts = torch.from_numpy(starts)
-    start, A = tfee.fraction_inputs(ts, tdet)
-    assert start.dtype == torch.int32 and A.dtype == torch.float32
-    np.testing.assert_array_equal(
-        start.numpy(), torch.round(ts / torch.tensor(
-            0.1, dtype=torch.float32)).to(torch.int32).numpy())
+    A = tfee.fraction_decay(tdet, 'cpu')
+    assert A.dtype == torch.float32 and A.shape == ()
+    # a table shorter than these windows' m: the kernel computes the rest
+    pairs, offsets, _, n_w = _fractions_inputs(pix, starts, U, tdet, n_w=64)
     for n_scan in (1, max_adc):
         want = tfee.current_fractions_plain(
             torch.from_numpy(signals), torch.from_numpy(pix),
             torch.from_numpy(slot), ts, fee, tdet, max_adc=max_adc,
             max_tracks=max_tracks, n_adc_scan=n_scan).numpy()
         got, terms = kernel_order_fractions(
-            signals, pix, slot, start.numpy(), float(A), np.float32(0.1), r,
-            e, max_tracks, n_scan)
+            signals, pairs, offsets, slot, float(A), np.float32(0.1), r, e,
+            max_tracks, n_scan, n_w)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
         # the guard's count of the kernel's work (its bound) is these terms
         assert pg.window_ticks(
@@ -150,6 +188,63 @@ def test_kernel_order_matches_plain(det, name):  # noqa: F811
             assert not want[:, 1:].any()
         else:
             assert want.max() > 0
+
+
+def test_weight_table_equals_the_per_tick_weights(det):  # noqa: F811
+    """``fraction_weights`` (the table the kernel makes once a launch)
+    equals the plain version's per-tick weight dt * (1 - A^(e - j + 1))
+    bit for bit over m = e - j + 1 in [1, n_scan + 1]; the kernel's table
+    (its numpy transcription, powf) the per-tick powf expression a kernel
+    without the table would compute."""
+    tdet = tpa.port_params(det)
+    n_scan = tfee.scan_ticks(tdet)
+    A = tfee.fraction_decay(tdet, 'cpu')
+    table = fraction_weights(A, tdet, n_scan + 2)
+    # the plain version's expression on a window [0, e] of e = n_scan
+    j = torch.arange(n_scan + 1, dtype=torch.int32)
+    expo = (n_scan - j + 1).float()[None, None, :]
+    dt = tdet.time_sampling
+    per_tick = (dt * (1.0 - torch.pow(A, torch.clamp(expo, min=0.0))))[0, 0]
+    assert table.dtype == torch.float32 and table.shape == (n_scan + 2,)
+    np.testing.assert_array_equal(table[1:].flip(0).numpy().view(np.int32),
+                                  per_tick.numpy().view(np.int32))
+    f = np.float32
+    e, st = n_scan - 1, 0
+    ticks = [_weight(float(A), dt, m) for m in range(n_scan + 2)]
+    for t in range(0, n_scan, 97):
+        expo = f(e - (st + t) + 1)
+        w = f(f(dt) * f(f(1.0) - np.power(f(float(A)), expo)))
+        assert ticks[e - (st + t) + 1] == w
+    assert table[0] == 0.0 and float(table[-1]) > 0
+
+
+def test_shared_csr_equals_the_one_built_for_the_fractions(
+        tmp_path_factory):
+    """The CSR that ``stage_batch`` makes once a batch for D1 and D2
+    equals the one ``current_fractions`` builds without it, and the
+    kernel's transcription fed each gives the same bits."""
+    w = pg.build_workload('cpu', str(tmp_path_factory.mktemp('guard')),
+                          workload=TINY, pad_n=32, geometry=tpa.SMALL)
+    _, args, kw = pg.op_calls(w)['current_fractions_4_with_csr']
+    signals, pix_idx, slot, track_starts, res, tdet = args
+    shared = w['stage'].csr
+    U = res.reset_start.shape[0]
+    built = tacc.pixel_csr(pix_idx, track_starts, U,
+                           time_sampling=tdet.time_sampling)
+    assert torch.equal(shared.pairs, built.pairs)
+    assert torch.equal(shared.offsets, built.offsets)
+    A = float(tfee.fraction_decay(tdet, 'cpu'))
+    n_w = tfee.scan_ticks(tdet) + 2
+    outs = [kernel_order_fractions(
+        signals.numpy(), csr.pairs.numpy(), csr.offsets.numpy(),
+        slot.numpy(), A, np.float32(tdet.time_sampling),
+        res.reset_start.numpy(), res.latch_end.numpy(), kw['max_tracks'],
+        kw['n_adc_scan'], n_w)[0] for csr in (shared, built)]
+    np.testing.assert_array_equal(outs[0].view(np.int32),
+                                  outs[1].view(np.int32))
+    want = tfee.current_fractions(*args, **kw, csr=shared).numpy()
+    assert want.max() > 0
+    np.testing.assert_allclose(outs[0], want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize('scan', ['hits', 'all', 'none'])
@@ -186,7 +281,7 @@ def test_wrapper_raises_on_meta_and_counts_nothing(det):  # noqa: F811
                 n_adc_scan=n_scan)
     with pytest.raises(ValueError, match='CUDA'):
         binding.current_fractions(
-            meta(4, 3, 16), meta(4, 3, dtype=i32), meta(4, 3, dtype=i32),
-            meta(4, dtype=i32), fee.reset_start, fee.latch_end, meta(), 0.1,
-            max_adc=3, max_tracks=5, n_adc_scan=2)
+            meta(4, 3, 16), meta(12, 2, dtype=i32), meta(9, dtype=i32),
+            meta(4, 3, dtype=i32), fee.reset_start, fee.latch_end, meta(),
+            0.1, max_adc=3, max_tracks=5, n_adc_scan=2, n_weights=40)
     assert binding.launches['current_fractions'] == before

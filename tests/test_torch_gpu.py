@@ -1067,19 +1067,30 @@ def chain_batch(cuda, tmp_path_factory):
                           pad_n=256, workload=dict(pg.WORKLOAD, n_events=1,
                                                    tracks_per_event=6))
     calls = pg.op_calls(w)
-    return dict(d1=calls['sum_pixel_signals'][1:],
-                d2=calls['current_fractions_4'][1:])
+    return dict(d1=calls['sum_pixel_signals_with_csr'][1:],
+                d2=calls['current_fractions_4_with_csr'][1:])
 
 
 def _assert_pixel_sum_is_plain(args, kw):
-    before = binding.launches['sum_pixel_signals']
-    got = accumulate.sum_pixel_signals(*args, **kw)
-    torch.cuda.synchronize()
-    assert binding.launches['sum_pixel_signals'] == before + 1
-    want = accumulate.sum_pixel_signals_plain(*args, **kw)
-    assert float(want.abs().max()) > 0
-    assert got.shape == want.shape and torch.equal(got, want), \
-        float((got - want).abs().max())
+    """The kernel equals the plain version bit for bit in the (U, n_ticks)
+    form and in the rows form, with more rows than ticks (the chain's
+    n_scan) and fewer, the CSR made in the call or given."""
+    n_ticks = kw['n_ticks']
+    base = dict(n_ticks=n_ticks, time_sampling=kw['time_sampling'])
+    csr = accumulate.pixel_csr(args[1], args[2], args[3],
+                               time_sampling=kw['time_sampling'])
+    for extra in (None, kw.get('rows', n_ticks + 31) - n_ticks, -n_ticks // 3):
+        rows = {} if extra is None else dict(rows=n_ticks + extra)
+        for given in ({}, dict(csr=csr)):
+            before = binding.launches['sum_pixel_signals']
+            got = accumulate.sum_pixel_signals(*args, **base, **rows,
+                                               **given)
+            torch.cuda.synchronize()
+            assert binding.launches['sum_pixel_signals'] == before + 1
+            want = accumulate.sum_pixel_signals_plain(*args, **base, **rows)
+            assert float(want.abs().max()) > 0
+            assert got.shape == want.shape and torch.equal(got, want), \
+                (extra, float((got - want).abs().max()))
 
 
 @pytest.mark.parametrize('seed', [0, 1])
@@ -1087,21 +1098,36 @@ def test_pixel_sum_kernel_equals_plain(cuda, seed):
     _assert_pixel_sum_is_plain(*_pixel_sum_case(cuda, seed))
 
 
+def test_pixel_sum_kernel_with_empty_groups(cuda):
+    """The ids of a 200-pixel case on a 1024-pixel axis: the kernel's
+    groups of 32 past pixel 199 hold no entry and are written as zeros."""
+    (sig, pix, starts, _), kw = _pixel_sum_case(cuda, 2)
+    _assert_pixel_sum_is_plain((sig, pix, starts, 1024), kw)
+
+
 def test_pixel_sum_kernel_on_a_chain_batch(chain_batch):
     _assert_pixel_sum_is_plain(*chain_batch['d1'])
 
 
 def test_pixel_sum_makes_no_synchronising_call(chain_batch):
-    """The kernel's inputs are made on the card: no read to the host."""
+    """The kernels' inputs are made on the card: the CSR, D1's rows and D2
+    on that CSR read nothing to the host."""
     args, kw = chain_batch['d1']
+    d2_args, d2_kw = chain_batch['d2']
     accumulate.sum_pixel_signals(*args, **kw)      # the library loaded
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode('error')
     try:
-        got = accumulate.sum_pixel_signals(*args, **kw)
+        csr = accumulate.pixel_csr(args[1], args[2], args[3],
+                                   time_sampling=kw['time_sampling'])
+        got = accumulate.sum_pixel_signals(*args, **kw, csr=csr)
+        frac = fee.current_fractions(*d2_args, **d2_kw, csr=csr)
     finally:
         torch.cuda.set_sync_debug_mode('default')
     assert torch.equal(got, accumulate.sum_pixel_signals_plain(*args, **kw))
+    torch.testing.assert_close(
+        frac, fee.current_fractions_plain(*d2_args, **d2_kw), rtol=1e-5,
+        atol=1e-6)
 
 
 def _fractions_case(device, det, seed, S=48, P=10, T=400, U=96, max_adc=5,
@@ -1134,17 +1160,20 @@ def _fractions_case(device, det, seed, S=48, P=10, T=400, U=96, max_adc=5,
 
 
 def _assert_fractions_match_plain(args, kw):
-    """Within rtol 1e-5 / atol 1e-6 of the plain version, and two launches
-    give the same bits."""
+    """Within rtol 1e-5 / atol 1e-6 of the plain version; two launches,
+    and a launch fed the CSR made beforehand, give the same bits."""
+    csr = accumulate.pixel_csr(args[1], args[3], args[4].reset_start.shape[0],
+                               time_sampling=args[5].time_sampling)
     before = binding.launches['current_fractions']
     got = fee.current_fractions(*args, **kw)
     again = fee.current_fractions(*args, **kw)
+    shared = fee.current_fractions(*args, **kw, csr=csr)
     torch.cuda.synchronize()
-    assert binding.launches['current_fractions'] == before + 2
+    assert binding.launches['current_fractions'] == before + 3
     want = fee.current_fractions_plain(*args, **kw)
     assert float(want.max()) > 0
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    assert torch.equal(got, again)
+    assert torch.equal(got, again) and torch.equal(got, shared)
 
 
 @pytest.mark.parametrize('seed', [0, 1])
@@ -1160,23 +1189,31 @@ def test_current_fractions_kernel_on_a_chain_batch(chain_batch):
 def test_chain_kernels_refuse_wrong_inputs(cuda, tmp_path):
     det = tpa.load_port(tpa.write_tree(tmp_path), cuda).params
     (sig, pix, starts, U), kw = _pixel_sum_case(cuda, 3)
-    entries, offsets, start = accumulate.pixel_sum_inputs(sig, pix, starts,
-                                                          U, **kw)
+    pairs, offsets = accumulate.pixel_csr(pix, starts, U,
+                                          time_sampling=kw['time_sampling'])
     n = kw['n_ticks']
     with pytest.raises(TypeError, match='signals'):
-        binding.sum_pixel_signals(sig.double(), entries, offsets, start, n)
+        binding.sum_pixel_rows(sig.double(), pairs, offsets, n, n)
     with pytest.raises(TypeError, match='offsets'):
-        binding.sum_pixel_signals(sig, entries, offsets.long(), start, n)
+        binding.sum_pixel_rows(sig, pairs, offsets.long(), n, n)
+    with pytest.raises(ValueError, match='pairs'):
+        binding.sum_pixel_rows(sig, pairs[:-1], offsets, n, n)
     odd = sig.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match='not contiguous'):
-        binding.sum_pixel_signals(odd, entries, offsets, start, n)
+        binding.sum_pixel_rows(odd, pairs, offsets, n, n)
+    with pytest.raises(ValueError, match='negative'):
+        binding.sum_pixel_rows(sig, pairs, offsets, n, -1)
     (sig, pix, slot, starts, res, det), kw = _fractions_case(cuda, det, 4)
-    st, A = fee.fraction_inputs(starts, det)
-    good = (sig, pix, slot, st, res.reset_start, res.latch_end, A, 0.1)
+    pairs, offsets = accumulate.pixel_csr(pix, starts,
+                                          res.reset_start.shape[0],
+                                          time_sampling=det.time_sampling)
+    A = fee.fraction_decay(det, cuda)
+    good = (sig, pairs, offsets, slot, res.reset_start, res.latch_end, A,
+            0.1)
     kw = dict(max_adc=kw['max_adc'], max_tracks=kw['max_tracks'],
-              n_adc_scan=2)
-    for i, bad in ((0, sig.half()), (3, st.long()), (4, res.reset_start.t()
-                                                      .contiguous().t())):
+              n_adc_scan=2, n_weights=fee.scan_ticks(det) + 2)
+    for i, bad in ((0, sig.half()), (2, offsets.long()), (3, slot.long()),
+                   (4, res.reset_start.t().contiguous().t())):
         args = list(good)
         args[i] = bad
         with pytest.raises((TypeError, ValueError)):

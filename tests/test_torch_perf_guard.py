@@ -50,12 +50,14 @@ def test_every_op_runs_and_has_a_bound(workload):
     calls = pg.op_calls(workload)
     costs = pg.op_costs(workload, calls)
     assert set(calls) == set(costs) == {
-        'induced_current', 'sum_pixel_signals', 'fee_fsm', 'get_adc_values',
-        'current_fractions_4', 'digitize'}
+        'induced_current', 'sum_pixel_signals_with_csr',
+        'sum_pixel_signals_kernel', 'fee_fsm', 'get_adc_values_rows',
+        'current_fractions_4_with_csr', 'current_fractions_4_kernel',
+        'digitize'}
     for name, (fn, args, kw) in calls.items():
         fn(*args, **kw)
         assert costs[name]['bytes'] > 0 and costs[name]['ops'] > 0, name
-    signals = calls['sum_pixel_signals'][1][0]
+    signals = calls['sum_pixel_signals_with_csr'][1][0]
     S, P, T = signals.shape
     assert costs['induced_current']['bytes'] > S * P * T * 4
     assert costs['induced_current']['ops'] > 0
@@ -95,7 +97,7 @@ def test_other_counts_match_hand_counts():
     assert c['ops'] == pg.FSM_OPS * 100 * 64
     assert c['bytes'] == (100 * 6 * 64 + 2 * 64 + 11) * 4 + 64 * 121 * 4
     c = pg.fsm_costs(100, 64, 30, 11, drawn=True)
-    assert c['bytes'] == (64 * 10 + 64 + 11) * 4 + 64 * 121 * 4
+    assert c['bytes'] == (64 * 100 + 64 + 11) * 4 + 64 * 121 * 4
     # three entries with a slot (pixels 0 and 1 at row start 2, pixels 1
     # and 2 at -1); slot 0: pixel 0's window [0, 3] holds its entry's ticks
     # 0-1, pixel 1's [0, 10] ticks 1-3; slot 1: pixel 0's r > e and pixel
@@ -110,22 +112,47 @@ def test_other_counts_match_hand_counts():
     assert c['bytes'] == (6 + 6 + 6 + 2) * 4 + 2 * 8 * 4 * 4 + 8 * 30 * 50 * 4
 
 
+def test_sum_costs_count_the_rows_d1_writes():
+    """D1's output term is the (rows, U) tick-major rows it writes for
+    the FSM: with rows 7 > n_ticks 5, 8 x 7 words and the adds of ticks
+    below 5 (as without rows); with rows 3 < 5, 8 x 3 words and only the
+    adds of ticks below 3: segment 0's window [2, 6) keeps tick 2 (1 a
+    pixel, 2 pixels), segment 1's [-1, 3) ticks 0-2 (3 a pixel)."""
+    signals = torch.zeros((2, 3, 4))
+    pix_idx = torch.tensor([[0, 1, -1], [1, 2, -1]], dtype=torch.int32)
+    starts = torch.tensor([0.2, -0.1])
+    maps = (6 + 2) * 4
+    c = pg.sum_costs(signals, pix_idx, starts, 8, 5, 0.1, rows=7)
+    assert c['ops'] == 2 * 3 + 2 * 3
+    assert c['bytes'] == 12 * 4 + maps + 8 * 7 * 4
+    c = pg.sum_costs(signals, pix_idx, starts, 8, 5, 0.1, rows=3)
+    assert c['ops'] == 2 * 1 + 2 * 3
+    assert c['bytes'] == 8 * 4 + maps + 8 * 3 * 4
+    # the yardstick's entries are the adds, addressed g * U + u
+    addr, vals = pg.aligned_entries(signals, pix_idx, starts, 8,
+                                    n_ticks=5, time_sampling=0.1, rows=3)
+    assert sorted(addr.tolist()) == sorted(
+        [2 * 8 + 0, 2 * 8 + 1] + [g * 8 + u for g in range(3)
+                                  for u in (1, 2)])
+
+
 def test_pixel_sum_yardstick_computes_the_sum(workload):
     """D1's yardstick (``index_put_`` of the aligned entries, timed only on
     the card) computes the waveform sum: atol 1e-6 x peak against the
     plain version (its adds run in another order), one address per valid
     entry's tick inside the readout."""
     from larndsim_tpu_torch.ops import accumulate
-    _, args, kw = pg.op_calls(workload)['sum_pixel_signals']
+    _, args, kw = pg.op_calls(workload)['sum_pixel_signals_with_csr']
     call, out = pg.pixel_sum_library(args, kw)
     call()
     want = accumulate.sum_pixel_signals_plain(*args, **kw)
     peak = float(want.abs().max())
     assert peak > 0
     torch.testing.assert_close(out, want, rtol=0, atol=1e-6 * peak)
+    assert out.shape == (kw['rows'], args[3])
     addr, vals = pg.aligned_entries(*args, **kw)
     assert len(addr) == len(vals) == pg.sum_costs(
-        *args, kw['n_ticks'], kw['time_sampling'])['ops']
+        *args, kw['n_ticks'], kw['time_sampling'], rows=kw['rows'])['ops']
     assert set(pg.CHAIN_ROWS) <= set(pg.LIBRARY)
 
 
@@ -310,7 +337,8 @@ def test_ndlar_workload_stages_and_runs(tmp_path):
     calls = pg.op_calls(w)          # runs K1, the sum and the FSM once
     costs = pg.op_costs(w, calls)
     for name, (fn, args, kw) in calls.items():
-        if name not in ('induced_current', 'sum_pixel_signals', 'fee_fsm'):
+        if name not in ('induced_current', 'sum_pixel_signals_with_csr',
+                        'fee_fsm'):
             fn(*args, **kw)
         assert costs[name]['bytes'] > 0 and costs[name]['ops'] > 0, name
     assert set(pg.CONFIGS) == {'module0', 'ndlar'}
@@ -339,7 +367,6 @@ def _k1_case(steps_xy, shifts, t_sig=8, ntp=10, device='cpu'):
     return tuple(a.contiguous().to(device) for a in args) + (lut,)
 
 
-@pytest.mark.gpu
 def test_k1_tiling_follows_the_kernel():
     """K1 counts its own tile choice, in a launch that equals its plain
     version.  Two steps in two bins, shifts 0 and 3, ticks 1..7: one chunk
