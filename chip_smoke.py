@@ -162,8 +162,10 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    both timed;
 17. probes: the card probes of ``larndsim_tpu_torch/tools``.  P1
    (``probe_folded``): cases a-g, each in its own process (all started
-   together), each OK and importing nothing of JAX; each of its three
-   kernels against its plain version.  P2 / P3 (``probe_fee`` /
+   together), each OK and importing nothing of JAX; the launch step's host
+   cost by option (``tools/launch_cost.py``); each of its three kernels
+   against its plain version, with the queued ms, the profiler's device us
+   and the host us a call of both.  P2 / P3 (``probe_fee`` /
    ``probe_fee2``): every variant timed
    at the probe shapes beside the FSM kernel (the entry points, launch
    counters set to 0 before and read after), then every variant equal to
@@ -724,8 +726,11 @@ def compare_k2(args, det) -> dict:
 def p1_entries() -> list[dict]:
     """P1: the seven cases, each in its own process (as the JAX probe runs
     them; all started together), then each kernel against its plain
-    version on the card."""
+    version on the card: queued ms a call, the profiler's device us a call
+    and the host us a call of both, and the launch step's host cost by
+    option (``tools/launch_cost.py``)."""
     import torch
+    from larndsim_tpu_torch.tools import launch_cost as lc
     from larndsim_tpu_torch.tools import perf_guard as pg
     from larndsim_tpu_torch.tools import probe_folded as p1
     records = p1.run_isolated('cuda')
@@ -733,32 +738,45 @@ def p1_entries() -> list[dict]:
     assert not bad, f'P1 cases failed: {bad}'
     log('probes', 'P1 ' + ' '.join(f'{r["case"]}:OK' for r in records)
         + ', each in its own process with nothing of JAX imported')
-    plain = {p1.window: p1.window_plain, p1.roll: p1.roll_plain,
-             p1.async_copy: p1.async_copy_plain}
+    dev = torch.device('cuda', torch.cuda.current_device())
+    for option, us in lc.launch_options(dev).items():
+        log('probes', f'P1 launch step, {option}: {us:.2f} us host')
+    steps = lc.wrapper_steps(dev)
+    for name, by_step in steps.items():
+        log('probes', f'P1 {name} wrapper, host us by step: ' + ', '.join(
+            f'{step} {us:.2f}' for step, us in by_step.items()))
     entries = []
-    for name, (replaces, case) in P1_KERNELS.items():
-        fn, (x, *rest), _ = p1.case_call(case)
-        x = torch.from_numpy(x).cuda()
-        got, want = fn(x, *rest), plain[fn](x, *rest)
+    for name, (call, plain) in lc.case_calls(dev).items():
+        replaces, case = P1_KERNELS[name]
+        got, want = call(), plain()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         assert err == 0.0, f'{name} disagrees with its plain version: {err}'
-        ms = cuda_ms(lambda: fn(x, *rest), reps=20)
-        plain_ms = cuda_ms(lambda: plain[fn](x, *rest), reps=20)
+        ms, plain_ms = lc.queued_ms(call), lc.queued_ms(plain)
+        dev_us, dev_ops = lc.device_us(call)
+        plain_dev_us, plain_ops = lc.device_us(plain)
+        host_us = steps[name]['whole call']
+        plain_host_us = steps[name]['plain call']
         b = pg.bound(2 * got.numel() * 4, 0)   # the window in, once out
         launches = sum(r['launches'] for r in records
                        if p1.KERNEL[r['case']] == name)
         assert launches > 0, (name, records)
         log('probes', f'P1 {name} (case {case}, out {tuple(got.shape)}): '
             f'equal to its plain version; {launches} launches in the cases; '
-            f'kernel {ms:.4f} ms, plain (one PyTorch call) {plain_ms:.4f} '
-            f'ms, bound {b["bound_ms"]:.6f} ms by {b["bound_by"]}')
+            f'queued {ms:.4f} ms a call, plain (one PyTorch call) '
+            f'{plain_ms:.4f} ms; device {dev_us:.3f} us a call '
+            f'({", ".join(dev_ops)}), plain {plain_dev_us:.3f} us '
+            f'({", ".join(plain_ops)}); host {host_us:.2f} us a call, plain '
+            f'{plain_host_us:.2f} us; bound {b["bound_ms"]:.6f} ms by '
+            f'{b["bound_by"]}')
         entries.append(dict(
             name=name, route='cuda', source=P1_SOURCE, replaces=replaces,
             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b['bound_ms'], bound_by=b['bound_by'],
             library_ms=plain_ms,
-            library='the plain version: one PyTorch call'))
+            library='the plain version: one PyTorch call',
+            device_us=dev_us, plain_device_us=plain_dev_us, host_us=host_us,
+            plain_host_us=plain_host_us, host_steps_us=steps[name]))
     return entries
 
 
@@ -2373,11 +2391,11 @@ def profile_slice(inp: str, out: str, kw: dict, directory: str, cli) -> None:
     device_ms = {e.key: e.self_device_time_total / 1e3
                  for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA}
-    ours = {name: round(v, 3) for k, v in device_ms.items()
-            for name in ('induced_current_kernel', 'pixel_sum_kernel',
-                         'fee_fsm_kernel', 'fraction_sums_kernel',
-                         'fraction_norm_kernel')
-            if name in k}
+    # the kernels by their csrc/*.cu names (a template's instances summed)
+    from larndsim_tpu_torch.kernels import build
+    ours = {name: round(sum(v for k, v in device_ms.items() if name in k), 3)
+            for name in build.kernel_names()
+            if any(name in k for k in device_ms)}
     busy_ms = sum(device_ms.values())
     log('profile', f'wall {wall:.3f} s under the profiler; device kernels '
         f'{busy_ms:.1f} ms in all ({100 * busy_ms / (1e3 * wall):.1f}% of '

@@ -44,11 +44,19 @@
 // unused `consts` inputs are read the same way.
 //
 // Both are one thread per pixel with the state in registers, as K2
-// (fee_fsm.cu) is, with 256-thread blocks (1024 for anyred, the JAX tile),
-// so each variant's time reads as a share of K2's.  Every float32 operation
-// rounds on its own (__fmul_rn/__fadd_rn, -fmad=false), as the plain
-// versions and the JAX probes do.  What bounds them: the stream of signal
-// and noise rows, (1 + 5) x n_scan x U float32, as for K2.
+// (fee_fsm.cu) is.  P2 runs on K2's structure, so that each ablation takes
+// its part away from the kernel the charge chain ships: blocks of 64
+// pixels, and a register ring of kAhead = 16 ticks of (sig, n0..n4) filled
+// by unconditional loads of clamped rows (fee_fsm.cu explains why a load
+// under a branch waits a round trip a tick); nosig and nonoise drop their
+// streams from the ring.  anyred keeps the JAX tile, 1024 pixels a block,
+// because its __syncthreads_or over the tile is what it measures; a thread
+// of a 1024-thread block has 64 registers, so its ring holds 4 ticks (24
+// registers).  P3 keeps 256-thread blocks and loads each tick under its
+// guard.  Every float32 operation rounds on its own (__fmul_rn/__fadd_rn,
+// -fmad=false), as the plain versions and the JAX probes do, in the order
+// of the JAX probes' bodies.  What bounds them: the stream of signal and
+// noise rows, (1 + 5) x n_scan x U float32, as for K2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,6 +74,14 @@ constexpr unsigned kConsts = 1, kOuts = 2, kNoGuard = 4, kNoSig = 8,
 // P3 flags
 constexpr unsigned kPrefetch = 1, kAnyIO = 2, kVmOuts = 4, kVmOuts5 = 8,
                    kBig = 16, kTailSplit = 32;
+
+// P2's block and register ring: K2's (fee_fsm.cu: kBlock 64, kAhead 16),
+// anyred's over the JAX tile
+template <unsigned F>
+struct RingShape {
+  static constexpr int kThreads = (F & kAnyRed) ? kTile : 64;
+  static constexpr int kAhead = (F & kAnyRed) ? 4 : 16;
+};
 
 // A load that the compiler keeps although its value is unused.
 __device__ __forceinline__ float kept_load(const float* p) {
@@ -86,7 +102,7 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
 }
 
 template <unsigned F>
-__global__ void probe_fee_kernel(
+__global__ void __launch_bounds__(RingShape<F>::kThreads) probe_fee_kernel(
     const float* __restrict__ scal, const float* __restrict__ times,
     const float* __restrict__ thr, const float* __restrict__ q0,
     const float* __restrict__ sig, const float* __restrict__ noise,
@@ -94,6 +110,8 @@ __global__ void probe_fee_kernel(
     float* __restrict__ o3, int* __restrict__ o4, float* __restrict__ fstate,
     int* __restrict__ istate, int U, int n_c, int n_scan, int n_times,
     int max_adc) {
+  constexpr int kAhead = RingShape<F>::kAhead;
+  constexpr bool kSig = (F & kNoSig) == 0, kNoise = (F & kNoNoise) == 0;
   extern __shared__ float consts_s[];
   const int u = blockIdx.x * blockDim.x + threadIdx.x;  // U % blockDim == 0
   if constexpr ((F & kConsts) != 0) {
@@ -115,15 +133,38 @@ __global__ void probe_fee_kernel(
   float fs[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   int is[4] = {0, 0, 0, 0};
 
-  for (int c = 0; c < n_c; ++c) {
-    for (int i = 0; i < kChunk; ++i) {
-      const int t = c * kChunk + i;
-      if ((F & kNoGuard) == 0 && t >= n_scan) continue;
-      const float cur = (F & kNoSig) ? fs[7] : sig[static_cast<int64_t>(t) * U + u];
+  // the ticks run: those under the guard, or every padded tick
+  const int n_t = (F & kNoGuard) ? n_c * kChunk : min(n_scan, n_c * kChunk);
+  const int last = max(n_t - 1, 0);
+  const float* sp = sig + u;
+  const float* np = noise + u;
+  const int64_t U5 = 5LL * U;
+  // ring slot d holds tick t with t % kAhead == d (as fee_fsm.cu's ring):
+  // a load never waits on a branch; past the last tick it rereads the last
+  // row
+  float r_sig[kAhead], r_n[5][kAhead];
+  auto load = [&](int d, int t) {
+    const int64_t tt = min(t, last);
+    if constexpr (kSig) r_sig[d] = __ldg(sp + tt * U);
+    if constexpr (kNoise) {
+#pragma unroll
+      for (int j = 0; j < 5; ++j) r_n[j][d] = __ldg(np + tt * U5 + j * U);
+    }
+  };
+  if (n_t > 0) {
+#pragma unroll
+    for (int d = 0; d < kAhead; ++d) load(d, d);
+  }
+
+  for (int t0 = 0; t0 < n_t; t0 += kAhead) {
+#pragma unroll
+    for (int d = 0; d < kAhead; ++d) {
+      const int t = t0 + d;
+      if (t >= n_t) break;  // block-uniform, as anyred's barrier needs
+      const float cur = kSig ? r_sig[d] : fs[7];
       float r[5];
 #pragma unroll
-      for (int j = 0; j < 5; ++j)
-        r[j] = (F & kNoNoise) ? fs[7] : noise[(static_cast<int64_t>(t) * 5 + j) * U + u];
+      for (int j = 0; j < 5; ++j) r[j] = kNoise ? r_n[j][d] : fs[7];
 
       if constexpr ((F & kNoState) != 0) {
         fs[0] = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(cur, r[0]), r[1]), r[2]), r[3]), r[4]);
@@ -150,8 +191,8 @@ __global__ void probe_fee_kernel(
         const float a = __fadd_rn(__fmul_rn(fs[0], 0.99f), cur);
         const float b = a > 0.5f ? __fadd_rn(fs[1], r[0]) : fs[1];
         const float cc = a > 0.5f ? __fadd_rn(fs[2], r[1]) : fs[2];
-        const float d = b > cc ? __fadd_rn(fs[3], r[2]) : fs[3];
-        const float e = d > 0.0f ? __fadd_rn(fs[4], r[3]) : fs[4];
+        const float d2 = b > cc ? __fadd_rn(fs[3], r[2]) : fs[3];
+        const float e = d2 > 0.0f ? __fadd_rn(fs[4], r[3]) : fs[4];
         const float f = e > 0.0f ? __fadd_rn(fs[5], r[4]) : fs[5];
         const float g = f > 1e9f ? 0.0f : __fadd_rn(fs[6], 1.0f);
         if constexpr ((F & kAnyRed) != 0) {
@@ -161,11 +202,13 @@ __global__ void probe_fee_kernel(
         fs[0] = a;
         fs[1] = b;
         fs[2] = cc;
-        fs[3] = d;
+        fs[3] = d2;
         fs[4] = e;
         fs[5] = f;
         fs[6] = g;
       }
+      // the slot is free again: bring tick t + kAhead
+      load(d, t + kAhead);
     }
   }
   out[u] = fs[0];
@@ -233,7 +276,7 @@ int launch_fee(const float* scal, const float* times, const float* thr,
                float* out, float* o1, int* o2, float* o3, int* o4,
                float* fstate, int* istate, int U, int n_c, int n_scan,
                int n_times, int max_adc, cudaStream_t stream) {
-  const int block = (F & kAnyRed) ? kTile : kBlock;
+  const int block = RingShape<F>::kThreads;
   const size_t smem = (F & kConsts) ? (6 + static_cast<size_t>(n_times)) * sizeof(float) : 0;
   cudaError_t e = allow_smem(probe_fee_kernel<F>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -10,6 +10,12 @@ through the dispatching functions ``ops.current.induced_current``,
 ``ops.accumulate.sum_pixel_signals``, ``ops.fee.fee_fsm``,
 ``ops.fee.current_fractions`` and those of the card probes in ``tools/``
 (``probe_folded``, ``probe_fee``, ``probe_fee2``).
+
+The launch path is kept short, since every chain batch pays it a few
+times: the library's signatures are set once per loaded library
+(:func:`_lib`), and :func:`_launch` enters no device context where the
+calling thread's current card already is the tensors' and passes the
+current stream's raw handle (``tools/launch_cost.py`` times each step).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 #: kernel launches by kernel name since the last :func:`reset_launches`;
 #: a run reads them to show that its main path went through the kernels
@@ -41,7 +48,8 @@ _SIGNATURES = {
     + [_P],
     'probe_window_launch': [_P] * 2 + [_I] * 5 + [_P],
     'probe_roll_launch': [_P] * 2 + [_I] * 4 + [_P],
-    'probe_async_copy_launch': [_P] * 2 + [_I] * 6 + [_P],
+    'probe_async_copy_launch': [_P] * 2 + [_I] * 3 + [_L] * 2 + [_I] * 3
+    + [_P],
     'probe_fee_launch': [_U] + [_P] * 13 + [_I] * 5 + [_P],
     'probe_fee2_launch': [_U] + [_P] * 13 + [_I] * 5 + [_P],
 }
@@ -52,14 +60,31 @@ K1_TILING = ('pairs', 'r2_chunks', 'r1_chunks', 'halvings', 'max_slots',
 #: pixels and ticks per grid step of the JAX FEE probes: U and the padded
 #: tick count must be multiples of them
 PROBE_TILE, PROBE_CHUNK = 1024, 256
+#: shared memory a block may take on the card (bytes)
+SMEM_MAX = 227 * 1024
+#: a TMA box's largest dimension; the alignment, in bytes, of the global
+#: address and strides of a TMA tensor map
+TMA_BOX_MAX, TMA_ALIGN = 256, 16
+#: shared memory of the TMA copy beyond its window: the slack that aligns
+#: the window to 128 bytes, and its mbarrier (csrc/probe_window.cu)
+TMA_SMEM_EXTRA = 128 + 8
+
+#: the library whose launch functions' signatures are set
+_bound = None
 
 
 def _lib() -> ctypes.CDLL:
+    """The kernels' library, its launch functions' ``argtypes`` and
+    ``restype`` set once per loaded library (set on every launch, they
+    took more host time than the launch itself)."""
+    global _bound
     lib = build.load()
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    if lib is not _bound:
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _bound = lib
     return lib
 
 
@@ -78,9 +103,12 @@ def _count(name: str) -> None:
 def _launch(fn, dev: torch.device, *args) -> int:
     """``fn(*args, stream)`` with ``dev`` the current card and ``stream``
     its current stream (the ctypes call runs on the calling thread's
-    current card)."""
-    with torch.cuda.device(dev):
-        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    current card; a new thread's is card 0)."""
+    idx = dev.index
+    if torch._C._cuda_getDevice() == idx:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -96,6 +124,11 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
 
 
 def _raise_on(err: int, kernel: str) -> None:
+    """Raise on a launch function's return: a ``cudaError_t``, or the
+    ``CUresult`` of a refused ``cuTensorMapEncodeTiled``, negated."""
+    if err < 0:
+        raise RuntimeError(f'{kernel}: cuTensorMapEncodeTiled error {-err} '
+                           'encoding its tensor map')
     if err:
         raise RuntimeError(f'{kernel}: CUDA error {err} at launch')
 
@@ -316,27 +349,65 @@ def probe_roll(x, shift: int, axis: int) -> torch.Tensor:
     return out
 
 
-def probe_async_copy(slab, q_step: int, q_sz: int,
-                     n_windows: int) -> torch.Tensor:
-    """Launch ``csrc/probe_window.cu``'s cp.async copy: window ``b`` is
-    ``slab[:, b * q_step:b * q_step + q_sz, :]``; out (n_windows, n_rows,
-    q_sz, lanes)."""
-    dev = _cuda(slab, 'probe_async_copy')
-    n_rows, n_sub, lanes = slab.shape
-    _check('slab', slab, torch.float32, (n_rows, n_sub, lanes), dev)
-    if lanes % 4 or slab.data_ptr() % 16:
-        raise ValueError('cp.async moves 16-byte words: lanes must be a '
-                         'multiple of 4 and the slab 16-byte aligned')
-    if q_sz <= 0 or (n_windows - 1) * q_step + q_sz > n_sub:
+def tma_window(shape, strides, data_ptr: int, q_step: int, q_sz: int,
+               n_windows: int, itemsize: int = 4) -> int:
+    """Check that each window ``slab[:, b * q_step:b * q_step + q_sz, :]``
+    (b < ``n_windows``) of an (n_rows, n_sub, lanes) slab with ``strides``
+    (elements) at ``data_ptr`` moves as one TMA box (lanes, q_sz, n_rows)
+    into one block's shared memory: box dimensions of at most
+    :data:`TMA_BOX_MAX`, lanes contiguous and a multiple of 16 bytes,
+    address and strides multiples of :data:`TMA_ALIGN` bytes, the window
+    inside the slab and within :data:`SMEM_MAX`.  Returns the shared
+    memory a block takes; raises ValueError before any launch."""
+    n_rows, n_sub, lanes = shape
+    row_stride, sub_stride, lane_stride = strides
+    if min(shape) <= 0 or q_sz <= 0 or n_windows <= 0 or q_step < 0:
+        raise ValueError(f'{n_windows} windows of {q_sz} rows at step '
+                         f'{q_step} of an empty slab {tuple(shape)}')
+    if (n_windows - 1) * q_step + q_sz > n_sub:
         raise ValueError(f'{n_windows} windows of {q_sz} rows at step '
                          f'{q_step} overrun {n_sub} rows')
-    if n_rows * q_sz * lanes * 4 > 227 * 1024:
-        raise ValueError('window larger than a block\'s shared memory')
+    box = (lanes, q_sz, n_rows)
+    if max(box) > TMA_BOX_MAX:
+        raise ValueError(f'TMA box {box} has a dimension above '
+                         f'{TMA_BOX_MAX}')
+    if lane_stride != 1 or lanes * itemsize % TMA_ALIGN:
+        raise ValueError(f'TMA moves contiguous rows of a multiple of '
+                         f'{TMA_ALIGN} bytes: lanes {lanes} at stride '
+                         f'{lane_stride}')
+    for name, v in (('address', data_ptr), ('row stride', row_stride *
+                                            itemsize),
+                    ('sub-row stride', sub_stride * itemsize)):
+        if v % TMA_ALIGN:
+            raise ValueError(f'TMA needs a {name} of a multiple of '
+                             f'{TMA_ALIGN} bytes, got {v}')
+    smem = n_rows * q_sz * lanes * itemsize + TMA_SMEM_EXTRA
+    if smem > SMEM_MAX:
+        raise ValueError(f'window of {smem} bytes with its barrier exceeds '
+                         f'a block\'s {SMEM_MAX} bytes of shared memory')
+    return smem
+
+
+def probe_async_copy(slab, q_step: int, q_sz: int,
+                     n_windows: int) -> torch.Tensor:
+    """Launch ``csrc/probe_window.cu``'s TMA copy: window ``b`` is
+    ``slab[:, b * q_step:b * q_step + q_sz, :]``, moved by one TMA tensor
+    load; out (n_windows, n_rows, q_sz, lanes).  ``slab`` may be a strided
+    view that :func:`tma_window` accepts; any other raises (nothing is
+    copied first)."""
+    dev = _cuda(slab, 'probe_async_copy')
+    if slab.dtype != torch.float32 or slab.dim() != 3:
+        raise TypeError(f'slab: {slab.dtype} of {slab.dim()} dimensions, '
+                        'expected a 3-dimensional float32 tensor')
+    tma_window(slab.shape, slab.stride(), slab.data_ptr(), q_step, q_sz,
+               n_windows)
+    n_rows, n_sub, lanes = slab.shape
     out = torch.empty((n_windows, n_rows, q_sz, lanes), dtype=torch.float32,
                       device=dev)
     err = _launch(
         _lib().probe_async_copy_launch, dev, slab.data_ptr(), out.data_ptr(),
-        n_rows, n_sub, lanes, q_step, q_sz, n_windows)
+        n_rows, n_sub, lanes, slab.stride(0), slab.stride(1), q_step, q_sz,
+        n_windows)
     _raise_on(err, 'probe_async_copy')
     _count('probe_async_copy')
     return out

@@ -13,6 +13,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,6 +45,21 @@ def _nvcc() -> str:
 
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, '*.cu')))
+
+
+#: the name of a ``__global__`` function (after any ``__launch_bounds__``)
+_GLOBAL = re.compile(r'__global__\s+void\s+(?:__launch_bounds__\s*\(.*?\)\s+)?'
+                     r'(\w+)\s*\(', re.S)
+
+
+def kernel_names() -> list[str]:
+    """The ``__global__`` functions of ``csrc/*.cu``, as the profiler's
+    kernel names contain them."""
+    names = []
+    for path in sources():
+        with open(path) as f:
+            names += _GLOBAL.findall(f.read())
+    return names
 
 
 def library_path() -> str:

@@ -6,9 +6,12 @@ of ``csrc/probe_fee.cu`` (states a..g per pixel, the guard ``t < n_scan``,
 the final ``a`` as the output) with parts taken away, named as in the JAX
 probe's ``ablate`` string: ``full`` (nothing taken away), ``consts``,
 ``outs``, ``noguard``, ``nosig``, ``nonoise``, ``nostate``, ``intops``,
-``anyred`` (see the CUDA source).  The kernel is built for each of these;
-the plain version (a PyTorch tick loop over (U,) vectors) also takes
-their combinations.
+``anyred`` (see the CUDA source).  The kernel runs on K2's structure
+(blocks of 64 pixels, a register ring of 16 ticks; ``anyred`` the JAX
+tile of 1024 pixels and a ring of 4), so each variant's share of K2 says
+what that part costs in the kernel the chain ships.  It is built for each
+of these; the plain version (a PyTorch tick loop over (U,) vectors) also
+takes their combinations.
 
     python -m larndsim_tpu_torch.tools.probe_fee [--device cpu]
 
@@ -54,28 +57,30 @@ def flags(ablate: str) -> int:
 #: anyred's test; nostate's five adds; intops' product, two adds and test
 #: (its int32 counters are not counted)
 _OPS = dict(full=13, anyred=14, nostate=5, intops=4)
+#: noise rows a tick's body reads, where not all five
+_NOISE_ROWS = dict(intops=2)
 
 
 def costs(ablate: str, n_pix: int, n_scan: int, n_scan_p: int,
           max_adc: int = MAX_ADC, n_times: int = N_TIMES) -> dict:
-    """Bytes and operations of one variant (each input read once, each
-    output written once; the guarded ticks only) and its bound on this
-    card (``perf_guard.bound``)."""
+    """Bytes and operations of one variant (each input row its body reads
+    read once, each output written once; the guarded ticks only) and its
+    bound on this card (``perf_guard.bound``)."""
     from .perf_guard import bound
     fl = flags(ablate)
+    kind = ('nostate' if fl & FLAGS['nostate'] else
+            'intops' if fl & FLAGS['intops'] else
+            'anyred' if fl & FLAGS['anyred'] else 'full')
     ticks = n_scan_p if fl & FLAGS['noguard'] else n_scan
     n_bytes = (1 + 8 + 4) * n_pix * 4
     if not fl & FLAGS['nosig']:
         n_bytes += ticks * n_pix * 4
     if not fl & FLAGS['nonoise']:
-        n_bytes += 5 * ticks * n_pix * 4
+        n_bytes += _NOISE_ROWS.get(kind, 5) * ticks * n_pix * 4
     if fl & FLAGS['consts']:
         n_bytes += (6 + n_times + 2 * n_pix) * 4
     if fl & FLAGS['outs']:
         n_bytes += 4 * max_adc * n_pix * 4
-    kind = ('nostate' if fl & FLAGS['nostate'] else
-            'intops' if fl & FLAGS['intops'] else
-            'anyred' if fl & FLAGS['anyred'] else 'full')
     return bound(n_bytes, _OPS[kind] * ticks * n_pix)
 
 

@@ -11,7 +11,7 @@ the folded variant of the TPU kernel with seven minimal kernels on an
   d. roll of slab[0] by 5 rows
   e. window slab[5, 3:12, :], both offsets dynamic
   f. two windows slab[:, q:q + 9, :] at q 0 and 2, copied asynchronously
-     into fast memory (cp.async into shared memory here)
+     into fast memory (one TMA tensor load into shared memory here)
   g. two windows slab[:, q:q + 16, :] at q 0 and 8
 
 Each case's output must equal the numpy value the JAX probe asserts.  The
@@ -79,7 +79,7 @@ def roll(x, shift: int, axis: int) -> torch.Tensor:
 
 def async_copy(slab, q_step: int, q_sz: int, n_windows: int) -> torch.Tensor:
     """Windows ``slab[:, b * q_step:b * q_step + q_sz]`` stacked; the
-    cp.async kernel on a CUDA tensor."""
+    TMA kernel on a CUDA tensor."""
     if slab.device.type == 'cpu':
         return async_copy_plain(slab, q_step, q_sz, n_windows)
     from ..kernels import binding

@@ -12,10 +12,14 @@ between the two devices); the FSM's integers and floats equal its plain
 version's; the CLI's data packets on the card agree with its CPU run (plain
 versions) for >= 99% of packets; the card probes P1-P3
 (``larndsim_tpu_torch/tools``) equal their plain versions bit for bit (P1
-also the numpy values of the JAX probe), at a small shape and at the probe
-shapes.  The light chain (plain PyTorch on both devices): the ordered
-photon sum gives the CPU's bits; a light batch at the slice's widths (96
-channels, 16 us), run on the card and on the CPU with the same draws,
+also the numpy values of the JAX probe), at a small shape, at the probe
+shapes and, for P2 / P3, at fewer ticks than P2's register ring holds;
+P1's TMA copy also with 128 KiB windows and on a strided view, a view TMA
+cannot map raises before any launch, a map cuTensorMapEncodeTiled refuses
+raises, and a P1 launch from a new thread gives the main thread's bits.
+The light chain (plain PyTorch on both devices): the ordered photon sum
+gives the CPU's bits; a light batch at the slice's widths (96 channels,
+16 us), run on the card and on the CPU with the same draws,
 agrees at ``tools.light_check``'s tolerances (waveforms within one
 quantum, >= 99.9% of samples equal; truth records equal, the LUT-smearing
 truth's beyond 1e-3 of the threshold), and two card runs are identical;
@@ -310,9 +314,89 @@ def test_probe_folded_case(cuda, case):
     assert binding.launches[kernel] == before + 1
 
 
-#: (U, n_scan_p, n_scan): a small shape and the probe shapes
+#: (q_sz, q_step, n_windows, n_sub) of the TMA copy: cases f and g, and
+#: windows of 128 KiB (q_sz 32 of an (8, n_sub, 128) slab)
+TMA_WINDOWS = [(9, 2, 2, 32), (16, 8, 2, 32), (32, 32, 3, 96)]
+
+
+@pytest.mark.parametrize('window', TMA_WINDOWS, ids=['f', 'g', 'q32'])
+def test_probe_async_copy_windows(cuda, window):
+    q_sz, q_step, n_windows, n_sub = window
+    slab = torch.randn((8, n_sub, 128), generator=torch.Generator(
+        ).manual_seed(q_sz)).to(cuda)
+    before = binding.launches['probe_async_copy']
+    got = probe_folded.async_copy(slab, q_step, q_sz, n_windows)
+    torch.cuda.synchronize()
+    assert binding.launches['probe_async_copy'] == before + 1
+    assert torch.equal(got, probe_folded.async_copy_plain(
+        slab, q_step, q_sz, n_windows))
+
+
+def test_probe_async_copy_moves_a_strided_view(cuda):
+    """A view whose strides are multiples of 16 bytes is one tensor map:
+    moved as it is."""
+    big = torch.randn((8, 40, 132), generator=torch.Generator(
+        ).manual_seed(3)).to(cuda)
+    slab = big[:, 4:36, :128]
+    assert not slab.is_contiguous()
+    got = probe_folded.async_copy(slab, 8, 16, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probe_folded.async_copy_plain(slab, 8, 16, 2))
+
+
+def test_probe_async_copy_refuses_a_view_tma_cannot_map(cuda):
+    """Rows of 130 floats (520 bytes) are no TMA stride: the wrapper
+    raises before any launch and copies nothing first."""
+    slab = torch.zeros((8, 32, 130), device=cuda)[:, :, :128]
+    before = binding.launches['probe_async_copy']
+    with pytest.raises(ValueError, match='multiple of 16 bytes'):
+        probe_folded.async_copy(slab, 8, 16, 2)
+    assert binding.launches['probe_async_copy'] == before
+
+
+def test_probe_async_copy_raises_where_the_map_is_refused(cuda):
+    """The launch function given the same 520-byte stride:
+    cuTensorMapEncodeTiled refuses the tensor map, the launch returns its
+    CUresult negated and the wrapper's check raises."""
+    slab = torch.zeros((8, 32, 130), device=cuda)
+    out = torch.empty((2, 8, 16, 128), device=cuda)
+    err = binding._launch(
+        binding._lib().probe_async_copy_launch, slab.device,
+        slab.data_ptr(), out.data_ptr(), 8, 32, 128, 32 * 130, 130, 8, 16, 2)
+    assert err < 0
+    with pytest.raises(RuntimeError, match='cuTensorMapEncodeTiled'):
+        binding._raise_on(err, 'probe_async_copy')
+
+
+@pytest.mark.parametrize('case', ['a', 'c', 'g'])
+def test_probe_launch_from_a_new_thread_gives_the_same_bits(cuda, case):
+    """A P1 kernel launched from a thread of its own, on a stream of its
+    own on card 0, equals the main thread's launch."""
+    fn, (x, *rest), _ = probe_folded.case_call(case)
+    x = torch.from_numpy(x).to('cuda:0')
+    want = fn(x, *rest)
+    out, errors = [], []
+
+    def launch():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream('cuda:0')):
+                out.append(fn(x, *rest))
+                torch.cuda.current_stream('cuda:0').synchronize()
+        except BaseException as exc:
+            errors.append(exc)
+    t = threading.Thread(target=launch)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want)
+
+
+#: (U, n_scan_p, n_scan): a small shape, the probe shapes, and fewer ticks
+#: than P2's ring holds
 PROBE_SHAPES = [(1024, 512, 400), (probe_fee.U, probe_fee.N_SCAN_P,
-                                   probe_fee.N_SCAN)]
+                                   probe_fee.N_SCAN), (1024, 256, 7)]
+PROBE_IDS = ['small', 'probe', 'short']
 
 
 def _assert_same(got, want):
@@ -325,7 +409,7 @@ def _assert_same(got, want):
             assert torch.equal(g, w), float((g.float() - w.float()).abs().max())
 
 
-@pytest.mark.parametrize('shape', PROBE_SHAPES, ids=['small', 'probe'])
+@pytest.mark.parametrize('shape', PROBE_SHAPES, ids=PROBE_IDS)
 @pytest.mark.parametrize('variant', probe_fee.VARIANTS)
 def test_probe_fee_variant(cuda, variant, shape):
     U, n_scan_p, n_scan = shape
@@ -340,7 +424,7 @@ def test_probe_fee_variant(cuda, variant, shape):
                                                 n_scan=n_scan))
 
 
-@pytest.mark.parametrize('shape', PROBE_SHAPES, ids=['small', 'probe'])
+@pytest.mark.parametrize('shape', PROBE_SHAPES, ids=PROBE_IDS)
 @pytest.mark.parametrize('variant', probe_fee2.VARIANTS)
 def test_probe_fee2_variant(cuda, variant, shape):
     U, n_scan_p, n_scan = shape

@@ -10,7 +10,8 @@ interpreted kernel equals a numpy transcription with the product unrounded,
 bit for bit), which differs from the port's two roundings by up to 1 f32
 ULP a tick, decaying by 0.99 a tick: at most 1 / (1 - 0.99) = 100 ULP of
 max |a|.  P3's state equals a numpy transcription of the one-state scan bit
-for bit, and its outputs have the JAX call's shapes.
+for bit, and its outputs have the JAX call's shapes.  P2's byte counts
+equal hand counts of the rows each variant's body reads.
 """
 from __future__ import annotations
 
@@ -179,3 +180,19 @@ def test_probe_entry_points_on_the_cpu_say_so(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 7
     assert all(': OK (plain versions on the CPU)' in line for line in lines)
+
+
+@pytest.mark.parametrize('variant', probe_fee.VARIANTS)
+def test_probe_fee_costs_count_the_rows_each_body_reads(variant):
+    """P2's bytes: the (1, U) output, 8 + 4 state planes, the signal row
+    and the noise rows each tick's body reads (``intops`` the first two
+    of five), the constants and output planes of their variants."""
+    n_pix, n_scan, n_scan_p, adc, n_t = 1024, 400, 512, 30, 2049
+    ticks = n_scan_p if variant == 'noguard' else n_scan
+    rows = dict(nosig=5, nonoise=1, intops=3).get(variant, 6)
+    want = (13 + rows * ticks) * n_pix * 4
+    want += dict(consts=(6 + n_t + 2 * n_pix) * 4,
+                 outs=4 * adc * n_pix * 4).get(variant, 0)
+    assert probe_fee.costs(variant, n_pix, n_scan, n_scan_p, adc,
+                           n_t)['bytes'] == want
+
