@@ -34,7 +34,7 @@ Phases, one line each; any failure exits non-zero with nothing caught:
    the plain versions are forbidden during it (every later run of the
    main path too), D1 launches once per K1 launch and D2 once per batch
    in which a pixel latched; its phase table
-   (``utils.trace``: self wall, thread-CPU and device time per label)
+   (``utils.trace``: self wall, thread-CPU time and calls per label)
    and the host cost of one phase on the card;
 7. light: the charge+light warm-up (the slice's input on the same
    detector with the light keys of one 2x2 module: 96 channels, beam
@@ -369,22 +369,21 @@ def grouped_reference(tmp: str, paths: dict, kw: dict) -> None:
 
 def phase_table(name: str) -> str:
     """The last run's phase table (``utils.trace.report``), printed under
-    ``name``; it must hold device time."""
+    ``name``; it must hold the charge chain's phases."""
     from larndsim_tpu_torch.utils import trace
     table = trace.report()
-    assert 'ms device' in table, f'{name}: no device time in the table'
-    log('phases', f'{name} (label, self wall s, self thread-CPU s, self '
-        'device ms (the stream\'s span, idle gaps included), calls):')
+    assert 'charge_batch' in table, f'{name}: no charge phase in the table'
+    log('phases', f'{name} (label, self wall s, self thread-CPU s, '
+        'calls):')
     for row in table.splitlines():
         print(f'    {row}', flush=True)
     return table
 
 
 def trace_cost(n: int = 2000) -> dict:
-    """Host microseconds of one empty phase on the card, its events read
-    once at the end as ``report()`` reads them, and of its parts alone: a
-    phase on the host only, a profiler range, an NVTX range, and a pair
-    of timing events created, recorded and read."""
+    """Host microseconds of one empty phase that names the card, its table
+    read once at the end as ``report()`` reads it, and of a profiler range
+    alone (which a phase opens only while a profiler runs)."""
     import torch
     from larndsim_tpu_torch.utils import trace
 
@@ -399,33 +398,12 @@ def trace_cost(n: int = 2000) -> dict:
     def card_phase():
         with trace.phase('cost', 'cuda'):
             pass
-    pairs = []
-
-    def events():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        for e in ev:
-            e.record()
-        pairs.append(ev)
-
-    def read_events():
-        torch.cuda.synchronize()
-        for a, b in pairs:
-            a.elapsed_time(b)
-
-    def host_phase():
-        with trace.phase('cost'):
-            pass
 
     def profiler_range():
         with torch.profiler.record_function('cost'):
             pass
-
-    def nvtx_range():
-        torch.cuda.nvtx.range_push('cost')
-        torch.cuda.nvtx.range_pop()
-    cost = dict(phase=us(card_phase, trace.summary_device),
-                host_phase=us(host_phase), profiler_range=us(profiler_range),
-                nvtx_range=us(nvtx_range), event_pair=us(events, read_events))
+    cost = dict(phase=us(card_phase, trace.report),
+                profiler_range=us(profiler_range))
     trace.reset()
     return cost
 
@@ -1896,10 +1874,9 @@ def io_mode0(tmp: str, inp: str, kw0: dict) -> dict:
         assert res['launches']['current_fractions'] > 0, res['launches']
         table = res['stdout'].rsplit('Phase breakdown:\n', 1)[1].split(
             'RESULT ')[0]
-        assert 'ms device' in table, f'mode 0, {comp}: no device time'
+        assert 'charge_batch' in table, f'mode 0, {comp}: no charge phase'
         log('phases', f'mode-0 slice, ungrouped, truth {comp}, its own '
-            'process (label, self wall s, self thread-CPU s, self device '
-            'ms, calls):')
+            'process (label, self wall s, self thread-CPU s, calls):')
         for row in table.strip().splitlines():
             print(f'    {row}', flush=True)
         runs[comp] = dict(res, out=out)
@@ -2133,11 +2110,8 @@ def main(argv=None) -> int:
         phase_table('charge-only slice')
         cost = trace_cost()
         log('phases', f'cost of one phase on the card: {cost["phase"]:.1f} '
-            'us of host time; alone: a phase on the host only '
-            f'{cost["host_phase"]:.1f} us, a profiler range '
-            f'{cost["profiler_range"]:.1f} us, an NVTX range '
-            f'{cost["nvtx_range"]:.1f} us, two timing events created, '
-            f'recorded and read {cost["event_pair"]:.1f} us')
+            'us of host time; a profiler range alone '
+            f'{cost["profiler_range"]:.1f} us')
         mark('slice')
 
         # ---- charge + light ----

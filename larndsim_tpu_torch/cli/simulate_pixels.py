@@ -390,55 +390,57 @@ def run_simulation(input_filename: str,
     np_rng = np.random.default_rng(rand_seed)
 
     # ---------------- input ----------------
-    inp = edep.load_edep(input_filename, n_events=n_events,
-                         event_separator=sim.event_separator,
-                         is_spill_sim=sim.is_spill_sim,
-                         spill_period=sim.spill_period,
-                         max_events_per_file=sim.max_events_per_file)
-    tracks = inp.tracks
-    vertices, mc_hdr, mc_stack = inp.vertices, inp.mc_hdr, inp.mc_stack
-    memlog.take_snapshot()
-    memlog.archive('loading')
+    with trace.phase('cli/input'):
+        inp = edep.load_edep(input_filename, n_events=n_events,
+                             event_separator=sim.event_separator,
+                             is_spill_sim=sim.is_spill_sim,
+                             spill_period=sim.spill_period,
+                             max_events_per_file=sim.max_events_per_file)
+        tracks = inp.tracks
+        vertices, mc_hdr, mc_stack = inp.vertices, inp.mc_hdr, inp.mc_stack
+        memlog.take_snapshot()
+        memlog.archive('loading')
 
-    # the first layout's geometry for the event times and the active
-    # volume (cli:261-265)
-    geo = load_detector(detector_properties, _of_module(pixel_layout, 1),
-                        device=device)
-    trig_mode = light.light_trig_mode
+        # the first layout's geometry for the event times and the active
+        # volume (cli:261-265)
+        with trace.phase('cli/detector'):
+            geo = load_detector(detector_properties,
+                                _of_module(pixel_layout, 1), device=device)
+        trig_mode = light.light_trig_mode
 
-    num_evids = int(tracks[sim.event_separator].max()
-                    % sim.max_events_per_file) + 1
-    if sim.is_spill_sim:
-        event_times = np.arange(num_evids) * sim.spill_period
-    else:
-        event_times = gen_event_times(num_evids, geo.params.event_rate,
-                                      t0=geo.params.non_beam_event_gap,
-                                      rng=np_rng)
+        num_evids = int(tracks[sim.event_separator].max()
+                        % sim.max_events_per_file) + 1
+        if sim.is_spill_sim:
+            event_times = np.arange(num_evids) * sim.spill_period
+        else:
+            event_times = gen_event_times(num_evids, geo.params.event_rate,
+                                          t0=geo.params.non_beam_event_gap,
+                                          rng=np_rng)
 
-    # event times into vertices/mc_hdr (cli:616-642)
-    if vertices is not None and not sim.is_spill_sim:
-        import numpy.lib.recfunctions as rfn
-        if 't_event' not in vertices.dtype.names:
-            vertices = rfn.merge_arrays(
-                (np.zeros(vertices.shape[0], dtype=[('t_event', 'f4')]),
-                 vertices), flatten=True)
-        uniq_ev, counts = np.unique(vertices[sim.event_separator],
-                                    return_counts=True)
-        vertices['t_event'] = np.repeat(
-            event_times[uniq_ev % sim.max_events_per_file], counts)
-    if mc_hdr is not None and vertices is not None \
-            and 't_event' in vertices.dtype.names:
-        import numpy.lib.recfunctions as rfn
-        if 't_event' not in mc_hdr.dtype.names:
-            mc_hdr = rfn.merge_arrays(
-                (np.zeros(mc_hdr.shape[0], dtype=[('t_event', 'f4')]),
-                 mc_hdr), flatten=True)
-        mc_hdr['t_event'] = vertices['t_event']
+        # event times into vertices/mc_hdr (cli:616-642)
+        if vertices is not None and not sim.is_spill_sim:
+            import numpy.lib.recfunctions as rfn
+            if 't_event' not in vertices.dtype.names:
+                vertices = rfn.merge_arrays(
+                    (np.zeros(vertices.shape[0], dtype=[('t_event', 'f4')]),
+                     vertices), flatten=True)
+            uniq_ev, counts = np.unique(vertices[sim.event_separator],
+                                        return_counts=True)
+            vertices['t_event'] = np.repeat(
+                event_times[uniq_ev % sim.max_events_per_file], counts)
+        if mc_hdr is not None and vertices is not None \
+                and 't_event' in vertices.dtype.names:
+            import numpy.lib.recfunctions as rfn
+            if 't_event' not in mc_hdr.dtype.names:
+                mc_hdr = rfn.merge_arrays(
+                    (np.zeros(mc_hdr.shape[0], dtype=[('t_event', 'f4')]),
+                     mc_hdr), flatten=True)
+            mc_hdr['t_event'] = vertices['t_event']
 
-    active_mask = select_active_volume(tracks, geo.tpc_borders)
-    all_mod_tracks = tracks[active_mask]
-    all_mod_segment_ids = inp.segment_ids[active_mask]
-    all_mod_traj_ids = inp.trajectory_ids[active_mask]
+        active_mask = select_active_volume(tracks, geo.tpc_borders)
+        all_mod_tracks = tracks[active_mask]
+        all_mod_segment_ids = inp.segment_ids[active_mask]
+        all_mod_traj_ids = inp.trajectory_ids[active_mask]
 
     # appended datasets go to disk a chunk at a time; the rest at close
     out = File(output_filename, 'w')
@@ -454,21 +456,22 @@ def run_simulation(input_filename: str,
         Returns its drifted tracks, its light_dat rows (None without light)
         and its detector model."""
         home = mod_devices[0]
-        det_model = load_detector(detector_properties, pixel_layout,
-                                  i_module=i_mod, device=home)
-        det = det_model.params
-        n_resp_t = int(round(det.f32('time_window')
-                             / det.f32('response_sampling')))
-        response = torch.from_numpy(load_response(
-            _of_module(response_file, i_mod), n_t=n_resp_t,
-            bin_size=det.f32('response_bin_size'),
-            sampling=det.f32('response_sampling'),
-            pixel_pitch=det.f32('pixel_pitch'))).to(home)
-        thresholds_lut = (PixelLUT.load(_of_module(pixel_thresholds_file,
-                                                   i_mod))
-                          if pixel_thresholds_file else None)
-        gains_lut = (PixelLUT.load(_of_module(pixel_gains_file, i_mod))
-                     if pixel_gains_file else None)
+        with trace.phase('cli/detector'):
+            det_model = load_detector(detector_properties, pixel_layout,
+                                      i_module=i_mod, device=home)
+            det = det_model.params
+            n_resp_t = int(round(det.f32('time_window')
+                                 / det.f32('response_sampling')))
+            response = torch.from_numpy(load_response(
+                _of_module(response_file, i_mod), n_t=n_resp_t,
+                bin_size=det.f32('response_bin_size'),
+                sampling=det.f32('response_sampling'),
+                pixel_pitch=det.f32('pixel_pitch'))).to(home)
+            thresholds_lut = (PixelLUT.load(_of_module(pixel_thresholds_file,
+                                                       i_mod))
+                              if pixel_thresholds_file else None)
+            gains_lut = (PixelLUT.load(_of_module(pixel_gains_file, i_mod))
+                         if pixel_gains_file else None)
 
         if mod2mod_variation:
             # the module's own tracks: those inside its two TPCs
@@ -490,11 +493,12 @@ def run_simulation(input_filename: str,
 
         # ---- quench + drift over the whole module ----
         t0 = time.time()
-        segs_all = from_structured(tracks_sel,
-                                   pad_to=bucket(len(tracks_sel), lo=64),
-                                   device=home)
-        segs_all = drift(quench(segs_all, det, physics.BIRKS), det)
-        tracks_mod = to_structured(segs_all, dtype=tracks_sel.dtype)
+        with trace.phase('cli/quench_drift', home):
+            segs_all = from_structured(tracks_sel,
+                                       pad_to=bucket(len(tracks_sel), lo=64),
+                                       device=home)
+            segs_all = drift(quench(segs_all, det, physics.BIRKS), det)
+            tracks_mod = to_structured(segs_all, dtype=tracks_sel.dtype)
         print(f'Quenching and drifting: {time.time() - t0:.2f} s')
         memlog.take_snapshot()
         memlog.archive(f'quench_drift_mod{i_mod}')
@@ -559,23 +563,24 @@ def run_simulation(input_filename: str,
         if len(mod_devices) == 1 and not pipeline:
             ctxs = [home_ctx]
         else:
-            copies = {home: home_ctx}
-            ctxs = []
-            for k, d in enumerate(mod_devices):
-                if d not in copies:
-                    copies[d] = dataclasses.replace(home_ctx, device=d, **{
-                        f.name: to_device(getattr(home_ctx, f.name), d)
-                        for f in dataclasses.fields(_Context)
-                        if f.name not in ('device', 'stream', 'pool')})
-                ctxs.append(dataclasses.replace(
-                    copies[d],
-                    stream=dispatch_stream(d, ('context', i_mod, k)),
-                    pool=ThreadPoolExecutor(
-                        1, thread_name_prefix=f'module-{i_mod}-ctx{k}'
-                        if i_mod > 0 else f'dispatch-ctx{k}')))
-            for d in copies:
-                if d.type == 'cuda':
-                    torch.cuda.current_stream(d).synchronize()
+            with trace.phase('cli/detector'):
+                copies = {home: home_ctx}
+                ctxs = []
+                for k, d in enumerate(mod_devices):
+                    if d not in copies:
+                        copies[d] = dataclasses.replace(home_ctx, device=d, **{
+                            f.name: to_device(getattr(home_ctx, f.name), d)
+                            for f in dataclasses.fields(_Context)
+                            if f.name not in ('device', 'stream', 'pool')})
+                    ctxs.append(dataclasses.replace(
+                        copies[d],
+                        stream=dispatch_stream(d, ('context', i_mod, k)),
+                        pool=ThreadPoolExecutor(
+                            1, thread_name_prefix=f'module-{i_mod}-ctx{k}'
+                            if i_mod > 0 else f'dispatch-ctx{k}')))
+                for d in copies:
+                    if d.type == 'cuda':
+                        torch.cuda.current_stream(d).synchronize()
 
         # ---- batching loop ----
         results_acc = defaultdict(list)
@@ -820,22 +825,23 @@ def run_simulation(input_filename: str,
             thread and stream where it has them); its results go to the
             host here."""
             with ctx.scope():
-                sels = [sel for _, sel in items]
-                cat = np.concatenate(sels)
-                selected = tracks_mod[cat]
-                segs = from_structured(selected,
-                                       pad_to=bucket(len(cat), lo=32),
-                                       device=ctx.device)
+                with trace.phase('cli/segments'):
+                    sels = [sel for _, sel in items]
+                    cat = np.concatenate(sels)
+                    selected = tracks_mod[cat]
+                    segs = from_structured(selected,
+                                           pad_to=bucket(len(cat), lo=32),
+                                           device=ctx.device)
+                    slot = None
+                    if len(items) > 1:
+                        slot = np.zeros(segs.size, np.int32)
+                        slot[:len(cat)] = np.repeat(
+                            np.arange(len(items)), [len(sel) for sel in sels])
+                    gen = batch_generator(rand_seed, i_mod, items[0][0], seq,
+                                          ctx.device)
                 lres = run_light(ctx, items, plan,
                                  segs if len(items) == 1 else None) \
                     if plan is not None else {}
-                slot = None
-                if len(items) > 1:
-                    slot = np.zeros(segs.size, np.int32)
-                    slot[:len(cat)] = np.repeat(np.arange(len(items)),
-                                                [len(sel) for sel in sels])
-                gen = batch_generator(rand_seed, i_mod, items[0][0], seq,
-                                      ctx.device)
                 with trace.phase('charge_batch', ctx.device):
                     res = simulate_charge_batch(
                         segs, ctx.det_model, sim,
@@ -888,15 +894,16 @@ def run_simulation(input_filename: str,
             """A group's rows, light first, in batch order."""
             seq, items, cat, lres, res = payload
             del outstanding[seq]
-            for i, (ievd, _) in enumerate(items):
-                if i in lres:
-                    accumulate_light(ievd, lres[i], seq)
-            if res.overflow:
-                warnings.warn('More segments per pixel than '
-                              'MAX_TRACKS_PER_PIXEL '
-                              f'({sim.max_tracks_per_pixel}); backtracking '
-                              'may be incomplete')
-            accumulate_charge(items, cat, res)
+            with trace.phase('cli/accumulate'):
+                for i, (ievd, _) in enumerate(items):
+                    if i in lres:
+                        accumulate_light(ievd, lres[i], seq)
+                if res.overflow:
+                    warnings.warn('More segments per pixel than '
+                                  'MAX_TRACKS_PER_PIXEL '
+                                  f'({sim.max_tracks_per_pixel}); '
+                                  'backtracking may be incomplete')
+                accumulate_charge(items, cat, res)
 
         def drain_actions(block: bool = False):
             """Run the pending work in submission order (JAX cli:1005-1022):
@@ -964,14 +971,19 @@ def run_simulation(input_filename: str,
             return bool(uniq_ratio) and would * uniq_ratio > unique_guard
 
         def write_sync(times):
-            gate.submit(functools.partial(
-                export.export_sync_to_hdf5, out,
-                np.full(times.shape, clock_period), det_model, sim, i_mod))
+            def write():
+                with trace.phase('export/sync'):
+                    export.export_sync_to_hdf5(
+                        out, np.full(times.shape, clock_period), det_model,
+                        sim, i_mod)
+            gate.submit(write)
 
         def write_timestamp(t_event):
-            gate.submit(functools.partial(
-                export.export_timestamp_trigger_to_hdf5, out, [t_event],
-                det_model, trig_mode, sim, i_mod))
+            def write():
+                with trace.phase('export/timestamp'):
+                    export.export_timestamp_trigger_to_hdf5(
+                        out, [t_event], det_model, trig_mode, sim, i_mod)
+            gate.submit(write)
 
         def empty_batch(ievd):
             """An empty batch's zero waveform row, float64, for its event
@@ -989,9 +1001,11 @@ def run_simulation(input_filename: str,
                               light_model.digit_samples(light))))
                 flush_results()
 
-        batcher = TPCBatcher(all_mod_tracks, tracks_mod, sim.event_separator,
-                             tpc_batch_size=sim.event_batch_size,
-                             tpc_borders=module_borders)
+        with trace.phase('cli/batching'):
+            batcher = TPCBatcher(all_mod_tracks, tracks_mod,
+                                 sim.event_separator,
+                                 tpc_batch_size=sim.event_batch_size,
+                                 tpc_borders=module_borders)
 
         # the module's pixel key space: its own layout's pixels
         nx, ny = det.n_pixels
@@ -1007,7 +1021,12 @@ def run_simulation(input_filename: str,
 
         try:
             event_id_buffer = -1
-            for ievd, batch_mask in batcher:
+            steps = iter(batcher)
+            for _ in range(len(batcher)):
+                # a batch: its (event, TPC group) mask over the module
+                with trace.phase('cli/batching'):
+                    ievd, batch_mask = next(steps)
+                    idx = np.nonzero(batch_mask)[0]
                 this_event_time = event_times[int(ievd)
                                               % sim.max_events_per_file]
                 if ievd > event_id_buffer:
@@ -1025,7 +1044,6 @@ def run_simulation(input_filename: str,
                     if i_mod == trig_module or i_mod == -1:
                         actions.append(('call', functools.partial(
                             write_timestamp, this_event_time)))
-                idx = np.nonzero(batch_mask)[0]
                 if len(idx) == 0:
                     process_group()
                     actions.append(('call', functools.partial(empty_batch,
@@ -1121,49 +1139,54 @@ def run_simulation(input_filename: str,
     det_model = runs[-1][2]
 
     # ---------------- truth + final exports ----------------
-    if sim.is_spill_sim:
-        local_spill = edep.local_spill_ids(segments_to_files,
-                                           sim.event_separator,
-                                           sim.max_events_per_file)
-        for fld in ('t0_start', 't0_end', 't0'):
-            if fld in segments_to_files.dtype.names:
-                segments_to_files[fld] = (segments_to_files[fld]
-                                          + local_spill * sim.spill_period)
-    if light.light_simulated and trig_mode == 1:
-        # one beam trigger row per event, every channel (cli:1264-1275);
-        # mode 0 wrote its rows per flush
-        light_event_id = (np.unique(local_spill) if sim.is_spill_sim
-                          else (vertices['event_id'] if vertices is not None
-                                else np.unique(
-                                    segments_to_files[sim.event_separator])))
-        light_event_times = (light_event_id * sim.spill_period
-                             if sim.is_spill_sim else event_times)
-        export.export_light_trig_to_hdf5(
-            light_event_id, np.zeros(len(light_event_id)),
-            np.zeros(len(light_event_id), int),
-            light_ops.host_array(light.tpc_to_op_channel).ravel(), out,
-            light_event_times, det_model, light)
-    if light.light_simulated and mod2mod_variation:
-        export.merge_module_light_wvfm_same_trigger(out, det_model)
-    swap_coordinates(segments_to_files)
-    out.create_dataset(sim.tracks_dset_name, data=segments_to_files)
-    out[sim.tracks_dset_name].attrs['zbeam'] = True
-    if light.light_simulated:
-        if mod2mod_variation:
-            for (_, light_dat, _), i_mod in zip(runs, det_model.mod_ids):
-                out.create_dataset(f'light_dat/light_dat_module{i_mod - 1}',
-                                   data=light_dat)
-        else:
-            out.create_dataset('light_dat/light_dat_allmodules',
-                               data=runs[0][1])
-    for name, data in (('trajectories', inp.trajectories),
-                       ('vertices', vertices), ('mc_hdr', mc_hdr),
-                       ('mc_stack', mc_stack)):
-        if data is not None:
-            out.create_dataset(name, data=data)
-    if 'configs' in out:
-        out['configs'].attrs['pixel_layout'] = str(pixel_layout)
-    out.close()
+    with trace.phase('export/final'):
+        if sim.is_spill_sim:
+            local_spill = edep.local_spill_ids(segments_to_files,
+                                               sim.event_separator,
+                                               sim.max_events_per_file)
+            for fld in ('t0_start', 't0_end', 't0'):
+                if fld in segments_to_files.dtype.names:
+                    segments_to_files[fld] = (segments_to_files[fld]
+                                              + local_spill * sim.spill_period)
+        if light.light_simulated and trig_mode == 1:
+            # one beam trigger row per event, every channel (cli:1264-1275);
+            # mode 0 wrote its rows per flush
+            if sim.is_spill_sim:
+                light_event_id = np.unique(local_spill)
+            elif vertices is not None:
+                light_event_id = vertices['event_id']
+            else:
+                light_event_id = np.unique(
+                    segments_to_files[sim.event_separator])
+            light_event_times = (light_event_id * sim.spill_period
+                                 if sim.is_spill_sim else event_times)
+            export.export_light_trig_to_hdf5(
+                light_event_id, np.zeros(len(light_event_id)),
+                np.zeros(len(light_event_id), int),
+                light_ops.host_array(light.tpc_to_op_channel).ravel(), out,
+                light_event_times, det_model, light)
+        if light.light_simulated and mod2mod_variation:
+            export.merge_module_light_wvfm_same_trigger(out, det_model)
+        swap_coordinates(segments_to_files)
+        out.create_dataset(sim.tracks_dset_name, data=segments_to_files)
+        out[sim.tracks_dset_name].attrs['zbeam'] = True
+        if light.light_simulated:
+            if mod2mod_variation:
+                for (_, light_dat, _), i_mod in zip(runs, det_model.mod_ids):
+                    out.create_dataset(
+                        f'light_dat/light_dat_module{i_mod - 1}',
+                        data=light_dat)
+            else:
+                out.create_dataset('light_dat/light_dat_allmodules',
+                                   data=runs[0][1])
+        for name, data in (('trajectories', inp.trajectories),
+                           ('vertices', vertices), ('mc_hdr', mc_hdr),
+                           ('mc_stack', mc_stack)):
+            if data is not None:
+                out.create_dataset(name, data=data)
+        if 'configs' in out:
+            out['configs'].attrs['pixel_layout'] = str(pixel_layout)
+        out.close()
     memlog.store(save_memory)
     print(f'Output saved in: {output_filename}')
     print(f'Elapsed time: {time.time() - t_sim0:.2f} s')

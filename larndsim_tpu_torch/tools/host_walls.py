@@ -25,9 +25,9 @@ are ``chip_smoke.py``'s, their assets and inputs made once:
 
 Each run is a process of its own (``slice_run.run``: a one-spill warm-up,
 then the timed run, its launch counters set to 0 before it).  One JSON line
-per run: its wall, the self seconds of its phases, the charge chain's
-``charge/fee_stage`` device ms, its peak device memory and its launches
-(``chain``: its times); then one line per slice with each side's walls.
+per run: its wall, the self seconds of its phases, its peak device
+memory and its launches (``chain``: its times); then one line per slice
+with each side's walls.
 Every run's datasets must equal the slice's first run's
 (``tools.file_check``; ``chain``: the SHA-256 of D1's waveforms and D2's
 fractions on each batch): the change moves no byte.  Exits 1 where one
@@ -157,8 +157,6 @@ def compare(parent: str, names, device: str = 'cuda') -> int:
                         slice=name, run=i, tree=tree, pipeline=pipeline,
                         wall_s=res['wall'], launches=res['launches'],
                         phases_self_s=res['phases'],
-                        fee_stage_device_ms=res['phases_device_ms'].get(
-                            'charge/fee_stage'),
                         peak_device_gib=res['peak_device_gib'],
                         equal_to_run0=not diff)), flush=True)
                 if diff:

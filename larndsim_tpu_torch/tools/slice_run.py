@@ -17,7 +17,7 @@ first :data:`WARM_EVENTS` events (on the card, the plain kernel versions
 raise); its
 last line is ``RESULT {json}``: the run's wall, kernel launches (counters
 set to 0 just before the run), phase table (self seconds by label,
-``truth/h5`` among them; on the card also self device ms), host memory
+``truth/h5`` among them), host memory
 (resident at the run's start; the run's peak, VmRSS sampled every
 :data:`RSS_PERIOD` s by a thread; the process's peak, warm-up included),
 peak device memory, output bytes and, in mode 0, each light group call's
@@ -156,7 +156,6 @@ def child(opts) -> None:
     print('RESULT ' + json.dumps(dict(
         wall=wall, launches=dict(binding.launches),
         phases={k: v[0] for k, v in trace.summary().items()},
-        phases_device_ms=trace.summary_device() if on_card else {},
         rss_before_gib=rss[0],
         peak_rss_gib=max(rss[1], _status_gib('VmRSS')),
         process_peak_rss_gib=resource.getrusage(

@@ -191,3 +191,76 @@ def test_port_runs_without_jax_or_h5py(tmp_path):
     with h5py.File(str(tmp_path / 'out.h5'), 'r') as f:
         assert {'packets', 'mc_packets_assn', 'segments', 'light_wvfm',
                 'light_trig', 'light_dat'} <= set(f.keys())
+
+
+#: the charge chain's phases (``models/charge.py``): one each a charge call
+CHARGE_PHASES = ('charge_batch', 'charge/get_pixels', 'charge/npix_sync',
+                 'charge/prep', 'charge/current_pallas', 'charge/fee_stage',
+                 'charge/pull')
+
+
+@pytest.mark.parametrize('tree', ['module0', '2x2'])
+def test_phase_table_names_the_cli_and_output_work(tmp_path, monkeypatch,
+                                                   tree):
+    """The CLI's own work and every file write sit in phases, with counts
+    that follow from the run: the input once; the first layout's geometry
+    and each module's detector model, and each module's quench and drift;
+    the batcher's construction and each of its (event, TPC group) steps;
+    the segments and the accumulation of each charge call; a timestamp
+    write each event on the trigger module; the final exports once.  The
+    charge chain's and the output's phases keep their counts: one a charge
+    call, a flush a call (``write_batch_size`` 1), one final flush and
+    truth drain a module."""
+    from larndsim_tpu_torch.assets.make_input import write_input
+    from larndsim_tpu_torch.utils import trace
+    batchers = []
+
+    class Batcher(tcli.TPCBatcher):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.filled = sum(bool(mask.any()) for _, mask in
+                              super().__iter__())
+            batchers.append(self)
+    monkeypatch.setattr(tcli, 'TPCBatcher', Batcher)
+    if tree == '2x2':
+        paths = tpa.write_tree_2x2(tmp_path / 'tree', light=False)
+        borders = tpa.load_port(dict(
+            paths, pixel_layout=paths['pixel_layout'][0])).tpc_borders
+        inp = str(tmp_path / 'in.h5')
+        assert tpa.write_spills_2x2(inp, borders, n_events=2) > 0
+        kw = dict(config='2x2', mod2mod_variation=True,
+                  response_file=paths['response_file'])
+        n_modules = 4
+    else:
+        paths = tpa.write_tree(tmp_path / 'tree')
+        inp = str(tmp_path / 'in.h5')
+        assert write_input(inp, tpa.load_port(paths).tpc_borders, n_events=3,
+                           tracks_per_event=3, segments_per_track=6,
+                           segment_length=0.4, dEdx=8.0, seed=2) > 0
+        kw = dict(config='module0',
+                  response_file=str(tmp_path / '__missing__.npy'))
+        n_modules = 1
+    tcli.run_simulation(
+        inp, str(tmp_path / 'out.h5'),
+        detector_properties=paths['detector_properties'],
+        pixel_layout=paths['pixel_layout'],
+        simulation_properties=paths['simulation_properties'],
+        light_simulated=False, rand_seed=7, step_scale=4.0, device='cpu',
+        **kw)
+    calls = {label: n for label, (_, n) in trace.summary().items()}
+    assert len(batchers) == n_modules
+    n_charge = sum(b.filled for b in batchers)
+    assert n_charge > n_modules
+    assert calls.pop('cli/input') == 1
+    assert calls.pop('cli/detector') == 1 + n_modules
+    assert calls.pop('cli/quench_drift') == n_modules
+    assert calls.pop('cli/batching') == sum(len(b) + 1 for b in batchers)
+    assert calls.pop('cli/segments') == calls.pop('cli/accumulate') \
+        == n_charge
+    # every module batches every event of the file
+    assert calls.pop('export/timestamp') == len(batchers[0].events)
+    assert calls.pop('export/sync') >= 1
+    assert calls.pop('export/final') == 1
+    # the charge chain's phases, the flushes and the truth drain
+    assert calls == dict.fromkeys(CHARGE_PHASES + ('export',), n_charge) \
+        | dict.fromkeys(('export/flush', 'truth/drain'), n_modules)

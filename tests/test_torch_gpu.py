@@ -31,8 +31,10 @@ calls on the card (waveforms and contributor / host-route records bit for
 bit, the device route's records at the truth tolerance above: the batched
 float64 FFTs and the one product are where the bits could move), and the
 grouped CLI on the card gives the ungrouped run's packets and
-``light_wvfm``.  Phase tracing records device time on the card; the
-memory log reads the card's memory.  The threshold trigger (mode 0): a
+``light_wvfm``.  Phases on the card are ranges of the profiler's capture
+beside their kernels, and each K1 launch starts after the host start of
+its phase on the card's clock as the benchmark sets it; the memory log
+reads the card's memory.  The threshold trigger (mode 0): a
 mode-0 batch on the card against the CPU with the same draws (trigger
 tables equal, the rest as above, every truth route), the smearing truth's
 routes with several triggers against each other, the trigger scan on the
@@ -652,23 +654,100 @@ def test_grouped_cli_on_card_equals_ungrouped(cuda, tmp_path):
                                          'segment_id'))['records'] > 0
 
 
-def test_trace_times_phases_on_the_card(cuda):
+def test_trace_times_phases_on_the_card(cuda, tmp_path):
+    """Phases on the card are ranges of a ``start_trace`` capture, nested
+    as they ran, beside the kernels launched inside them; the table keeps
+    wall, CPU and calls."""
+    import json
+
     from larndsim_tpu_torch.utils import trace
     trace.reset()
     a = torch.randn((2048, 2048), device=cuda)
+    torch.cuda.synchronize()
+    trace.start_trace(str(tmp_path / 'trace'))
     with trace.phase('outer', cuda):
         with trace.phase('inner', cuda):
             for _ in range(20):
                 b = a @ a
         b.sum()
-    with trace.phase('host only'):
-        pass
-    total = trace.summary_device()
-    assert total['inner'] > 0.1 and total['outer'] >= 0
-    assert 'host only' not in total
+    torch.cuda.synchronize()
+    with open(trace.stop_trace()) as f:
+        events = json.load(f)['traceEvents']
+    spans = {e['name']: (e['ts'], e['ts'] + e['dur']) for e in events
+             if e.get('cat') == 'user_annotation'
+             and e.get('name') in ('outer', 'inner')}
+    assert set(spans) == {'outer', 'inner'}
+    assert spans['outer'][0] <= spans['inner'][0] \
+        <= spans['inner'][1] <= spans['outer'][1]
+    kernels = {e['args']['correlation'] for e in events
+               if e.get('cat') == 'kernel'}
+    launched = [e for e in events
+                if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                and e.get('args', {}).get('correlation') in kernels]
+    inside = [e for e in launched
+              if spans['inner'][0] <= e['ts'] <= spans['inner'][1]]
+    assert len(inside) >= 20 and len(launched) > len(inside)
     rows = {r.split()[0]: r for r in trace.report().splitlines()}
-    assert 'ms device' in rows['inner'] and 'ms device' not in rows['host']
+    assert rows['inner'].endswith('1 calls)') and 'device' not in rows['inner']
     trace.reset()
+
+
+def test_spans_and_kernels_share_the_card_clock(cuda, tmp_path):
+    """A CLI call traced as the benchmark traces it: the port's phases as
+    host ranges (``port_bench.harness.PhaseLog``), the card's activity
+    under ``torch.profiler``, the card's clock set against the host's by
+    one marker kernel on the idle card (``port_bench.trace_read``).  Every
+    K1 launch starts on the card at or after the host start of the
+    ``charge/current_pallas`` phase that launched it."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from larndsim_tpu_torch.cli.simulate_pixels import run_simulation
+    from larndsim_tpu_torch.utils import trace
+    from port_bench import harness, trace_read
+    paths = tpa.write_tree(tmp_path / 'tree')
+    inp = str(tmp_path / 'in.h5')
+    write_input(inp, tpa.load_port(paths).tpc_borders, n_events=3,
+                tracks_per_event=3, segments_per_track=6, segment_length=0.4,
+                dEdx=8.0, seed=2)
+    kw = dict(config='module0',
+              detector_properties=paths['detector_properties'],
+              pixel_layout=paths['pixel_layout'],
+              simulation_properties=paths['simulation_properties'],
+              response_file=str(tmp_path / '__missing__.npy'), rand_seed=7,
+              step_scale=2.0, light_simulated=False, device='cuda')
+    run_simulation(inp, str(tmp_path / 'warm.h5'), **kw)
+    phases = harness.PhaseLog(trace)
+    launches = binding.launches['induced_current']
+    with phases.recording(), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        marker_ns = time.time_ns()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        window = [time.time_ns(), None]
+        run_simulation(inp, str(tmp_path / 'out.h5'), **kw)
+        torch.cuda.synchronize()
+        window[1] = time.time_ns()
+    launches = binding.launches['induced_current'] - launches
+    events = prof.profiler.kineto_results.events()
+    offset = trace_read.reduce(events, window, phases.ranges,
+                               marker_ns)['clock_offset_ns']
+    kernels = sorted(trace_read._start_ns(ev) for ev in events
+                     if trace_read._is_device(ev)
+                     and 'induced_current_kernel' in ev.name())
+    spans = sorted(s for s, _, label in phases.ranges
+                   if label == 'charge/current_pallas')
+    # one K1 launch a phase
+    assert len(kernels) == len(spans) == launches > 0, \
+        (len(kernels), len(spans), launches)
+    margins_us = [(start - span - offset) / 1e3
+                  for start, span in zip(kernels, spans)]
+    print(f'K1 start after its phase\'s host start, us: {margins_us}')
+    assert min(margins_us) >= 0, margins_us
+    assert {'cli/input', 'cli/batching', 'cli/segments', 'cli/accumulate',
+            'export/final'} <= {label for _, _, label in phases.ranges}
 
 
 def test_memlog_reads_the_card(cuda, tmp_path):

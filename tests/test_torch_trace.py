@@ -4,11 +4,13 @@ trace`` / ``.memlog``) against the JAX package's (``larndsim_tpu.utils``).
 The clocks of both trace modules are replaced by one fake clock, so the
 tables are exact: self times, thread-CPU times and counts equal to the
 hand count (tolerance 0), and ``report()`` equal to JAX's row for row on
-the same sequence of phases.  The device column exists only on the card
-(tests/test_torch_gpu.py).  The memory log: the same five fields as JAX's
-``FIELDS``, the tables read back through ``io.h5`` and h5py (and JAX's
-``read_memlog``) equal to what was stored; the npz branch; a disabled
-logger writes nothing; on the CPU the card's columns are 0.
+the same sequence of phases: wall, CPU and calls, with no device column;
+a phase records nothing on a card (its device time comes from the
+profiler's trace, tests/test_torch_gpu.py).  The memory log: the same
+five fields as JAX's ``FIELDS``, the tables read back through ``io.h5``
+and h5py (and JAX's ``read_memlog``) equal to what was stored; the npz
+branch; a disabled logger writes nothing; on the CPU the card's columns
+are 0.
 """
 from __future__ import annotations
 
@@ -83,7 +85,11 @@ def test_nested_phases_report_self_time(clock):
         'charge_batch': 2.0, 'light_batch': 0.75}
     # the self times add up to the wall
     assert sum(t for t, _ in ttrace.summary().values()) == clock.t
-    assert ttrace.summary_device() == {}
+    # wall, CPU and calls: no device column
+    assert [r.split('(')[1] for r in ttrace.report().splitlines()] == [
+        '  2.00 s cpu, 2 calls)', '  1.00 s cpu, 1 calls)',
+        '  0.75 s cpu, 1 calls)', '  0.25 s cpu, 1 calls)',
+        '  0.12 s cpu, 1 calls)']
 
 
 def test_reset_clears_every_table(clock):
@@ -145,11 +151,29 @@ def test_two_threads_on_one_label():
     ttrace.reset()
 
 
-def test_phase_on_the_cpu_records_no_device_time():
+def test_phase_on_the_cpu_records_no_device_time(monkeypatch):
+    """A phase records nothing on the device it names, on the CPU or on
+    the card: no CUDA event, no NVTX range (its device time comes from a
+    profiler's trace), and outside a profiler's capture no profiler
+    range."""
+    import torch
+    made = []
+
+    def forbidden(name):
+        def record(*args, **kw):
+            made.append(name)
+        return record
+    monkeypatch.setattr(torch.cuda, 'Event', forbidden('Event'))
+    monkeypatch.setattr(torch.cuda.nvtx, 'range_push', forbidden('push'))
+    monkeypatch.setattr(torch.cuda.nvtx, 'range_pop', forbidden('pop'))
+    monkeypatch.setattr(torch.profiler, 'record_function',
+                        forbidden('record_function'))
     ttrace.reset()
-    with ttrace.phase('charge_batch', 'cpu'):
-        pass
-    assert ttrace.summary_device() == {}
+    for device in ('cpu', 'cuda', torch.device('cuda', 1)):
+        with ttrace.phase('charge_batch', device):
+            pass
+    assert made == []
+    assert ttrace.summary()['charge_batch'][1] == 3
     assert 'device' not in ttrace.report()
     ttrace.reset()
 
