@@ -3,10 +3,11 @@ waveforms and light truth.
 
 Counterpart of ``larndsim_tpu.io.export`` (reference fee.export_to_hdf5
 fee.py:84-359, export_sync/timestamp_trigger fee.py:361-497, and the light
-writers of light_sim.py:663-745): the packet stream is assembled from dense
-index arrays in numpy and written through ``io.larpix_packets`` into an
-open ``io.h5.File`` (the caller opens the output once and closes it at the
-end of the run).  The light parameters the packet writers read reduce to
+writers of light_sim.py:663-745): the packet stream is placed block by
+block from counts in numpy, each data packet's association row is built
+from its hit's touched track slots alone, and both are written through
+``io.larpix_packets`` into an open ``io.h5.File`` (the caller opens the
+output once and closes it at the end of the run).  The light parameters the packet writers read reduce to
 the light-trigger mode.  Appended datasets are chunked and go to disk a
 chunk at a time as they grow; the light truth is shuffled and compressed
 (LZF by default) in chunks of :data:`TRUTH_CHUNK` records, as the JAX
@@ -99,42 +100,95 @@ def pixel_readout_coords(pixel_ids: np.ndarray, det_model: DetectorModel):
 # MC association helpers
 # --------------------------------------------------------------------------
 
-def _aggregate_traj_fractions(traj_ids: np.ndarray, fracs: np.ndarray):
-    """Per-row: unique trajectory ids with summed fractions (fee.py:322-328).
+def _association_rows(fr, prow, track_ids, traj_ids, event, store: int):
+    """The association rows of a flush's data packets (fee.py:297-328):
+    per hit, its event, its segment ids and fractions in descending
+    fraction order, and its trajectory ids, ascending, with their summed
+    fractions; the first ``store`` of each.
+
+    The reference sorts all K track slots of every hit, most of them
+    padding (the ids' -1, fraction 0).  Here only the touched slots are
+    sorted, each sort one stable argsort of (hit, key) packed in an
+    integer: the slots with a segment or trajectory id other than the
+    padding's, or a fraction other than 0.0.  In a K-wide descending order
+    the padding falls among the zeros, before the negative fractions, so a
+    negative fraction lands at its rank among the touched slots plus the
+    hit's padding count.
 
     Args:
-        traj_ids: (N, K) int, -1 padding.
-        fracs: (N, K) float.
+        fr: (n, K) float32 current fractions of the hits, finite.
+        prow: (n,) each hit's pixel row.
+        track_ids, traj_ids: (R, K) segment / trajectory ids per pixel row
+            and track slot; padding is -1 in the ids' dtype (4294967295
+            for the input's uint32 segment ids).
+        event: (n,) each hit's event id.
 
-    Returns:
-        (N, K) unique ids (-1 padded, ascending per row) and summed fractions.
+    Equal fractions (0.0 and -0.0 alike) keep slot order, the padding
+    after the touched zeros (the reference orders ties by numpy's unstable
+    sort).  Trajectory ids > -1 count, so unsigned padding is a trajectory
+    of its own.  A trajectory's fractions are summed in double in
+    descending fraction order, as the reference's bincount sums them.
     """
-    N, K = traj_ids.shape
-    if N == 0:
-        return traj_ids.copy(), np.zeros_like(fracs)
-    mask = traj_ids > -1
-    big = np.int64(1) << 40
-    keys = (np.arange(N)[:, None] * big
-            + np.where(mask, traj_ids.astype(np.int64), big - 1))
-    order = np.argsort(keys, axis=1, kind='stable')
-    sk = np.take_along_axis(keys, order, axis=1)
-    sf = np.take_along_axis(np.where(mask, fracs, 0.0), order, axis=1)
-    st = np.take_along_axis(np.where(mask, traj_ids, -1), order, axis=1)
+    if fr.dtype != np.float32:
+        raise TypeError('association rows: float32 fractions expected, '
+                        f'not {fr.dtype}')
+    n, K = fr.shape
+    pad_tid, pad_trj = (np.array(-1).astype(x.dtype)
+                        for x in (track_ids, traj_ids))
+    used = (track_ids != pad_tid) | (traj_ids != pad_trj)
+    e = np.flatnonzero(used[prow] | (fr.view(np.uint32) != 0))
+    h = e // K
+    f = fr.reshape(-1)[e]
+    # the fraction's bits as a key that ascends as the fraction descends
+    u = (f + np.float32(0)).view(np.uint32)
+    desc = np.where(u >> 31, u, ~u & np.uint32(0x7fffffff))
+    order = np.argsort((h << 32) | desc, kind='stable')
+    h, f = h[order], f[order]
+    slot = prow[h] * K + e[order] % K
+    m = np.bincount(h, minlength=n)
+    pos = (np.arange(len(h)) - (np.cumsum(m) - m)[h]
+           + np.where(f < 0, K - m[h], 0))
+    rows = np.zeros(n, _assn_dtype(store))
+    rows['event_ids'][:, 0] = event
+    seg = np.full((n, store), int(pad_tid), np.int64)
+    frac = np.zeros((n, store))
+    s = pos < store
+    at = h[s] * store + pos[s]
+    seg.reshape(-1)[at] = track_ids.reshape(-1)[slot[s]]
+    frac.reshape(-1)[at] = f[s]
+    rows['segment_ids'] = seg
+    rows['fraction'] = frac
 
-    flat_k = sk.reshape(-1)
-    first = np.concatenate([[True], flat_k[1:] != flat_k[:-1]])
-    group = np.cumsum(first) - 1
-    sums = np.bincount(group, weights=sf.reshape(-1))
-    # rank of each unique group within its row
-    first2d = first.reshape(N, K)
-    rank = np.cumsum(first2d, axis=1) - 1
-    out_ids = np.full((N, K), -1, np.int64)
-    out_fr = np.zeros((N, K))
-    rows = np.repeat(np.arange(N), K).reshape(N, K)
-    sel = first2d & (st >= 0)
-    out_ids[rows[sel], rank[sel]] = st[sel]
-    out_fr[rows[sel], rank[sel]] = sums[group.reshape(N, K)[sel]]
-    return out_ids, out_fr
+    # trajectories: one group a (hit, id), its entries in descending order
+    t = traj_ids.reshape(-1)[slot].astype(np.int64)
+    if traj_ids.dtype.kind == 'u':
+        padded = np.nonzero(m < K)[0]
+        h = np.concatenate([h, padded])
+        t = np.concatenate([t, np.full(len(padded), int(pad_trj))])
+        f = np.concatenate([f, np.zeros(len(padded), f.dtype)])
+    else:
+        c = t > -1
+        h, t, f = h[c], t[c], f[c]
+    key = t
+    if len(t) and t.max() >> 32:           # ids past 32 bits: their ranks
+        key = np.unique(t, return_inverse=True)[1]
+    order = np.argsort((h << 32) | key, kind='stable')
+    h, t, f = h[order], t[order], f[order]
+    first = np.ones(len(h), bool)
+    first[1:] = (h[1:] != h[:-1]) | (t[1:] != t[:-1])
+    sums = np.bincount(np.cumsum(first) - 1, weights=f)
+    h, t = h[first], t[first]
+    g = np.bincount(h, minlength=n)
+    rank = np.arange(len(h)) - (np.cumsum(g) - g)[h]
+    s = rank < store
+    at = h[s] * store + rank[s]
+    traj = np.full((n, store), -1, np.int64)
+    frac_traj = np.zeros((n, store))
+    traj.reshape(-1)[at] = t[s]
+    frac_traj.reshape(-1)[at] = sums[s]
+    rows['file_traj_ids'] = traj
+    rows['fraction_traj'] = frac_traj
+    return rows
 
 
 def _assn_dtype(store: int) -> np.dtype:
@@ -145,11 +199,20 @@ def _assn_dtype(store: int) -> np.dtype:
                      ('fraction_traj', f'({store},)f8')])
 
 
-def _pad_to(arr: np.ndarray, width: int, fill):
-    if arr.shape[1] >= width:
-        return arr[:, :width]
-    return np.pad(arr, ((0, 0), (0, width - arr.shape[1])),
-                  constant_values=fill)
+def _service_assn(store: int) -> np.ndarray:
+    """One association row of a service packet: no event, no segment."""
+    a = np.zeros(1, dtype=_assn_dtype(store))
+    a['event_ids'] = -1
+    a['segment_ids'] = -1
+    a['file_traj_ids'] = -1
+    return a
+
+
+def _place(dst: np.ndarray, at, src: np.ndarray):
+    """``dst[at] = src`` for records of one dtype, copied whole (numpy
+    copies structured records field by field)."""
+    raw = np.dtype((np.void, dst.dtype.itemsize))
+    dst.view(raw)[at] = src.view(raw)
 
 
 def _append_dataset(f, name: str, data: np.ndarray):
@@ -191,6 +254,39 @@ def _packed_bad_channels(path, bad_channels_list: dict) -> np.ndarray:
     return packed
 
 
+def _event_trigger_packets(events, ev_t0_mod, trigger_times, trigger_event,
+                           trigger_modules, det_model: DetectorModel,
+                           clock, reset_period):
+    """Mode 0's light-trigger packets of each event boundary (fee.py:
+    209-225): for each boundary in turn, its event's triggers in input
+    order, each on its module's io groups in turn.
+
+    Returns:
+        (boundary of each packet, the trigger packets).
+    """
+    by_event = np.argsort(trigger_event, kind='stable')
+    ids = trigger_event[by_event]
+    lo = np.searchsorted(ids, events, 'left')
+    n = np.searchsorted(ids, events, 'right') - lo
+    pair_b = np.repeat(np.arange(len(events)), n)
+    pair_t = by_event[lo[pair_b] + np.arange(len(pair_b))
+                      - (np.cumsum(n) - n)[pair_b]]
+    ticks = np.floor(trigger_times[pair_t] / clock
+                     + ev_t0_mod[pair_b]).astype(np.int64) % reset_period
+    mods, mod_inv = np.unique(trigger_modules[pair_t].astype(np.int64),
+                              return_inverse=True)
+    groups = [np.asarray(det_model.module_to_io_groups[int(m)], np.int64)
+              for m in mods]
+    n_g = np.array([len(g) for g in groups], np.int64)
+    g_start = (np.cumsum(n_g) - n_g)[mod_inv]
+    n_g = n_g[mod_inv]
+    pair = np.repeat(np.arange(len(pair_b)), n_g)
+    within = np.arange(len(pair)) - (np.cumsum(n_g) - n_g)[pair]
+    io = (np.concatenate(groups) if groups else np.empty(0, np.int64))
+    return pair_b[pair], lp.make_trigger_packets(
+        ticks[pair], io[g_start[pair] + within])
+
+
 # --------------------------------------------------------------------------
 # charge export
 # --------------------------------------------------------------------------
@@ -211,13 +307,14 @@ def export_to_hdf5(event_pix, hit_row, hit_adc, hit_ticks, hit_fractions,
     ``hit_fractions`` are per latched hit, in (pixel-row, adc-slot)
     row-major order — the order the reference's dense np.nonzero flatten
     produced.  `track_ids`/`traj_ids` carry *global* segment / trajectory
-    ids per (pixel, track-slot).
+    ids per (pixel, track-slot).  A hit's association row is built from
+    its touched track slots alone (:func:`_association_rows`); equal
+    fractions keep slot order.
     """
     det = det_model.params
     clock = det.clock_cycle
     reset_period = det.clock_reset_period
     store = sim.association_count_to_store
-    K = track_ids.shape[1]
 
     event_pix = np.asarray(event_pix)
     hit_row = np.asarray(hit_row)
@@ -295,116 +392,81 @@ def export_to_hdf5(event_pix, hit_row, hit_adc, hit_ticks, hit_fractions,
                      | chip) << 16) | channel
         ok &= ~np.isin(hit_keys, packed_bad)
 
-    # --- service-packet schedule (per hit, in stream order) ---
+    # --- the stream, placed from counts: per hit in stream order, its
+    # event-boundary block, its timestamp-group packet, its data packet ---
     # event boundary: first hit of each event above the digitized zero —
     # NOT gated on channel mapping: the reference emits the event's
     # timestamp/sync/trigger packets before the chip lookup can `continue`
-    # (fee.py:186-225 precede the KeyError/bad-channel drops :229-254)
+    # (fee.py:186-225 precede the KeyError/bad-channel drops :229-254).
+    # Its block: a timestamp and a sync packet for each io group, then
+    # mode 0's light triggers of the event.
     new_event = np.concatenate([[True], event[1:] != event[:-1]])
+    bnd = (np.nonzero(new_event)[0] if light_trig_mode != 1
+           else np.empty(0, np.int64))
+    n_io = len(io_groups_all)
+    blk = np.zeros(n_hits, np.int64)
+    blk[bnd] = 2 * n_io
+    trig = None
+    if light_trig_mode == 0 and len(bnd) and light_trigger_event_id.size:
+        trig = _event_trigger_packets(
+            event[bnd], ev_t0_mod[bnd], light_trigger_times,
+            light_trigger_event_id, light_trigger_modules, det_model,
+            clock, reset_period)
+        n_trig = np.bincount(trig[0], minlength=len(bnd))
+        blk[bnd] += n_trig
     # timestamp-group boundary: time_tick change *among surviving hits*
     # (last_time_tick only updates after the drop checks, fee.py:262)
     surv = np.nonzero(ok)[0]
     tick_surv = time_tick[surv]
-    new_tick_surv = np.concatenate([[True],
-                                    tick_surv[1:] != tick_surv[:-1]])
+    tick_hits = surv[np.concatenate([[True],
+                                     tick_surv[1:] != tick_surv[:-1]])]
+    tick = np.zeros(n_hits, np.int64)
+    tick[tick_hits] = 1
+    size = blk + tick + ok
+    start = np.cumsum(size) - size
+    packets = lp.empty_packets(int(start[-1] + size[-1]))
 
-    assn_dtype = _assn_dtype(store)
-
-    def service_assn(n, event_vals=-1):
-        a = np.zeros(n, dtype=assn_dtype)
-        a['event_ids'] = np.full((n, 1), event_vals)
-        a['segment_ids'] = -1
-        a['file_traj_ids'] = -1
-        return a
-
-    # the stream is assembled from vectorized blocks + (hit, priority)
-    # sort keys; a final stable argsort interleaves them in the reference's
-    # order: event-boundary service packets, timestamp-group packet, data
-    parts, part_assn, part_keys = [], [], []
-
-    def add(pkts, assn, hits, prio):
-        parts.append(pkts)
-        part_assn.append(assn)
-        part_keys.append(np.stack([np.broadcast_to(hits, (len(pkts),)),
-                                   np.full(len(pkts), prio)], axis=1)
-                         if np.ndim(hits) == 0 else
-                         np.stack([hits, np.full(len(pkts), prio)], axis=1))
-
-    if light_trig_mode != 1:
-        for h in np.nonzero(new_event)[0]:
-            ev = event[h]
-            pk = []
-            for g in io_groups_all:
-                tp = lp.make_timestamp_packets(
-                    [event_start_times[unique_events_inv[pix_row[h]]]
-                     * units.mus / units.s], io_group=g)
-                sp = lp.make_sync_packets([time_tick[h]], g)
-                pk += [tp, sp]
-            trig_mask = light_trigger_event_id == ev
-            if trig_mask.any():
-                for t_trig, module_trig in zip(
-                        light_trigger_times[trig_mask],
-                        light_trigger_modules[trig_mask]):
-                    t_trig_tick = int(np.floor(
-                        t_trig / clock + ev_t0_mod[h])) % reset_period
-                    if light_trig_mode == 0:
-                        for g in det_model.module_to_io_groups[
-                                int(module_trig)]:
-                            pk.append(lp.make_trigger_packets(
-                                [t_trig_tick], g))
-            pkts = np.concatenate(pk)
-            add(pkts, service_assn(len(pkts)), int(h), 0)
+    if len(bnd):
+        svc = (start[bnd, None] + np.arange(2 * n_io)).reshape(-1, n_io, 2)
+        io = np.tile(io_groups_all, len(bnd))
+        ev_s = (event_start_times[unique_events_inv[pix_row[bnd]]]
+                * units.mus / units.s)
+        _place(packets, svc[..., 0].ravel(), lp.make_timestamp_packets(
+            np.repeat(ev_s, n_io), io_group=io))
+        _place(packets, svc[..., 1].ravel(), lp.make_sync_packets(
+            np.repeat(time_tick[bnd], n_io), io))
+    if trig is not None:
+        b, pkts = trig
+        within = np.arange(len(b)) - (np.cumsum(n_trig) - n_trig)[b]
+        _place(packets, start[bnd][b] + 2 * n_io + within, pkts)
 
     # per-timestamp-group timestamp packet (fee.py:267): payload tracks
     # `event_start_time_list[0]` — the raw t0 of pixel row 0, decremented
     # by one reset period per rollover triggered while processing row 0's
     # hits (adjustments at later rows touch only slices [itick:], so [0]
     # freezes once the stream moves past row 0).
-    tick_hits = surv[new_tick_surv]
-    if len(tick_hits):
-        if pix_row[0] == 0:
-            row0_hits = np.nonzero(pix_row == 0)[0]
-            last_row0 = row0_hits[-1]
-            adj = rollovers[np.minimum(tick_hits, last_row0)]
-        else:
-            adj = np.zeros(len(tick_hits), np.int64)
-        ts_payload = np.floor(
-            (event_t0_ticks[0] - adj * reset_period).astype(np.float64)
-            * clock * units.mus / units.s)
-        tp = lp.make_timestamp_packets(ts_payload)
-        tp['io_group'] = io_group[tick_hits]
-        add(tp, service_assn(len(tick_hits)), tick_hits, 1)
+    if pix_row[0] == 0:
+        row0_hits = np.nonzero(pix_row == 0)[0]
+        last_row0 = row0_hits[-1]
+        adj = rollovers[np.minimum(tick_hits, last_row0)]
+    else:
+        adj = np.zeros(len(tick_hits), np.int64)
+    ts_payload = np.floor(
+        (event_t0_ticks[0] - adj * reset_period).astype(np.float64)
+        * clock * units.mus / units.s)
+    _place(packets, start[tick_hits] + blk[tick_hits],
+           lp.make_timestamp_packets(ts_payload,
+                                     io_group=io_group[tick_hits]))
 
-    # --- data packets (vectorized) ---
-    sel = np.nonzero(ok)[0]
-    adc_above = hit_adc[above]
-    data_pkts = lp.make_data_packets(
-        io_group[sel], io_channel[sel], chip[sel], channel[sel],
-        time_tick[sel], adc_above[sel])
-
-    # --- data-packet associations ---
-    fr = hit_fractions[above][sel]                            # (n, K)
-    tid = track_ids[pix_row[sel]]                             # (n, K)
-    trj = traj_ids[pix_row[sel]]
-    order = np.flip(np.argsort(fr, axis=1), axis=1)
-    fr_s = np.take_along_axis(fr, order, axis=1)
-    tid_s = np.take_along_axis(tid, order, axis=1)
-    trj_s = np.take_along_axis(trj, order, axis=1)
-    uniq_trj, uniq_fr = _aggregate_traj_fractions(trj_s, fr_s)
-
-    data_assn = np.zeros(len(sel), dtype=assn_dtype)
-    data_assn['event_ids'] = event[sel][:, None]
-    data_assn['segment_ids'] = _pad_to(tid_s, store, -1)
-    data_assn['fraction'] = _pad_to(fr_s, store, 0.0)
-    data_assn['file_traj_ids'] = _pad_to(uniq_trj, store, -1)
-    data_assn['fraction_traj'] = _pad_to(uniq_fr, store, 0.0)
-    add(data_pkts, data_assn, sel, 2)
-
-    # --- assemble in stream order (one concat + one stable lexsort) ---
-    keys = np.concatenate(part_keys)
-    stream_order = np.lexsort((keys[:, 1], keys[:, 0]))
-    packets = np.concatenate(parts)[stream_order]
-    assn = np.concatenate(part_assn)[stream_order]
+    # --- data packets and their associations ---
+    at = start[surv] + blk[surv] + tick[surv]
+    _place(packets, at, lp.make_data_packets(
+        io_group[surv], io_channel[surv], chip[surv], channel[surv],
+        time_tick[surv], hit_adc[above][surv]))
+    assn = np.repeat(_service_assn(store), len(packets))
+    _place(assn, at, _association_rows(
+        hit_fractions[np.nonzero(above)[0][surv]], pix_row[surv],
+        track_ids, traj_ids, event[surv], store))
 
     lp.to_file(f, packets)
     _append_dataset(f, 'mc_packets_assn', assn)
@@ -431,16 +493,14 @@ def export_sync_to_hdf5(f, sync_times, det_model: DetectorModel,
         warnings.warn('The provided sync time is not a multiple of the '
                       'reset period!')
     sync_ticks = np.where(off, rounded, sync_ticks)
-    pk = [lp.make_sync_packets([t], g) for t in sync_ticks for g in io_groups]
-    if not pk:
+    if not (len(sync_ticks) and len(io_groups)):
         return
-    packets = np.concatenate(pk)
+    # each sync time's packet on every io group, time-major
+    packets = lp.make_sync_packets(np.repeat(sync_ticks, len(io_groups)),
+                                   np.tile(io_groups, len(sync_ticks)))
     lp.to_file(f, packets)
-    a = np.zeros(len(packets), dtype=_assn_dtype(sim.association_count_to_store))
-    a['event_ids'] = -1
-    a['segment_ids'] = -1
-    a['file_traj_ids'] = -1
-    _append_dataset(f, 'mc_packets_assn', a)
+    _append_dataset(f, 'mc_packets_assn', np.repeat(
+        _service_assn(sim.association_count_to_store), len(packets)))
 
 
 def export_timestamp_trigger_to_hdf5(f, event_start_times,
@@ -461,11 +521,8 @@ def export_timestamp_trigger_to_hdf5(f, event_start_times,
         return
     packets = np.concatenate(pk)
     lp.to_file(f, packets)
-    a = np.zeros(len(packets), dtype=_assn_dtype(sim.association_count_to_store))
-    a['event_ids'] = -1
-    a['segment_ids'] = -1
-    a['file_traj_ids'] = -1
-    _append_dataset(f, 'mc_packets_assn', a)
+    _append_dataset(f, 'mc_packets_assn', np.repeat(
+        _service_assn(sim.association_count_to_store), len(packets)))
 
 
 # --------------------------------------------------------------------------

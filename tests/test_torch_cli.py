@@ -10,8 +10,10 @@ Tolerance: data packets (``packet_type == 0``) agree on (io_group,
 io_channel, chip_id, channel_id, timestamp, dataword) for >= 99% of
 packets, and matched packets carry the same ``mc_packets_assn`` segment
 ids with fractions within atol 1e-4 (tied fractions may sort either
-way).  Also: the port imports no JAX, and runs where neither JAX, the JAX
-package nor h5py can be imported.
+way: a segment of zero fraction ties with the padding, so one side may
+store it where the other stores padding; the count of stored segments of
+nonzero fraction is equal).  Also: the port imports no JAX, and runs
+where neither JAX, the JAX package nor h5py can be imported.
 """
 from __future__ import annotations
 
@@ -58,6 +60,18 @@ def _truth(assn_row):
             if s not in (NO_ID, -1)}
 
 
+def _assert_same_segments(got, want, key):
+    """Two association rows ({segment id: fraction}) store as many
+    segments of nonzero fraction, and the same segments but for those of
+    fraction 0.0: these tie with the padding, which the port orders by
+    slot and the JAX package by numpy's unstable sort, so one side may
+    store one where the other stores padding."""
+    assert (sum(f != 0 for f in got.values())
+            == sum(f != 0 for f in want.values())), key
+    for seg in set(got) ^ set(want):
+        assert {**want, **got}[seg] == 0.0, (key, seg)
+
+
 def test_clis_agree(tmp_path, monkeypatch):
     paths = tpa.write_tree(tmp_path / 'tree', detector_overrides=tpa.QUIET)
     dm = tpa.load_jax(paths)
@@ -87,9 +101,9 @@ def test_clis_agree(tmp_path, monkeypatch):
     by_key_t = dict(zip(keys_t, map(_truth, assn_t)))
     for k in set(by_key_j) & set(by_key_t):
         want, got = by_key_j[k], by_key_t[k]
-        assert set(got) == set(want), k
-        for seg, frac in want.items():
-            assert got[seg] == pytest.approx(frac, abs=1e-4), (k, seg)
+        _assert_same_segments(got, want, k)
+        for seg in set(got) & set(want):
+            assert got[seg] == pytest.approx(want[seg], abs=1e-4), (k, seg)
     with h5py.File(out_t, 'r') as f:
         adc = np.array(f['packets'])['dataword'][
             np.array(f['packets'])['packet_type'] == 0]

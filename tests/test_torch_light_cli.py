@@ -36,7 +36,7 @@ from larndsim_tpu_torch.cli import simulate_pixels as tcli
 from larndsim_tpu_torch.tools.light_check import records_agree
 
 import torch_port_assets as tpa
-from test_torch_cli import _data_packets, _truth
+from test_torch_cli import _assert_same_segments, _data_packets, _truth
 from test_torch_light import jax_draw
 
 LIGHT = dict(n_op_channel=12, light_window=(0.0, 2.0))
@@ -94,7 +94,7 @@ def test_clis_agree_with_light(tmp_path, monkeypatch, route):
     by_key_t = dict(zip(keys_t, map(_truth, assn_t)))
     for k, want in zip(keys_j, map(_truth, assn_j)):
         if k in by_key_t:
-            assert set(by_key_t[k]) == set(want), k
+            _assert_same_segments(by_key_t[k], want, k)
 
     with h5py.File(out_j, 'r') as fj, h5py.File(out_t, 'r') as ft:
         tj, tt = np.array(fj['light_trig']), np.array(ft['light_trig'])

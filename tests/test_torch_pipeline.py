@@ -15,7 +15,8 @@ come in the same order with the same unique pixels.  The JAX CLI under
 ``LARNDSIM_PIPELINE=1`` and the port's with ``pipeline=True`` agree on the
 packets of the noise-free tree with the tolerances of
 tests/test_torch_cli.py: data packets >= 99% matched, matched packets'
-fractions per segment id within atol 1e-4.
+fractions per segment id within atol 1e-4 (a segment of fraction 0.0
+may be stored on one side only: it ties with the padding).
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from larndsim_tpu_torch.cli import simulate_pixels as tcli
 from larndsim_tpu_torch.tools.file_check import differences
 
 import torch_port_assets as tpa
-from test_torch_cli import _data_packets, _truth
+from test_torch_cli import _assert_same_segments, _data_packets, _truth
 from test_torch_ndev import _module0, _spy_charge
 from test_torch_ndev_2x2 import _paths_2x2
 
@@ -130,6 +131,7 @@ def test_pipeline_agrees_with_jax(tmp_path, monkeypatch):
     for k, want in zip(keys_j, map(_truth, assn_j)):
         if k in by_key_t:
             got = by_key_t[k]
-            assert set(got) == set(want), k
-            for seg, frac in want.items():
-                assert got[seg] == pytest.approx(frac, abs=1e-4), (k, seg)
+            _assert_same_segments(got, want, k)
+            for seg in set(got) & set(want):
+                assert got[seg] == pytest.approx(want[seg], abs=1e-4), \
+                    (k, seg)
