@@ -29,7 +29,7 @@ if ROOT not in sys.path:
 import numpy as np  # noqa: E402
 
 from port_bench import assets, check, harness, traffic  # noqa: E402
-from port_bench.reference import charge, detector  # noqa: E402
+from port_bench.reference import charge  # noqa: E402
 
 
 def readings(workload: str, seed: int, *, bench_path: str | None = None,
@@ -41,22 +41,20 @@ def readings(workload: str, seed: int, *, bench_path: str | None = None,
     cfg = harness.load_json(os.path.join(ROOT, entry['file']))
     spec = traffic.load(cell['traffic'], traffic_dir)
     files, borders = assets.prepare(cfg)
-    det = detector.load(files['detector_properties'], files['pixel_layout'],
-                        files['simulation_properties'])
-    response = np.load(files['response_file'])
+    mods = charge.modules(files, cfg['run'])
     work = tempfile.mkdtemp(prefix='port_bench-control-')
     try:
         inp = os.path.join(work, 'input.h5')
         traffic.write_run_file(inp, spec, traffic.pool(spec, borders), seed,
                                0)
-        tracks = charge.read_segments(inp, det)
-        plan = charge.units_of(tracks, det)
+        tracks = charge.read_segments(inp, mods[0].det)
+        calls, groups = charge.plan(tracks, mods)
         rng = np.random.default_rng([int(seed) % (1 << 63), 7])
-        sample = charge.choose_units(plan, cfg['check']['units'], rng)
+        sample = charge.choose_units(calls, cfg['check']['units'], rng)
         out = {}
         for p in ('float32', cfg['check']['control']):
             t0 = time.perf_counter()
-            out[p] = charge.run(tracks, plan, det, response,
+            out[p] = charge.run(tracks, calls, groups,
                                 harness.call_seed(seed, 0), sample,
                                 harness.DEVICE, precision=p,
                                 log=lambda m: print(m, file=sys.stderr))

@@ -3,12 +3,16 @@
 ``python3 port_bench/run.py --workload <cell> --seed <n> --seconds <s>
 --trace <0|1>`` from the root of a checkout, on a machine with the cards
 the cell asks for.  Everything that belongs to one configuration, one
-traffic mix or one per-layer metric is a file of its own, found by the
-names in ``BENCHMARK.json``: ``configs/<config>.json`` (the run's keys,
-the asset writer, the comparison's sample and limits), ``traffic/<mix>.json``
-(the generator's parameters) and ``metrics/<metric>.py`` (a reader with a
+traffic mix, one per-layer metric or one comparison is a file of its own,
+found by the names in ``BENCHMARK.json`` and the configuration's:
+``configs/<config>.json`` (the run's keys, the asset writer, the
+comparisons, their sample and limits), ``traffic/<mix>.json`` (the
+generator's parameters), ``metrics/<metric>.py`` (a reader with a
 ``read(window)`` function that returns a number, or None where it finds
-nothing to read).
+nothing to read) and ``compare/<name>.py`` for each name of the
+configuration's ``check.comparisons`` (``["charge"]`` where it names
+none: a ``compare(kept, files, cfg, rng, device, log)`` function that
+returns its numbers, with the counts they rest on, for the kept call).
 
 A run:
 
@@ -23,11 +27,14 @@ A run:
    peak allocation in the window.  With ``--trace 1`` the window runs
    under ``torch.profiler`` and the launches of K1 and K2 are recorded,
    and the per-layer metrics are read after it;
-3. the comparison: for one call of the window, drawn from the seed, the
-   benchmark's own charge chain (``reference/charge.py``) makes the data
-   packets of a sample of its (spill, TPC group) units, and ``check.py``
-   holds the call's output file to them and checks the whole file's
-   packets against the input; every number is printed beside its limit.
+3. the comparison: for one call of the window, drawn from the seed, each
+   of the configuration's comparisons computes its numbers (``charge``:
+   the benchmark's own charge chain, ``reference/charge.py``, makes the
+   data packets of a sample of the call's (spill, TPC group) units, and
+   ``check.py`` holds the call's output file to them and checks the whole
+   file's packets against the input); ``check.judge`` holds the merged
+   numbers to the configuration's limits, and every number is printed
+   beside its limit.
 
 The last line of standard output is the result, a JSON object.
 """
@@ -112,14 +119,33 @@ def metrics_of(bench: dict, cell: dict, section: str) -> list[dict]:
             if cell['name'] in m.get('workloads', [cell['name']])]
 
 
-def reader(name: str, directory: str):
-    """The ``read`` function of ``metrics/<name>.py``."""
-    path = os.path.join(directory, f'{name}.py')
+def _function(path: str, name: str):
     spec = importlib.util.spec_from_file_location(
-        f'port_bench_metric_{len(sys.modules)}', path)
+        f'port_bench_file_{len(sys.modules)}', path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return getattr(mod, name)
+
+
+def reader(name: str, directory: str):
+    """The ``read`` function of ``metrics/<name>.py``."""
+    return _function(os.path.join(directory, f'{name}.py'), 'read')
+
+
+def comparisons(cfg: dict, directory: str | None = None) -> dict:
+    """The ``compare`` function of ``<directory>/<name>.py`` (``compare/``
+    beside this file by default) for each name of the configuration's
+    ``check.comparisons`` (``["charge"]`` where it names none); a name
+    without its file stops the run."""
+    directory = directory or os.path.join(HERE, 'compare')
+    out = {}
+    for name in cfg['check'].get('comparisons', ['charge']):
+        path = os.path.join(directory, f'{name}.py')
+        if not os.path.isfile(path):
+            raise SystemExit(f'{cfg["name"]}: no comparison {name!r} '
+                             f'({path} not found)')
+        out[name] = _function(path, 'compare')
+    return out
 
 
 def call_seed(seed: int, index: int) -> int:
@@ -233,7 +259,8 @@ def check_card(cell: dict) -> None:
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
              t_start: float, bench_path: str | None = None,
-             traffic_dir: str | None = None, log=None) -> dict:
+             traffic_dir: str | None = None, compare_dir: str | None = None,
+             log=None) -> dict:
     """One run of cell ``workload``; returns the result line's object."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     bench = load_json(bench_path or os.path.join(ROOT, 'BENCHMARK.json'))
@@ -241,7 +268,6 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     check_card(cell)
     import torch
     from . import assets, check, traffic
-    from .reference import charge, detector
     # the program under test
     from larndsim_tpu_torch.cli import simulate_pixels as program
     from larndsim_tpu_torch.kernels import binding
@@ -249,6 +275,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
 
     on_card = DEVICE == 'cuda'
     cfg = load_json(os.path.join(ROOT, config_entry['file']))
+    compare = comparisons(cfg, compare_dir)
     spec = traffic.load(cell['traffic'], traffic_dir)
     files, borders = assets.prepare(cfg)
     work = tempfile.mkdtemp(prefix='port_bench-')
@@ -366,22 +393,16 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         if on_card:
             torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        det = detector.load(files['detector_properties'],
-                            files['pixel_layout'],
-                            files['simulation_properties'])
-        tracks = charge.read_segments(kept['input'], det)
-        plan = charge.units_of(tracks, det)
-        sample = charge.choose_units(plan, cfg['check']['units'], rng)
-        reference = charge.run(tracks, plan, det,
-                               np.load(files['response_file']),
-                               kept['rand_seed'], sample, DEVICE, log=log)
-        numbers = check.compare(kept['output'], reference,
-                                charge.occupied(plan, det))
-        log(f'[check] reference {time.perf_counter() - t1:.3f} s on call '
-            f'{calls.index(kept)}: units {sample}, '
-            f'{numbers["n_packets"]} packets of '
-            f'{numbers["n_file_packets"]} in the file, widest fraction '
-            f'gap {numbers["fraction_gap_max"]!r}')
+        numbers = {}
+        for name, fn in compare.items():
+            got = fn(kept, files, cfg, rng, DEVICE, log)
+            if numbers.keys() & got.keys():
+                raise ValueError(f'comparison {name!r} gives numbers '
+                                 f'already given: '
+                                 f'{sorted(numbers.keys() & got.keys())}')
+            numbers.update(got)
+        log(f'[check] {", ".join(compare)} {time.perf_counter() - t1:.3f} s '
+            f'on call {calls.index(kept)}')
         ok, checks = check.judge(numbers, cfg['limits'])
         result['correct'] = bool(ok)
         result['checks'] = checks

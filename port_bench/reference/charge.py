@@ -12,7 +12,7 @@ so that its thresholds and tick roundings fall as the program's do; the
 sums of the response and of the fractions are float64.
 
 What it shares with the program: the input file, the configuration's
-YAMLs and response table, and the random streams that ``rand_seed``
+YAMLs and response tables, and the random streams that ``rand_seed``
 defines.  The program draws each charge batch's normals from a generator
 seeded from (rand_seed, module, event, batch number) in a fixed order and
 in shapes its batching fixes (the diffusion smear (3, S, steps), the reset
@@ -20,17 +20,26 @@ noise (U,), the front end's noise (ticks, 5, U)); the reference makes the
 same generator and draws the same shapes, from its own count of the
 segments, steps and pixels.  Nothing of the program is imported.
 
+A detector with module variation is simulated module by module, as
+larnd-sim's module loop does (:func:`modules`): each module with its own
+pixel layout, response and per-module constants (lifetime, field,
+thresholds, response binning), over the segments inside its two TPCs, its
+batches numbered from 1 and its draws keyed by its number.  Without
+variation the whole detector is one pass, keyed as module 0.
+
 ``precision='bf16'`` rounds every (segment, pixel) current to bfloat16
 before the pixel sum: the control, a precision below the chain's float32.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 
 import numpy as np
 import torch
 
+from . import detector
 from .detector import MV, Detector
 
 F32 = torch.float32
@@ -49,12 +58,58 @@ def bucket(n: int, lo: int) -> int:
     return max(lo, 1 << max(0, math.ceil(math.log2(max(n, 1)))))
 
 
-def generator(rand_seed: int, event: int, seq: int, device):
-    """The charge batch's generator: (rand_seed, module 0 of a detector
-    without module variation, the batch's event, its number in the run)."""
-    seed = np.random.SeedSequence([rand_seed, 0, int(event), seq])
+def generator(rand_seed: int, i_mod: int, event: int, seq: int, device):
+    """The charge batch's generator: (rand_seed, its module, 0 for a
+    detector without module variation (``i_mod`` -1), the batch's event,
+    its number in its module's pass)."""
+    seed = np.random.SeedSequence([rand_seed, max(i_mod, 0), int(event),
+                                   seq])
     g = torch.Generator(device=device)
     return g.manual_seed(int(seed.generate_state(1)[0]))
+
+
+@dataclasses.dataclass
+class Module:
+    """One pass of larnd-sim's module loop: the module's number (-1: the
+    whole of a detector without module variation), its reading of the
+    YAMLs, its response table and the TPCs it simulates."""
+    i_mod: int
+    det: Detector
+    response: np.ndarray
+    tpcs: tuple
+
+    def tpc_groups(self) -> list[tuple]:
+        """The TPCs of each of its (event, TPC group) batches' groups."""
+        per = self.det.sim['event_batch_size']
+        return [self.tpcs[i:i + per]
+                for i in range(0, len(self.tpcs), per)] or [()]
+
+
+def modules(files: dict, run: dict) -> list[Module]:
+    """The module loop of a configuration's files (``assets.prepare``) and
+    run keys: with ``run['mod2mod_variation']`` and more than one module,
+    module ``m`` on the TPCs ``2m - 2`` and ``2m - 1`` with the pixel
+    layout and response that ``run['pixel_layout_id']`` and
+    ``run['response_id']`` pick for it (:func:`detector.of_module`), else
+    one pass over every TPC with the one layout and response."""
+    det_yaml, sim_yaml = (files['detector_properties'],
+                          files['simulation_properties'])
+    layouts, responses = files['pixel_layout'], files['response_file']
+    ids = detector.module_ids(det_yaml)
+    if not (run.get('mod2mod_variation') and len(ids) > 1):
+        if isinstance(layouts, list) or isinstance(responses, list):
+            raise ValueError('several layouts or responses without module '
+                             'variation')
+        det = detector.load(det_yaml, layouts, sim_yaml)
+        return [Module(-1, det, np.load(responses), tuple(range(det.n_tpcs)))]
+    out = []
+    for m in ids:
+        det = detector.load(det_yaml, detector.of_module(
+            layouts, m, run.get('pixel_layout_id')), sim_yaml, i_module=m)
+        out.append(Module(m, det, np.load(detector.of_module(
+            responses, m, run.get('response_id'))),
+            (2 * m - 2, 2 * m - 1)))
+    return out
 
 
 def _t(x, device):
@@ -94,22 +149,27 @@ def inside_any(tracks, borders) -> np.ndarray:
     return out
 
 
-def units_of(tracks: np.ndarray, det: Detector) -> list[tuple]:
-    """The program's charge calls, in its order: (event, TPC group, rows,
-    batch number); a unit (event, group) of more than ``batch_size``
-    segments is cut into calls of that many."""
+def units_of(tracks: np.ndarray, det: Detector,
+             tpcs=None) -> list[tuple]:
+    """The program's charge calls of a pass over the TPCs ``tpcs`` (all by
+    default), in its order: (event, TPC group, rows, batch number), the
+    groups and batches counted within the pass; a unit (event, group) of
+    more than ``batch_size`` segments is cut into calls of that many.  A
+    segment belongs to the first group with an end inside one of its
+    TPCs; rows index ``tracks``."""
     sim = det.sim
     per = sim['event_batch_size']
-    n_groups = max(math.ceil(det.n_tpcs / per), 1)
+    tpcs = range(det.n_tpcs) if tpcs is None else tpcs
+    n_groups = max(math.ceil(len(tpcs) / per), 1)
     b = np.sort(det.borders, axis=-1)
     group = np.full(len(tracks), n_groups, np.int64)
-    for tpc in range(det.n_tpcs):
+    for i, tpc in enumerate(tpcs):
         inside = np.zeros(len(tracks), bool)
         for end in ('_start', '_end'):
             inside |= np.all([(tracks[c + end] > b[tpc, k, 0])
                               & (tracks[c + end] < b[tpc, k, 1])
                               for k, c in enumerate('xyz')], axis=0)
-        group[inside] = np.minimum(group[inside], tpc // per)
+        group[inside] = np.minimum(group[inside], i // per)
     # the units in (event, group) order, each unit's rows in file order
     events, ev_index = np.unique(tracks['event_id'], return_inverse=True)
     key = np.where(group < n_groups, ev_index * n_groups + group, -1)
@@ -124,6 +184,20 @@ def units_of(tracks: np.ndarray, det: Detector) -> list[tuple]:
             calls.append((int(events[k // n_groups]), int(k % n_groups),
                           rows[i0:i0 + sim['batch_size']], seq))
     return calls
+
+
+def plan(tracks: np.ndarray, mods: list) -> tuple[list, list]:
+    """The program's charge calls over the module loop ``mods``
+    (:func:`modules`), module by module: (event, group, rows, batch
+    number), the groups numbered on across the modules; and each group's
+    (module, TPCs)."""
+    calls, groups = [], []
+    for mod in mods:
+        base = len(groups)
+        calls += [(ev, base + g, rows, seq) for ev, g, rows, seq
+                  in units_of(tracks, mod.det, mod.tpcs)]
+        groups += [(mod, tpcs) for tpcs in mod.tpc_groups()]
+    return calls, groups
 
 
 # ------------------------------------------------- quenching and drifting
@@ -586,27 +660,32 @@ def packets(call: Call, event: int, segment_ids: np.ndarray,
     return out
 
 
-def unit_io_groups(det: Detector, group: int) -> list[int]:
-    """The io groups of the pixels of TPC group ``group``."""
-    per = det.sim['event_batch_size']
+def io_groups(det: Detector, tpcs) -> list[int]:
+    """The io groups of the pixels of the TPCs ``tpcs``."""
     nx, ny = det.n_pixels
     out = set()
-    for plane in range(group * per, min((group + 1) * per, det.n_tpcs)):
+    for plane in tpcs:
         ids = plane * nx * ny + np.arange(0, nx * ny, 7, dtype=np.int64)
         g, _, _, _, ok = det.readout(ids)
         out.update(int(x) for x in np.unique(g[ok]))
     return sorted(out)
 
 
-def occupied(calls: list, det: Detector) -> set:
+def unit_io_groups(groups: list, group: int) -> list[int]:
+    """The io groups of group ``group`` of a :func:`plan`."""
+    mod, tpcs = groups[group]
+    return io_groups(mod.det, tpcs)
+
+
+def occupied(calls: list, groups: list) -> set:
     """The (event, io group) pairs whose TPC group holds segments
-    (``calls``: :func:`units_of`)."""
-    groups = {}
+    (``calls``, ``groups``: :func:`plan`)."""
+    found = {}
     out = set()
     for ev, g, _, _ in calls:
-        if g not in groups:
-            groups[g] = unit_io_groups(det, g)
-        out.update((ev, x) for x in groups[g])
+        if g not in found:
+            found[g] = unit_io_groups(groups, g)
+        out.update((ev, x) for x in found[g])
     return out
 
 
@@ -628,42 +707,52 @@ def choose_units(calls: list, n: int, rng) -> list:
     return out + [rest[i] for i in sorted(take)]
 
 
-def run(tracks: np.ndarray, calls: list, det: Detector,
-        response: np.ndarray, rand_seed: int, sample, device,
-        precision: str = 'float32', log=None) -> dict:
-    """The data packets of the units ``sample`` ((event, TPC group)
-    pairs) of an input's segments (:func:`read_segments`, planned into
-    ``calls`` by :func:`units_of`), as the reference makes them:
-    {(event, io groups): [(packet key, {segment id: fraction})]}; ``log``
-    takes a line a call."""
-    resp = torch.from_numpy(np.asarray(response, np.float32)).to(device)
-    seg = quench_and_drift(tracks, det, device)
+def run(tracks: np.ndarray, calls: list, groups: list, rand_seed: int,
+        sample, device, precision: str = 'float32', log=None) -> dict:
+    """The data packets of the units ``sample`` ((event, group) pairs) of
+    an input's segments (:func:`read_segments`, planned into ``calls`` and
+    ``groups`` by :func:`plan`), as the reference makes them: {(event, io
+    groups): [(packet key, {segment id: fraction})]}; ``log`` takes a line
+    a call.  Each module's segments are quenched and drifted with its own
+    constants, and its calls' lanes run through one front end."""
     want = {(int(e), int(g)) for e, g in sample}
-    made = []
+    made = {}
+    prepared = {}
     for ev, g, rows, seq in calls:
-        if (ev, g) in want:
-            t0 = time.perf_counter()
-            made.append((ev, g, seq, Call(seg, rows, det, resp, generator(
-                rand_seed, ev, seq, device), precision)))
-            if log:
-                log(f'[reference] event {ev} group {g} call {seq}: '
-                    f'{len(rows)} segments, {len(made[-1][3].pixels)} '
-                    f'pixels, {time.perf_counter() - t0:.3f} s')
-    out = {}
-    if made:
+        if (ev, g) not in want:
+            continue
+        mod = groups[g][0]
+        if id(mod) not in prepared:
+            prepared[id(mod)] = (
+                quench_and_drift(tracks, mod.det, device),
+                torch.from_numpy(np.asarray(mod.response, np.float32))
+                .to(device))
+        seg, resp = prepared[id(mod)]
         t0 = time.perf_counter()
-        lanes = [call.rows.shape[1] for *_, call in made]
-        fe = front_end(det, torch.cat([call.rows for *_, call in made], 1),
-                       torch.cat([call.noise for *_, call in made], 2),
-                       torch.cat([call.q_init for *_, call in made]))
-        at = np.cumsum([0] + lanes)
-        for i, (ev, g, seq, call) in enumerate(made):
-            call.finish({k: v[at[i]:at[i + 1]] for k, v in fe.items()})
-            out.setdefault((ev, tuple(unit_io_groups(det, g))), []).extend(
-                packets(call, ev, tracks['segment_id'], det))
+        call = Call(seg, rows, mod.det, resp, generator(
+            rand_seed, mod.i_mod, ev, seq, device), precision)
+        made.setdefault(id(mod), (mod, []))[1].append((ev, g, call))
         if log:
-            log(f'[reference] front end over {at[-1]} lanes and the hits '
-                f'of {len(made)} calls: {time.perf_counter() - t0:.3f} s')
+            log(f'[reference] module {mod.i_mod} event {ev} group {g} call '
+                f'{seq}: {len(rows)} segments, {len(call.pixels)} pixels, '
+                f'{time.perf_counter() - t0:.3f} s')
+    out = {}
+    for mod, done in made.values():
+        t0 = time.perf_counter()
+        lanes = [call.rows.shape[1] for *_, call in done]
+        fe = front_end(mod.det, torch.cat([call.rows for *_, call in done], 1),
+                       torch.cat([call.noise for *_, call in done], 2),
+                       torch.cat([call.q_init for *_, call in done]))
+        at = np.cumsum([0] + lanes)
+        for i, (ev, g, call) in enumerate(done):
+            call.finish({k: v[at[i]:at[i + 1]] for k, v in fe.items()})
+            out.setdefault((ev, tuple(unit_io_groups(groups, g))),
+                           []).extend(packets(call, ev, tracks['segment_id'],
+                                              mod.det))
+        if log:
+            log(f'[reference] module {mod.i_mod}: front end over {at[-1]} '
+                f'lanes and the hits of {len(done)} calls: '
+                f'{time.perf_counter() - t0:.3f} s')
     for e, g in want:
-        out.setdefault((e, tuple(unit_io_groups(det, g))), [])
+        out.setdefault((e, tuple(unit_io_groups(groups, g))), [])
     return out

@@ -102,6 +102,21 @@ class Detector:
         return group, self.io_channel[at], self.chip[at], self.channel[at], ok
 
 
+def module_ids(det_yaml: str) -> list[int]:
+    """The modules the detector YAML declares, in its order."""
+    return [int(m) for m in _load(det_yaml)['module_to_tpcs']]
+
+
+def of_module(value, i_module: int, ids=None):
+    """Module ``i_module``'s file of a per-module list, as larnd-sim picks
+    it: entry ``ids[i_module - 1]`` (a configuration's ``*_ID`` list), or
+    entry ``i_module - 1`` without one; a file that is not a list serves
+    every module."""
+    if not isinstance(value, list):
+        return value
+    return value[ids[i_module - 1] if ids is not None else i_module - 1]
+
+
 def load(det_yaml: str, layout_yaml: str, sim_yaml: str,
          i_module: int = -1) -> Detector:
     det, lay, sim = _load(det_yaml), _load(layout_yaml), _load(sim_yaml)

@@ -53,13 +53,42 @@ def _run(tiny):
                             log=lambda msg: None, **tiny)
 
 
-def test_a_sound_run_is_correct(tiny):
+#: what the comparison of this run drew and read before it was named by
+#: the configuration (``compare/charge.py``): its units and every number
+PINNED_UNITS = [(0, 29), (0, 9)]
+PINNED = dict(packets_differ=0.0, fraction_gap_median=1.771379413692542e-06,
+              fraction_gap_max=1.0701758591136201e-05, n_packets=64,
+              n_file_packets=64, assn_rows_differ=0, misplaced=0.0)
+
+
+def test_a_sound_run_is_correct(tiny, monkeypatch):
+    from port_bench import check
+    from port_bench.reference import charge
+    seen = {}
+    choose, judge = charge.choose_units, check.judge
+
+    def choose_units(*args):
+        seen['units'] = choose(*args)
+        return seen['units']
+
+    def judged(numbers, limits):
+        seen['numbers'] = numbers
+        return judge(numbers, limits)
+    monkeypatch.setattr(charge, 'choose_units', choose_units)
+    monkeypatch.setattr(check, 'judge', judged)
     r = _run(tiny)
     assert r['correct'], r['checks']
     assert r['attempted'] == 1 and r['failed'] == 0
     assert set(r['metrics']) == {'events_per_s', 'peak_device_gib',
                                  'setup_s'}
     assert r['checks']['packets_differ']['value'] == 0
+    # the configuration names no comparison: the charge comparison runs,
+    # with the same draws and numbers as before it was a module of its own
+    assert seen['units'] == PINNED_UNITS
+    assert seen['numbers'].keys() == PINNED.keys()
+    for name, value in PINNED.items():
+        assert seen['numbers'][name] == pytest.approx(value, rel=1e-12,
+                                                      abs=0), name
 
 
 def _charge_fault(monkeypatch, alter):

@@ -229,6 +229,7 @@ def test_benchmark_names_and_units():
         # every limit is a number of the comparison
         assert set(cfg['limits']) <= {'packets_differ', 'fraction_gap_median',
                                       'assn_rows_differ', 'misplaced'}
+        assert harness.comparisons(cfg)
 
 
 def test_a_new_traffic_mix_is_found_by_name(tmp_path):

@@ -43,7 +43,7 @@ def test_no_jax_anywhere_the_benchmark_runs():
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    roots = [os.path.join(BENCH, d) for d in ('reference',)] + [
+    roots = [os.path.join(BENCH, d) for d in ('reference', 'compare')] + [
         os.path.join(BENCH, f) for f in ('traffic.py', 'costs.py',
                                          'check.py', 'assets.py')]
     checked = 0
