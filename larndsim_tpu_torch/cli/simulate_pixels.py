@@ -531,23 +531,26 @@ def run_simulation(input_filename: str,
             light_noise = torch.as_tensor(light_noise, dtype=torch.float32,
                                           device=home)
             light_h = to_device(light, home)
-            light_inc, light_t0, light_vox = \
-                light_ops.calculate_light_incidence(
-                    segs_all, det, light_h, lut.vis, lut.t0,
-                    n_channels=n_light_channel,
-                    channel_offset=channel_offset)
-            # per-segment light summary for the output file (cli:758-760)
-            valid = segs_all.valid.cpu().numpy()
-            light_dat = np.zeros((int(valid.sum()), n_light_channel),
-                                 dtype=[('segment_id', 'u4'),
-                                        ('n_photons_det', 'f4'),
-                                        ('t0_det', 'f4')])
-            # host copies: light_dat, and mode 0's windows (mode0_window)
-            light_inc_h = light_inc.cpu().numpy()[valid]
-            light_t0_h = light_t0.cpu().numpy()[valid]
-            light_dat['segment_id'] = segment_ids[:, None]
-            light_dat['n_photons_det'] = light_inc_h
-            light_dat['t0_det'] = light_t0_h
+            with trace.phase('light/incidence', home):
+                light_inc, light_t0, light_vox = \
+                    light_ops.calculate_light_incidence(
+                        segs_all, det, light_h, lut.vis, lut.t0,
+                        n_channels=n_light_channel,
+                        channel_offset=channel_offset)
+                # per-segment light summary for the output file
+                # (cli:758-760)
+                valid = segs_all.valid.cpu().numpy()
+                light_dat = np.zeros((int(valid.sum()), n_light_channel),
+                                     dtype=[('segment_id', 'u4'),
+                                            ('n_photons_det', 'f4'),
+                                            ('t0_det', 'f4')])
+                # host copies: light_dat, and mode 0's windows
+                # (mode0_window)
+                light_inc_h = light_inc.cpu().numpy()[valid]
+                light_t0_h = light_t0.cpu().numpy()[valid]
+                light_dat['segment_id'] = segment_ids[:, None]
+                light_dat['n_photons_det'] = light_inc_h
+                light_dat['t0_det'] = light_t0_h
             op_channel_tpc = light_ops.host_array(light.op_channel_to_tpc)
             home_ctx = dataclasses.replace(
                 home_ctx, light=light_h, lut=lut, light_noise=light_noise,
@@ -662,16 +665,20 @@ def run_simulation(input_filename: str,
                     # rows)
                     uniq_l = np.unique(res['light_event_id'])
                     gate.submit(functools.partial(
-                        export.export_light_trig_to_hdf5,
+                        write_light, export.export_light_trig_to_hdf5,
                         res['light_event_id'], res['light_start_time'],
                         res['light_trigger_idx'],
                         res['light_op_channel_idx'], out,
                         event_times[uniq_l % sim.max_events_per_file],
                         det_model, light))
                 gate.submit(functools.partial(
-                    export.export_light_wvfm_to_hdf5,
+                    write_light, export.export_light_wvfm_to_hdf5,
                     res['light_event_id'], res['light_waveforms'], out, sim,
                     light, i_mod=i_mod))
+
+        def write_light(export_fn, *args, **kw):
+            with trace.phase('export/light'):
+                export_fn(*args, **kw)
 
         def write_truth(truth):
             with trace.phase('truth/h5'):
@@ -749,7 +756,8 @@ def run_simulation(input_filename: str,
                 segs = from_structured(tracks_mod[sel],
                                        pad_to=bucket(len(sel), lo=32),
                                        device=ctx.device)
-            inc, t0, vox = light_rows(ctx, [sel], segs.size)
+            with trace.phase('light/incidence', ctx.device):
+                inc, t0, vox = light_rows(ctx, [sel], segs.size)
             mode0 = dict(t0_det=t0[0],
                          module_to_tpcs=det_model.module_to_tpcs,
                          sim_window=window) \
@@ -767,7 +775,8 @@ def run_simulation(input_filename: str,
             with its own draws."""
             sels = [sel for _, sel in firsts]
             pad = bucket(max(len(sel) for sel in sels), lo=32)
-            inc, _, vox = light_rows(ctx, sels, pad)
+            with trace.phase('light/incidence', ctx.device):
+                inc, _, vox = light_rows(ctx, sels, pad)
             args = (from_structured_group([tracks_mod[sel] for sel in sels],
                                           pad, device=ctx.device),
                     ctx.light, sim, inc, vox, ctx.lut, ctx.light_noise,
@@ -850,8 +859,10 @@ def run_simulation(input_filename: str,
                         pixel_gains=gains_lut, already_drifted=True,
                         step_scale=step_scale, host_segs=selected,
                         event_slot=slot)
-                for r in lres.values():
-                    r.waveforms = _host(r.waveforms)
+                if lres:
+                    with trace.phase('light/pull', ctx.device):
+                        for r in lres.values():
+                            r.waveforms = _host(r.waveforms)
             return seq, items, cat, lres, res
 
         def accumulate_charge(items, cat, res):
@@ -1160,13 +1171,15 @@ def run_simulation(input_filename: str,
                     segments_to_files[sim.event_separator])
             light_event_times = (light_event_id * sim.spill_period
                                  if sim.is_spill_sim else event_times)
-            export.export_light_trig_to_hdf5(
-                light_event_id, np.zeros(len(light_event_id)),
-                np.zeros(len(light_event_id), int),
-                light_ops.host_array(light.tpc_to_op_channel).ravel(), out,
-                light_event_times, det_model, light)
+            with trace.phase('export/light'):
+                export.export_light_trig_to_hdf5(
+                    light_event_id, np.zeros(len(light_event_id)),
+                    np.zeros(len(light_event_id), int),
+                    light_ops.host_array(light.tpc_to_op_channel).ravel(),
+                    out, light_event_times, det_model, light)
         if light.light_simulated and mod2mod_variation:
-            export.merge_module_light_wvfm_same_trigger(out, det_model)
+            with trace.phase('export/light_merge'):
+                export.merge_module_light_wvfm_same_trigger(out, det_model)
         swap_coordinates(segments_to_files)
         out.create_dataset(sim.tracks_dset_name, data=segments_to_files)
         out[sim.tracks_dset_name].attrs['zbeam'] = True

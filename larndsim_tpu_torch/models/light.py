@@ -167,15 +167,17 @@ def _channels(light: LightParams, light_noise, add_noise: bool, device,
 def _signal_stage(segs, voxels, n_det, op_channel, time_dist, t0_avg,
                   start_time, gains, draw: LightDraw, light: LightParams, *,
                   n_ticks: int, conv_ticks: int, lut_smearing: bool):
-    """Photon series -> scintillation -> Poisson -> SiPM response."""
-    inc = light_ops.sum_light_signals(
-        segs, voxels, n_det, op_channel, time_dist, t0_avg, start_time,
-        light, n_ticks=n_ticks, lut_smearing=lut_smearing)
-    scint = light_ops.calc_scintillation_effect(inc, light,
-                                                conv_ticks=conv_ticks)
-    disc = light_ops.calc_stat_fluctuations(scint, draw, light)
-    return light_ops.calc_light_detector_response(disc, gains, light,
-                                                  conv_ticks=conv_ticks)
+    """Photon series -> scintillation -> Poisson -> SiPM response; traced
+    as ``light/signal``."""
+    with trace.phase('light/signal', n_det.device):
+        inc = light_ops.sum_light_signals(
+            segs, voxels, n_det, op_channel, time_dist, t0_avg, start_time,
+            light, n_ticks=n_ticks, lut_smearing=lut_smearing)
+        scint = light_ops.calc_scintillation_effect(inc, light,
+                                                    conv_ticks=conv_ticks)
+        disc = light_ops.calc_stat_fluctuations(scint, draw, light)
+        return light_ops.calc_light_detector_response(disc, gains, light,
+                                                      conv_ticks=conv_ticks)
 
 
 def _beam_digitize_stage(response, noise_rows, draw: LightDraw,
@@ -183,14 +185,16 @@ def _beam_digitize_stage(response, noise_rows, draw: LightDraw,
                          t0_avg, start_time, *, digit_samples: int,
                          pad_front: int, pad_back: int, k_truth: int):
     """Pad + noise + digitize (+ truth points) for the beam trigger (fixed
-    trigger at tick 0); ``noise_rows`` None adds no noise."""
-    signal = torch.nn.functional.pad(response, (pad_front, pad_back))
-    if noise_rows is not None:
-        signal = signal + light_ops.gen_light_detector_noise(
-            tuple(signal.shape), noise_rows, draw, light)
-    trig = torch.tensor([pad_front], device=signal.device)
-    wvfms = light_ops.digitize_signal(signal, trig, light,
-                                      digit_samples=digit_samples)
+    trigger at tick 0); ``noise_rows`` None adds no noise.  The padding,
+    noise and digitization are traced as ``light/digitize``."""
+    with trace.phase('light/digitize', response.device):
+        signal = torch.nn.functional.pad(response, (pad_front, pad_back))
+        if noise_rows is not None:
+            signal = signal + light_ops.gen_light_detector_noise(
+                tuple(signal.shape), noise_rows, draw, light)
+        trig = torch.tensor([pad_front], device=signal.device)
+        wvfms = light_ops.digitize_signal(signal, trig, light,
+                                          digit_samples=digit_samples)
     truth_ids = amp = itick = None
     if k_truth > 0:
         truth_ids, amp, itick = light_ops.light_truth_points(
@@ -1104,13 +1108,16 @@ def simulate_light_group_mode0(segs: Segments, light: LightParams,
         if not len(trigger_idx):
             continue
         pad_front, pad_back = _pads(light, trigger_idx, n_ticks)
-        signal = torch.nn.functional.pad(response[g], (pad_front, pad_back))
-        if noise_rows is not None:
-            signal = signal + light_ops.gen_light_detector_noise(
-                tuple(signal.shape), noise_rows, draws[g], light)
-        res.waveforms = light_ops.digitize_signal(
-            signal, light_ops.upload(trigger_idx + pad_front, dev), light,
-            digit_samples=n_samples, ref_exact=sim.ref_exact_light_digitize)
+        with trace.phase('light/digitize', dev):
+            signal = torch.nn.functional.pad(response[g],
+                                             (pad_front, pad_back))
+            if noise_rows is not None:
+                signal = signal + light_ops.gen_light_detector_noise(
+                    tuple(signal.shape), noise_rows, draws[g], light)
+            res.waveforms = light_ops.digitize_signal(
+                signal, light_ops.upload(trigger_idx + pad_front, dev),
+                light, digit_samples=n_samples,
+                ref_exact=sim.ref_exact_light_digitize)
         if points:
             res.truth_sparse = _host_truth_sparse(
                 *(a[g] for a in points_h), kernel, trigger_idx, light,
