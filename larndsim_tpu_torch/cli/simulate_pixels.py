@@ -64,8 +64,8 @@ from ..ops.drift import drift, select_active_volume
 from ..ops.quench import quench
 from ..parallel.devices import (card_scope, dispatch_stream,
                                 module_devices, resolve_devices, to_device)
-from ..params import (get_module_ids, load_detector, load_light, load_sim,
-                      physics)
+from ..params import (DetectorFiles, get_module_ids, load_detector,
+                      load_light, load_sim, physics)
 from ..segments import from_structured, from_structured_group, to_structured
 from ..utils import batching, trace
 from ..utils.batching import TPCBatcher
@@ -111,6 +111,13 @@ def _scalar(val):
 def _of_module(val, i_mod: int):
     """Module ``i_mod``'s entry of a per-module list, or the one value."""
     return val[i_mod - 1] if isinstance(val, list) else val
+
+
+def _response(files: DetectorFiles, path, **synth) -> np.ndarray:
+    """``load_response(path, **synth)`` through the call's table, keyed by
+    the path and the arguments."""
+    return files.get('response', (path, *sorted(synth.items())),
+                     lambda: load_response(path, **synth))
 
 
 class _WriteGate:
@@ -336,7 +343,11 @@ def run_simulation(input_filename: str,
     if pixel_gains_file is None:
         pixel_gains_file = cfg.get('PIXEL_GAINS_FILE')
 
-    mod_ids_all = get_module_ids(detector_properties)
+    # a table per run: repeated runs in one process would add up
+    trace.reset()
+    # the call's detector files, each read once for all the modules
+    files = DetectorFiles('cli/detector_files')
+    mod_ids_all = get_module_ids(detector_properties, files=files)
     n_modules = len(mod_ids_all)
     if mod2mod_variation is None:
         mod2mod_variation = cfg.get('MOD2MOD_VARIATION', False)
@@ -383,8 +394,6 @@ def run_simulation(input_filename: str,
     memlog = MemoryLogger(save_memory is None, device)
     memlog.start()
     t_sim0 = time.time()
-    # a table per run: repeated runs in one process would add up
-    trace.reset()
     if rand_seed is None:
         rand_seed = int(time.time())
     np_rng = np.random.default_rng(rand_seed)
@@ -405,7 +414,8 @@ def run_simulation(input_filename: str,
         # volume (cli:261-265)
         with trace.phase('cli/detector'):
             geo = load_detector(detector_properties,
-                                _of_module(pixel_layout, 1), device=device)
+                                _of_module(pixel_layout, 1), device=device,
+                                files=files)
         trig_mode = light.light_trig_mode
 
         num_evids = int(tracks[sim.event_separator].max()
@@ -458,15 +468,17 @@ def run_simulation(input_filename: str,
         home = mod_devices[0]
         with trace.phase('cli/detector'):
             det_model = load_detector(detector_properties, pixel_layout,
-                                      i_module=i_mod, device=home)
+                                      i_module=i_mod, device=home,
+                                      files=files)
             det = det_model.params
             n_resp_t = int(round(det.f32('time_window')
                                  / det.f32('response_sampling')))
-            response = torch.from_numpy(load_response(
-                _of_module(response_file, i_mod), n_t=n_resp_t,
+            # the module's own copy on its card, of a table read once
+            response = torch.from_numpy(_response(
+                files, _of_module(response_file, i_mod), n_t=n_resp_t,
                 bin_size=det.f32('response_bin_size'),
                 sampling=det.f32('response_sampling'),
-                pixel_pitch=det.f32('pixel_pitch'))).to(home)
+                pixel_pitch=det.f32('pixel_pitch'))).to(home, copy=True)
             thresholds_lut = (PixelLUT.load(_of_module(pixel_thresholds_file,
                                                        i_mod))
                               if pixel_thresholds_file else None)

@@ -5,16 +5,22 @@ scale the math are float32 tensor leaves on one device; quantities that fix
 shapes or control flow are plain Python values.  The YAML's float64 values
 are kept beside the tensors in ``host``, so host code never reads a leaf
 back from the device.
+
+:class:`DetectorFiles` is one simulation call's table of the detector files
+it reads: each file is parsed once a call, and every later load that names
+it builds from the same host objects.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 import yaml
 
 from ..geometry import tiles as tiles_mod
+from ..utils import trace
 
 try:
     _YamlLoader = yaml.CSafeLoader
@@ -173,11 +179,57 @@ class DetectorModel:
     tpc_borders: np.ndarray
 
 
-def get_module_ids(detprop_file: str) -> list[int]:
-    """Module ids declared in a detector-properties YAML."""
-    with open(detprop_file) as df:
-        detprop = yaml.load(df, Loader=_YamlLoader)
-    return list(detprop['module_to_tpcs'].keys())
+def _read_yaml(path: str) -> dict:
+    with open(path) as f:
+        return yaml.load(f, Loader=_YamlLoader)
+
+
+def _read_layout(detprop: dict, pixel_file: str):
+    """A pixel layout's :class:`TileLayout` and the TPC borders it gives
+    under the detector properties ``detprop``."""
+    layout = tiles_mod.load_tile_layout(pixel_file, detprop['tile_map'])
+    return layout, tiles_mod.derive_tpc_borders(detprop, layout)
+
+
+class DetectorFiles:
+    """The detector files of one simulation call, each read once.
+
+    ``get(kind, key, read)`` returns ``read()``'s result the first time a
+    ``(kind, key)`` is asked for and the same object every later time, and
+    tallies each ask in the trace as ``<label>_read/<kind>`` or
+    ``<label>_reused/<kind>``.  It holds host objects only (no device
+    tensor), and shares them between the loads of every module: nothing
+    downstream writes into them.  Module threads may share a table: each
+    key is read under its own lock, by the first thread that asks.  Made
+    for a call and dropped with it, so that every call reads its files
+    anew."""
+
+    def __init__(self, label: str = 'detector_files'):
+        self.label = label
+        self._lock = threading.Lock()
+        self._slots: dict = {}
+
+    def get(self, kind: str, key, read):
+        with self._lock:
+            slot = self._slots.setdefault((kind, key), [threading.Lock()])
+        with slot[0]:
+            fresh = len(slot) == 1
+            if fresh:
+                slot.append(read())
+        trace.tally(f'{self.label}_{"read" if fresh else "reused"}/{kind}')
+        return slot[1]
+
+    def detprop(self, path: str) -> dict:
+        """The detector-properties YAML at ``path``, as a dict."""
+        return self.get('detprop', path, lambda: _read_yaml(path))
+
+
+def get_module_ids(detprop_file: str, *,
+                   files: DetectorFiles | None = None) -> list[int]:
+    """Module ids declared in a detector-properties YAML (read through
+    ``files``, where given)."""
+    files = DetectorFiles() if files is None else files
+    return list(files.detprop(detprop_file)['module_to_tpcs'].keys())
 
 
 # Defaults mirroring the reference module-global fallbacks
@@ -196,18 +248,27 @@ _DEFAULTS = dict(
 
 
 def load_detector(detprop_file: str, pixel_file: str | list[str],
-                  i_module: int = -1, device='cuda') -> DetectorModel:
+                  i_module: int = -1, device='cuda', *,
+                  files: DetectorFiles | None = None) -> DetectorModel:
     """Build a :class:`DetectorModel` from detector-properties and
-    pixel-layout YAMLs, with every leaf on ``device``."""
+    pixel-layout YAMLs, with every leaf on ``device``; with ``files``, each
+    YAML is read through that table, once for all the loads that name it."""
     device = card_or(device)
-    with open(detprop_file) as df:
-        detprop = yaml.load(df, Loader=_YamlLoader)
-
     if isinstance(pixel_file, list):
         pixel_file = pixel_file[i_module - 1]
-    layout = tiles_mod.load_tile_layout(pixel_file, detprop['tile_map'])
-    tpc_borders = tiles_mod.derive_tpc_borders(detprop, layout)
+    files = DetectorFiles() if files is None else files
+    detprop = files.detprop(detprop_file)
+    layout, tpc_borders = files.get(
+        'layout', (detprop_file, pixel_file),
+        lambda: _read_layout(detprop, pixel_file))
+    return _build(detprop, layout, tpc_borders, i_module, device)
 
+
+def _build(detprop: dict, layout: tiles_mod.TileLayout,
+           tpc_borders: np.ndarray, i_module: int,
+           device: torch.device) -> DetectorModel:
+    """Module ``i_module``'s :class:`DetectorModel` from the parsed
+    files: its per-module values picked, its leaves on ``device``."""
     get = lambda k, d=None: detprop.get(k, _DEFAULTS[k] if d is None else d)
     temperature = float(get('temperature'))
     e_field = _pick(get('e_field'), i_module)

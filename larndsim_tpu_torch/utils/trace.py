@@ -13,6 +13,11 @@ workers under the same labels, so the shared tables are updated under a
 lock.  A phase's device time comes from the profiler's trace, never from
 the phase itself.
 
+``tally(label)`` counts an event under its label and times nothing: it
+records no wall or CPU time, opens no profiler range, and stays out of the
+phase tables (``summary``, ``report``), so that no phase's row moves by
+it; ``tallies()`` reads the counts.
+
 ``start_trace`` / ``stop_trace`` capture a ``torch.profiler`` trace of the
 CPU and, where there is one, the card, written as a Chrome trace into the
 given directory.
@@ -35,6 +40,8 @@ _CHILD: dict[str, float] = defaultdict(float)
 #: threads, its CPU time only what it computed
 _CPU: dict[str, float] = defaultdict(float)
 _CHILD_CPU: dict[str, float] = defaultdict(float)
+#: label -> count of the count-only entries (``tally``)
+_TALLIES: dict[str, int] = defaultdict(int)
 _STACK = threading.local()
 _ACC_LOCK = threading.Lock()
 #: the running torch.profiler capture and its directory
@@ -70,6 +77,18 @@ def phase(label: str, device=None):
                 _CHILD_CPU[parent] += dc
 
 
+def tally(label: str) -> None:
+    """Count an event under ``label``; no time is taken or kept."""
+    with _ACC_LOCK:
+        _TALLIES[label] += 1
+
+
+def tallies() -> dict[str, int]:
+    """label -> count of the count-only entries."""
+    with _ACC_LOCK:
+        return dict(_TALLIES)
+
+
 def summary() -> dict[str, tuple[float, int]]:
     """label -> (self_seconds, calls): nested-phase time is subtracted
     from the enclosing phase."""
@@ -92,7 +111,7 @@ def summary_cpu() -> dict[str, float]:
 
 def reset():
     with _ACC_LOCK:
-        for table in (_TIMES, _COUNTS, _CHILD, _CPU, _CHILD_CPU):
+        for table in (_TIMES, _COUNTS, _CHILD, _CPU, _CHILD_CPU, _TALLIES):
             table.clear()
 
 

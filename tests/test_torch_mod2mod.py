@@ -485,10 +485,10 @@ def test_lists_through_the_command_line(tmp_path):
     seen = {}
     orig = tcli.load_detector
 
-    def spy(det, layout, i_module=-1, device='cuda'):
+    def spy(det, layout, i_module=-1, device='cuda', **kw):
         seen[i_module] = layout if isinstance(layout, str) \
             else layout[i_module - 1]
-        return orig(det, layout, i_module=i_module, device=device)
+        return orig(det, layout, i_module=i_module, device=device, **kw)
     lay = paths['pixel_layout']
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tcli, 'load_detector', spy)
