@@ -9,6 +9,7 @@ as in the JAX package: the random draws take those shapes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable
@@ -25,8 +26,10 @@ from ..params.sim import SimParams
 from ..segments import Segments
 from ..utils import trace
 
-#: draw(name, shape) -> standard normals of that shape.  Names: 'smear'
-#: (3, S, n_steps), 'fee_noise' (n_scan, 5, U), 'q_init' (U,).
+#: draw(name, shape) -> standard normals of that shape.  Both entries of
+#: the chain draw 'smear' (3, S, n_steps), 'q_init' (U,) and 'fee_noise'
+#: (n_scan, 5, U) once a batch in this order, which a generator's values
+#: depend on and the benchmark's reference reproduces.
 Draw = Callable[[str, tuple], torch.Tensor]
 
 
@@ -106,39 +109,53 @@ class BatchStage:
     shift_band: tuple[int, int]
 
 
+def _stage(segs: Segments, det: DetectorParams, pixels: torch.Tensor,
+           keyed: torch.Tensor, distances: torch.Tensor, *,
+           n_unique_cap: int, max_tracks: int, **shapes) -> BatchStage:
+    """The device half of staging on ``get_pixels``' ids, ``keyed`` by
+    event or not, under the rest of :class:`BatchStage`'s ``shapes``."""
+    uniq, n_unique = accumulate.unique_pixels(keyed, n_unique_cap)
+    pix_idx = accumulate.pixel_index_map(keyed, uniq)
+    track_map, slot, overflow = accumulate.track_pixel_map(
+        pix_idx, distances, n_unique_cap, max_tracks=max_tracks)
+    # the centres of the pixels themselves, not of their keys
+    px, py = pixel_centers(torch.clamp(pixels, min=0), det)
+    track_starts, _ = pixelize.time_intervals(segs, det)
+    # made once, walked by the waveform sum and the current fractions
+    csr = accumulate.pixel_csr(pix_idx, track_starts, n_unique_cap,
+                               time_sampling=det.time_sampling)
+    return BatchStage(
+        segs=segs, n_unique_cap=n_unique_cap, pixels=pixels, uniq=uniq,
+        n_unique=n_unique, pix_idx=pix_idx, track_map=track_map, slot=slot,
+        overflow=overflow, csr=csr, px=px, py=py, track_starts=track_starts,
+        **shapes)
+
+
 def stage_batch(segs: Segments, det_model: DetectorModel, sim: SimParams, *,
                 pixel_thresholds=None, pixel_gains=None,
-                mode: int = physics.BIRKS, already_drifted: bool = False,
-                step_scale: float = 1.0,
+                already_drifted: bool = False, step_scale: float = 1.0,
                 host_segs: np.ndarray | None = None,
                 event_slot=None) -> BatchStage:
-    """Quench and drift (unless ``already_drifted``), choose the batch's
-    shapes on the host, and build the pixel maps; the arguments are those
-    of :func:`simulate_charge_batch`."""
+    """Quench (Birks) and drift (unless ``already_drifted``), choose the
+    batch's shapes on the host, and build the pixel maps; the arguments
+    are those of :func:`simulate_charge_batch`."""
     det = det_model.params
     dev = segs.x.device
     if not already_drifted:
-        segs = drift(quench(segs, det, mode), det)
+        segs = drift(quench(segs, det, physics.BIRKS), det)
 
     # --- host-side shape selection ---
     if host_segs is not None and already_drifted:
-        pad_n = segs.size
-        n_real = min(len(host_segs), pad_n)
-        host = {}
-        for k in _HOST_FIELDS:
-            col = np.zeros(pad_n, np.float32)
-            col[:n_real] = host_segs[k][:n_real]
-            host[k] = col
-        valid = np.zeros(pad_n, bool)
-        valid[:n_real] = True
+        n_real = min(len(host_segs), segs.size)
+        seg_np = {k: host_segs[k][:n_real].astype(np.float32)
+                  for k in _HOST_FIELDS}
     else:
         stacked = torch.stack([getattr(segs, k).float()
                                for k in _HOST_FIELDS]).cpu().numpy()
-        host = {k: stacked[i] for i, k in enumerate(_HOST_FIELDS)}
         valid = segs.valid.cpu().numpy()
-    host['pixel_plane'] = host['pixel_plane'].astype(np.int32)
-    seg_np = {k: v[valid] for k, v in host.items()}
-    if valid.sum() == 0:
+        seg_np = {k: stacked[i][valid] for i, k in enumerate(_HOST_FIELDS)}
+    seg_np['pixel_plane'] = seg_np['pixel_plane'].astype(np.int32)
+    if len(seg_np['dx']) == 0:
         raise ValueError('empty batch')
 
     hconst = det.host
@@ -160,8 +177,9 @@ def stage_batch(segs: Segments, det_model: DetectorModel, sim: SimParams, *,
     # nstep = round(length/min_step) (detsim.py:320); step_scale > 1
     # widens the steps, which conserves charge exactly
     min_step = float(sim.min_step_size) * float(step_scale)
-    n_steps = bucket(int(np.ceil(np.max(host['dx'][valid]) / min_step))
+    n_steps = bucket(int(np.ceil(seg_np['dx'].max() / min_step))
                      * sim.mc_sample_multiplier, lo=8)
+    shift_band = current.host_shift_band(seg_np, det, mc_smear=True)
 
     with trace.phase('charge/get_pixels', dev):
         pixels, distances, npix = pixelize.get_pixels(
@@ -189,37 +207,67 @@ def stage_batch(segs: Segments, det_model: DetectorModel, sim: SimParams, *,
         n_unique_cap = bucket(int(counts[1]), lo=32)
 
     with trace.phase('charge/prep', dev):
-        uniq, n_unique = accumulate.unique_pixels(keyed, n_unique_cap)
-        pix_idx = accumulate.pixel_index_map(keyed, uniq)
-        track_map, slot, overflow = accumulate.track_pixel_map(
-            pix_idx, distances, n_unique_cap,
-            max_tracks=sim.max_tracks_per_pixel)
-        # the centres of the pixels themselves, not of their keys
-        px, py = pixel_centers(torch.clamp(pixels, min=0), det)
-        track_starts, _ = pixelize.time_intervals(segs, det)
-        # made once, walked by the waveform sum and the current fractions
-        csr = accumulate.pixel_csr(pix_idx, track_starts, n_unique_cap,
-                                   time_sampling=det.time_sampling)
-
+        st = _stage(segs, det, pixels, keyed, distances,
+                    n_unique_cap=n_unique_cap,
+                    max_tracks=sim.max_tracks_per_pixel,
+                    max_active=max_active, radius=max_radius, max_nb=max_nb,
+                    t_sig=t_sig, n_steps=n_steps, min_step=min_step,
+                    shift_band=shift_band, thresholds=None, gains=None)
         # per-pixel values by pixel id: a grouped event's key is the id
         # plus its slot's offset (the JAX package looks the key up, so an
         # event past the group's first gets the default)
-        pid = torch.clamp(uniq, min=0) % n_pix_total
-        thresholds = gains = None
+        pid = torch.clamp(st.uniq, min=0) % n_pix_total
         if pixel_thresholds is not None:
-            thresholds = pixel_thresholds.lookup(pid)
+            st.thresholds = pixel_thresholds.lookup(pid)
         if pixel_gains is not None:
-            gains = pixel_gains.lookup(pid)[:, None]
+            st.gains = pixel_gains.lookup(pid)[:, None]
+    return st
 
-    return BatchStage(
-        segs=segs, max_active=max_active, radius=max_radius, max_nb=max_nb,
-        t_sig=t_sig,
-        n_steps=n_steps, min_step=min_step, n_unique_cap=n_unique_cap,
-        pixels=pixels, uniq=uniq, n_unique=n_unique, pix_idx=pix_idx,
-        track_map=track_map, slot=slot, overflow=overflow, csr=csr,
-        px=px, py=py,
-        track_starts=track_starts, thresholds=thresholds, gains=gains,
-        shift_band=current.host_shift_band(seg_np, det, mc_smear=True))
+
+@contextlib.contextmanager
+def _signals_and_fsm(st: BatchStage, det: DetectorParams,
+                     response: torch.Tensor, draw: Draw, *, max_adc: int):
+    """Induced current, waveform sum and FSM; yields (signals, fee_res)
+    with ``charge/fee_stage`` still open for the caller's work on them."""
+    dev = st.segs.x.device
+    n_unique_cap = st.n_unique_cap
+    # the JAX package's label of its induced-current kernel, so the two
+    # phase tables line up
+    with trace.phase('charge/current_pallas', dev):
+        signals = current.current(
+            st.segs, st.px, st.py, st.pixels >= 0, response, det,
+            draw('smear', (3, st.segs.size, st.n_steps)), n_steps=st.n_steps,
+            t_sig=st.t_sig, shift_band=st.shift_band, min_step=st.min_step)
+    with trace.phase('charge/fee_stage', dev):
+        # the waveform sum writes the FSM's tick-major rows itself
+        n_scan = fee.scan_ticks(det)
+        sig_rows = accumulate.sum_pixel_signals(
+            signals, st.pix_idx, st.track_starts, n_unique_cap,
+            n_ticks=det.time_ticks, time_sampling=det.time_sampling,
+            rows=n_scan, csr=st.csr)
+        thresholds = st.thresholds
+        if thresholds is None:
+            thresholds = torch.full((n_unique_cap,),
+                                    det.f32('discrimination_threshold'),
+                                    dtype=torch.float32, device=dev)
+        s = fee.fsm_scalars(det, max_adc=max_adc)
+        q_init = draw('q_init', (n_unique_cap,)) * s.sigma_reset
+        fee_res = fee.get_adc_values_rows(
+            sig_rows, fee.tick_times(det, dev), thresholds, det,
+            max_adc=max_adc,
+            noise=draw('fee_noise', (n_scan, 5, n_unique_cap)),
+            q_init=q_init)
+        yield signals, fee_res
+
+
+def _fractions_and_adc(st: BatchStage, signals: torch.Tensor, fee_res,
+                       det: DetectorParams, n_adc_scan: int):
+    """The fractions of the first ``n_adc_scan`` ADC slots; the ADC."""
+    fractions = fee.current_fractions(
+        signals, st.pix_idx, st.slot, st.track_starts, fee_res, det,
+        max_adc=fee_res.integrals.shape[1], max_tracks=st.track_map.shape[1],
+        n_adc_scan=n_adc_scan, csr=st.csr)
+    return fractions, fee.digitize(fee_res.integrals, det, gain=st.gains)
 
 
 def charge_step(segs: Segments, det: DetectorParams, response: torch.Tensor,
@@ -228,55 +276,36 @@ def charge_step(segs: Segments, det: DetectorParams, response: torch.Tensor,
                 n_unique_cap: int, max_adc: int, max_tracks: int,
                 shift_band: tuple[int, int], min_step: float = 0.001):
     """The charge chain on drifted segments with every shape given
-    (JAX ``models.charge.charge_step``, :122-173): one call a batch of a
+    (JAX ``models.charge.charge_step``, :122-173) and without the host
+    reads of :func:`simulate_charge_batch`: one call a batch of a
     ``parallel.mesh`` cell.  ``shift_band`` is the induced current's
     (``ops.current.host_shift_band``), chosen on the host like the other
-    shapes; ``thresholds`` / ``gains`` optional (n_unique_cap,) tensors.
-    Returns (uniq, n_unique, adc, fee_res, fractions, track_map,
+    shapes; ``thresholds`` (n_unique_cap,) and ``gains`` (n_unique_cap, 1)
+    optional tensors.  Returns (uniq, n_unique, adc, fee_res, fractions, track_map,
     overflow)."""
     dev = segs.x.device
-    pixels, distances, npix = pixelize.get_pixels(
-        segs, det, max_active=max_active, radius=radius,
-        max_neighboring=max_nb)
-    uniq, n_unique = accumulate.unique_pixels(pixels, n_unique_cap)
-    pix_idx = accumulate.pixel_index_map(pixels, uniq)
-    track_map, slot, overflow = accumulate.track_pixel_map(
-        pix_idx, distances, n_unique_cap, max_tracks=max_tracks)
-    px, py = pixel_centers(torch.clamp(pixels, min=0), det)
-    signals = current.current(
-        segs, px, py, pixels >= 0, response, det,
-        draw('smear', (3, segs.size, n_steps)), n_steps=n_steps,
-        t_sig=t_sig, shift_band=shift_band, min_step=min_step)
-    track_starts, _ = pixelize.time_intervals(segs, det)
-    csr = accumulate.pixel_csr(pix_idx, track_starts, n_unique_cap,
-                               time_sampling=det.time_sampling)
-    n_scan = fee.scan_ticks(det)
-    sig_rows = accumulate.sum_pixel_signals(
-        signals, pix_idx, track_starts, n_unique_cap,
-        n_ticks=det.time_ticks, time_sampling=det.time_sampling,
-        rows=n_scan, csr=csr)
-    if thresholds is None:
-        thresholds = torch.full((n_unique_cap,),
-                                det.f32('discrimination_threshold'),
-                                dtype=torch.float32, device=dev)
-    s = fee.fsm_scalars(det, max_adc=max_adc)
-    fee_res = fee.get_adc_values_rows(
-        sig_rows, fee.tick_times(det, dev), thresholds, det,
-        max_adc=max_adc,
-        noise=draw('fee_noise', (n_scan, 5, n_unique_cap)),
-        q_init=draw('q_init', (n_unique_cap,)) * s.sigma_reset)
-    fractions = fee.current_fractions(
-        signals, pix_idx, slot, track_starts, fee_res, det,
-        max_adc=max_adc, max_tracks=max_tracks, n_adc_scan=max_adc,
-        csr=csr)
-    adc = fee.digitize(fee_res.integrals, det, gain=gains)
-    return uniq, n_unique, adc, fee_res, fractions, track_map, overflow
+    with trace.phase('charge/get_pixels', dev):
+        pixels, distances, _ = pixelize.get_pixels(
+            segs, det, max_active=max_active, radius=radius,
+            max_neighboring=max_nb)
+    with trace.phase('charge/prep', dev):
+        st = _stage(segs, det, pixels, pixels, distances,
+                    n_unique_cap=n_unique_cap, max_tracks=max_tracks,
+                    max_active=max_active, radius=radius, max_nb=max_nb,
+                    t_sig=t_sig, n_steps=n_steps, min_step=min_step,
+                    shift_band=shift_band, thresholds=thresholds,
+                    gains=gains)
+    with _signals_and_fsm(st, det, response, draw,
+                          max_adc=max_adc) as (signals, fee_res):
+        fractions, adc = _fractions_and_adc(st, signals, fee_res, det,
+                                            max_adc)
+    return (st.uniq, st.n_unique, adc, fee_res, fractions, st.track_map,
+            st.overflow)
 
 
 def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
                           sim: SimParams, draw: Draw, response: torch.Tensor,
                           *, pixel_thresholds=None, pixel_gains=None,
-                          mode: int = physics.BIRKS,
                           already_drifted: bool = False,
                           step_scale: float = 1.0,
                           host_segs: np.ndarray | None = None,
@@ -304,44 +333,16 @@ def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
     det = det_model.params
     dev = segs.x.device
     st = stage_batch(segs, det_model, sim, pixel_thresholds=pixel_thresholds,
-                     pixel_gains=pixel_gains, mode=mode,
-                     already_drifted=already_drifted, step_scale=step_scale,
-                     host_segs=host_segs, event_slot=event_slot)
-    segs, n_unique_cap = st.segs, st.n_unique_cap
-    # the JAX package's label of its induced-current kernel, so the two
-    # phase tables line up
-    with trace.phase('charge/current_pallas', dev):
-        signals = current.current(
-            segs, st.px, st.py, st.pixels >= 0, response, det,
-            draw('smear', (3, segs.size, st.n_steps)), n_steps=st.n_steps,
-            t_sig=st.t_sig, shift_band=st.shift_band, min_step=st.min_step)
-
-    # --- waveform sum + FEE ---
+                     pixel_gains=pixel_gains, already_drifted=already_drifted,
+                     step_scale=step_scale, host_segs=host_segs,
+                     event_slot=event_slot)
     a_full = sim.max_adc_values
-    with trace.phase('charge/fee_stage', dev):
-        # the waveform sum writes the FSM's tick-major rows itself
-        n_scan = fee.scan_ticks(det)
-        sig_rows = accumulate.sum_pixel_signals(
-            signals, st.pix_idx, st.track_starts, n_unique_cap,
-            n_ticks=det.time_ticks, time_sampling=det.time_sampling,
-            rows=n_scan, csr=st.csr)
-        thresholds = st.thresholds
-        if thresholds is None:
-            thresholds = torch.full((n_unique_cap,),
-                                    det.f32('discrimination_threshold'),
-                                    dtype=torch.float32, device=dev)
-        s = fee.fsm_scalars(det, max_adc=a_full)
-        q_init = draw('q_init', (n_unique_cap,)) * s.sigma_reset
-        fee_res = fee.get_adc_values_rows(
-            sig_rows, fee.tick_times(det, dev), thresholds, det,
-            max_adc=a_full,
-            noise=draw('fee_noise', (n_scan, 5, n_unique_cap)),
-            q_init=q_init)
-
+    with _signals_and_fsm(st, det, response, draw,
+                          max_adc=a_full) as (signals, fee_res):
         # one host read: unique count, per-pixel hit counts, track
         # occupancy
         n_unique_i = int(st.n_unique)
-        n_u = min(bucket(max(n_unique_i, 1), lo=32), n_unique_cap)
+        n_u = min(bucket(max(n_unique_i, 1), lo=32), st.n_unique_cap)
         t_cnt = (st.track_map[:n_u] >= 0).sum(dim=1).max()
         sync_h = torch.cat([fee_res.n_adc[:n_u],
                             t_cnt[None].to(fee_res.n_adc.dtype)]
@@ -350,11 +351,8 @@ def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
         max_hits = int(n_adc_host.max()) if n_adc_host.size else 0
 
         # fractions only for the ADC slots that latched somewhere
-        fractions = fee.current_fractions(
-            signals, st.pix_idx, st.slot, st.track_starts, fee_res, det,
-            max_adc=a_full, max_tracks=sim.max_tracks_per_pixel,
-            n_adc_scan=max_hits, csr=st.csr)
-        adc = fee.digitize(fee_res.integrals, det, gain=st.gains)
+        fractions, adc = _fractions_and_adc(st, signals, fee_res, det,
+                                            max_hits)
 
     # pull only the hit entries and the occupied track prefix
     K_full = sim.max_tracks_per_pixel
@@ -376,7 +374,7 @@ def simulate_charge_batch(segs: Segments, det_model: DetectorModel,
             track_pixel_map=_pad_tracks(
                 st.track_map[:n_u, :t_cap].cpu().numpy(), -1),
             overflow=bool(st.overflow.any()),
-            segments=segs,
+            segments=st.segs,
             max_adc_slots=a_full,
             hit_row=u_h.to(torch.int32).cpu().numpy(),
             hit_slot=a_h.to(torch.int32).cpu().numpy(),

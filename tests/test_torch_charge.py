@@ -91,3 +91,74 @@ def test_simulate_charge_batch(tree, seed, step_scale, with_luts):
     assert (diff == 0).mean() >= 0.99
     np.testing.assert_allclose(got.hit_integrals, want.hit_integrals,
                                rtol=1e-4, atol=1.0)
+
+
+@pytest.mark.parametrize('seed,step_scale,with_luts', [
+    (13, 1.0, False), (31, 2.0, True)])
+def test_charge_step_equals_simulate_charge_batch(tree, seed, step_scale,
+                                                  with_luts):
+    """The mesh's entry computes what the CLI's computes: ``charge_step``
+    on the drifted segments, with the shapes ``stage_batch`` picks and the
+    same named draws, equals ``simulate_charge_batch`` bit for bit (the
+    unique ids, track maps, hit counts, ADC, ticks and integrals, and the
+    fractions of every latched slot).  With LUTs, ``charge_step`` takes
+    the per-pixel thresholds and gains as the tensors the LUTs give."""
+    tm = tpa.load_port(tree)
+    det = tm.params
+    sim = tload_sim(tree['simulation_properties'])
+    tracks = tpa.detector_tracks(tm.tpc_borders, seed=seed,
+                                 tracks_per_event=4)
+    n_t = int(round(det.f32('time_window') / det.f32('response_sampling')))
+    response = torch.from_numpy(make_response(
+        n_xy=45, n_t=n_t, bin_size=det.f32('response_bin_size'),
+        pixel_pitch=det.f32('pixel_pitch')))
+    luts = {}
+    if with_luts:
+        nx, ny = det.n_pixels
+        keys = np.arange(0, nx * ny * det.n_tpcs, 3)
+        rng = np.random.default_rng(seed)
+        luts = dict(
+            pixel_thresholds=TLUT(
+                keys, rng.uniform(5e3, 9e3, len(keys)).astype(np.float32),
+                7e3),
+            pixel_gains=TLUT(
+                keys, rng.uniform(3.5e-3, 4.5e-3, len(keys)).astype(
+                    np.float32), 4e-3))
+    draw = jax_draw(jax.random.PRNGKey(seed))
+
+    def segs():
+        return tseg.from_structured(tracks, pad_to=32, device='cpu')
+    want = tcharge.simulate_charge_batch(segs(), tm, sim, draw, response,
+                                         step_scale=step_scale, **luts)
+    st = tcharge.stage_batch(segs(), tm, sim, step_scale=step_scale, **luts)
+    assert (st.thresholds is None) == (st.gains is None) == (not with_luts)
+    uniq, n_unique, adc, fee_res, frac, track_map, overflow = \
+        tcharge.charge_step(
+            st.segs, det, response, draw, thresholds=st.thresholds,
+            gains=st.gains, max_active=st.max_active, radius=st.radius,
+            max_nb=st.max_nb, t_sig=st.t_sig, n_steps=st.n_steps,
+            n_unique_cap=st.n_unique_cap, max_adc=sim.max_adc_values,
+            max_tracks=sim.max_tracks_per_pixel, shift_band=st.shift_band,
+            min_step=st.min_step)
+
+    n_u = len(want.unique_pix)
+    assert int(n_unique) == want.n_unique > 0
+    assert bool(overflow.any()) == want.overflow
+    assert not fee_res.n_adc[n_u:].any()
+    for name, g, w in (('uniq', uniq[:n_u], want.unique_pix),
+                       ('track_map', track_map[:n_u], want.track_pixel_map),
+                       ('n_adc', fee_res.n_adc[:n_u], want.n_adc)):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    u_h, a_h = torch.nonzero(
+        torch.arange(sim.max_adc_values)[None, :] < fee_res.n_adc[:, None],
+        as_tuple=True)
+    assert len(u_h) > 0, 'test must produce hits'
+    for name, g, w in (('hit_row', u_h, want.hit_row),
+                       ('hit_slot', a_h, want.hit_slot),
+                       ('hit_adc', adc[u_h, a_h], want.hit_adc),
+                       ('hit_ticks', fee_res.ticks[u_h, a_h], want.hit_ticks),
+                       ('hit_integrals', fee_res.integrals[u_h, a_h],
+                        want.hit_integrals),
+                       ('hit_fractions', frac[u_h, a_h],
+                        want.hit_fractions)):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
