@@ -13,12 +13,14 @@ All lengths are in cm, times in microseconds.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any
 
 import numpy as np
 import yaml
 
 from .. import units
+from ..utils import trace
 
 try:
     _YamlLoader = yaml.CSafeLoader
@@ -63,31 +65,153 @@ def _rotate_in_tile(pix_x: np.ndarray, pix_y: np.ndarray, orientation,
     return rx, ry
 
 
+# The grammar PyYAML's ``safe_dump`` writes a pixel layout in: the six
+# top-level keys, each a block mapping of integer keys (``pixel_pitch`` a
+# number), whose values are flow collections (``[0, 69]``, ``{11: 1001,
+# ...}``, wrapped onto lines of four spaces) or block ones (``- 0`` lines,
+# ``11: 1001`` lines).  A token is taken only where ``int()`` or
+# ``float()`` of it is what PyYAML's SafeLoader makes of it: no octal,
+# sign, underscore, exponent without a dot, or integer past int64.
+_INT = rb'-?(?:0|[1-9][0-9]{0,17})'
+_NUM = rb'(?:-?[0-9]+\.[0-9]+(?:[eE][-+][0-9]+)?|' + _INT + rb')'
+_SEP = rb',(?: |\n    )'
+
+
+def _block_mapping(value: bytes) -> re.Pattern:
+    return re.compile(rb'(?:  ' + _INT + rb':' + value + rb')+')
+
+
+_LISTS = _block_mapping(
+    rb'(?: \[' + _NUM + rb'(?:' + _SEP + _NUM + rb')*\]\n'
+    rb'|\n(?:  - ' + _NUM + rb'\n)+)')
+_PAIR = _INT + rb': ' + _INT
+_SECTIONS = {
+    b'chip_channel_to_position': _block_mapping(
+        rb'(?: \[' + _INT + rb', ' + _INT + rb'\]\n'
+        rb'|\n  - ' + _INT + rb'\n  - ' + _INT + rb'\n)'),
+    b'tile_chip_to_io': _block_mapping(
+        rb'(?: \{' + _PAIR + rb'(?:' + _SEP + _PAIR + rb')*\}\n| \{\}\n'
+        rb'|\n(?:    ' + _PAIR + rb'\n)+)'),
+    b'tile_indeces': _LISTS,
+    b'tile_orientations': _LISTS,
+    b'tile_positions': _LISTS,
+}
+_PITCH = re.compile(rb' (' + _NUM + rb')\n')
+_TOP = re.compile(rb'^(?=\S)', re.M)
+_KEY = re.compile(rb'^  (' + _INT + rb'):', re.M)
+_TOKEN = re.compile(rb'-?[0-9]+(?:\.[0-9]+(?:[eE][-+][0-9]+)?)?')
+#: every byte but those of an integer read as a space (``fromstring``)
+_INT_BYTES = bytes(c if c in b'0123456789-' else 32 for c in range(256))
+
+
+def _int_keyed(body: bytes, value) -> dict | None:
+    """A block mapping's entries, each value ``value`` of its tokens;
+    None where a key repeats or a value is None."""
+    parts = _KEY.split(body)
+    out = {int(k): value(_TOKEN.findall(v))
+           for k, v in zip(parts[1::2], parts[2::2])}
+    if 2 * len(out) != len(parts) - 1 or None in out.values():
+        return None
+    return out
+
+
+def _pairs(tokens: list) -> dict | None:
+    out = dict(zip(map(int, tokens[::2]), map(int, tokens[1::2])))
+    return out if 2 * len(out) == len(tokens) else None
+
+
+def _numbers(tokens: list) -> list:
+    return [float(t) if b'.' in t else int(t) for t in tokens]
+
+
+def _fast_fields(raw: bytes) -> dict | None:
+    """The layout's fields read from its text by the grammar above, or
+    None where the text leaves it (a repeated key included), so that
+    PyYAML reads the file instead."""
+    parts = _TOP.split(raw)
+    if parts[0] or len(parts) != 2 + len(_SECTIONS):
+        return None
+    bodies = {}
+    for part in parts[1:]:
+        name, _, body = part.partition(b':')
+        if name in bodies:
+            return None
+        if name == b'pixel_pitch':
+            match = _PITCH.fullmatch(body)
+            if match is None:
+                return None
+            bodies[name] = match[1]
+        elif (name in _SECTIONS and body[:1] == b'\n'
+              and _SECTIONS[name].fullmatch(body, 1)):
+            bodies[name] = body[1:]
+        else:
+            return None
+    table = np.fromstring(
+        bodies[b'chip_channel_to_position'].replace(b'- ', b'  ')
+        .translate(_INT_BYTES).decode('ascii'),
+        dtype=np.int64, sep=' ').reshape(-1, 3)
+    fields = dict(pixel_pitch=_numbers([bodies[b'pixel_pitch']])[0],
+                  keys=table[:, 0], positions=table[:, 1:],
+                  tile_chip_to_io=_int_keyed(bodies[b'tile_chip_to_io'],
+                                             _pairs))
+    for name in ('tile_indeces', 'tile_orientations', 'tile_positions'):
+        fields[name] = _int_keyed(bodies[name.encode()], _numbers)
+    if (np.unique(fields['keys']).size != fields['keys'].size
+            or any(v is None for v in fields.values())):
+        return None
+    return fields
+
+
+def _yaml_fields(tile_layout: dict) -> dict:
+    """The same fields from the document PyYAML made of the file, taken
+    in the order the loader always took them."""
+    pixel_pitch = tile_layout['pixel_pitch']
+    chip_channel_to_position = tile_layout['chip_channel_to_position']
+    return dict(
+        pixel_pitch=pixel_pitch,
+        tile_chip_to_io=tile_layout['tile_chip_to_io'],
+        positions=np.array(list(chip_channel_to_position.values())),
+        tile_indeces=tile_layout['tile_indeces'],
+        tile_orientations=tile_layout['tile_orientations'],
+        tile_positions=tile_layout['tile_positions'],
+        keys=np.fromiter(chip_channel_to_position.keys(), dtype=np.int64))
+
+
 def load_tile_layout(pixel_file: str, tile_map) -> TileLayout:
     """Parse a pixel-layout YAML into a :class:`TileLayout`.
+
+    A file in the grammar PyYAML writes layouts in is read straight into
+    arrays (tallied ``layout_parse/fast``); any other goes through
+    PyYAML (``layout_parse/yaml``).  Both give the same layout.
 
     Args:
         pixel_file: pixel-layout YAML path.
         tile_map: [anode][tile_x][tile_y] -> tile id nested lists; this lives
             in the *detector properties* YAML (consts/detector.py:347).
     """
-    with open(pixel_file) as pf:
-        tile_layout = yaml.load(pf, Loader=_YamlLoader)
+    with open(pixel_file, 'rb') as pf:
+        fields = _fast_fields(pf.read())
+    if fields is not None:
+        trace.tally('layout_parse/fast')
+    else:
+        trace.tally('layout_parse/yaml')
+        with open(pixel_file) as pf:
+            fields = _yaml_fields(yaml.load(pf, Loader=_YamlLoader))
+    return _build_layout(tile_map, **fields)
 
-    pixel_pitch = tile_layout['pixel_pitch'] * units.mm / units.cm
-    chip_channel_to_position = tile_layout['chip_channel_to_position']
-    tile_chip_to_io = tile_layout['tile_chip_to_io']
 
-    positions = np.array(list(chip_channel_to_position.values()))
+def _build_layout(tile_map, *, pixel_pitch, tile_chip_to_io, positions,
+                  tile_indeces, tile_orientations, tile_positions,
+                  keys) -> TileLayout:
+    """The :class:`TileLayout` of a layout's fields: ``keys`` the
+    ``chip_channel_to_position`` keys and ``positions`` their values, in
+    the file's order; the rest as the YAML has them."""
+    pixel_pitch = pixel_pitch * units.mm / units.cm
     xs = positions[:, 0] * pixel_pitch
     ys = positions[:, 1] * pixel_pitch
     tile_borders = np.zeros((2, 2))
     tile_borders[0] = [-(xs.max() + pixel_pitch) / 2, (xs.max() + pixel_pitch) / 2]
     tile_borders[1] = [-(ys.max() + pixel_pitch) / 2, (ys.max() + pixel_pitch) / 2]
-
-    tile_indeces = tile_layout['tile_indeces']
-    tile_orientations = tile_layout['tile_orientations']
-    tile_positions = tile_layout['tile_positions']
 
     ntiles_x = len(tile_map[0])
     ntiles_y = len(tile_map[0][0])
@@ -102,7 +226,6 @@ def load_tile_layout(pixel_file: str, tile_map) -> TileLayout:
     io_group_map = np.full_like(chip_id_map, -1)
     io_channel_map = np.full_like(chip_id_map, -1)
 
-    keys = np.fromiter(chip_channel_to_position.keys(), dtype=np.int64)
     chips = (keys // 1000).astype(np.int32)
     channels = (keys % 1000).astype(np.int32)
     pos_x = positions[:, 0].astype(np.int64)

@@ -90,11 +90,18 @@ def _tallies(kind):
             t.get(f'cli/detector_files_reused/{kind}', 0))
 
 
+def _parses():
+    """Layout reads by the layout grammar's reader and by PyYAML."""
+    t = trace.tallies()
+    return t.get('layout_parse/fast', 0), t.get('layout_parse/yaml', 0)
+
+
 @pytest.mark.parametrize('n_devices', [1, 4])
 def test_2x2_reads_each_file_once_a_call(tmp_path, monkeypatch, n_devices):
-    """Five loads over two layouts: each layout parsed once, each response
-    read once, at one context and with the modules on four threads; a
-    second call reads them all again."""
+    """Five loads over two layouts: each layout parsed once (by the
+    layout grammar's reader, none by PyYAML), each response read once, at
+    one context and with the modules on four threads; a second call reads
+    them all again."""
     inp, kw = _kw_2x2(tmp_path)
     seen = _spy(monkeypatch)
     for call in range(2):
@@ -109,6 +116,7 @@ def test_2x2_reads_each_file_once_a_call(tmp_path, monkeypatch, n_devices):
         assert _tallies('layout') == (2, 3), call
         assert _tallies('response') == (2, 2), call
         assert _tallies('detprop') == (1, 5), call
+        assert _parses() == (2, 0), call
 
 
 def test_single_layout_read_once_reused_once(tmp_path, monkeypatch):
