@@ -386,7 +386,8 @@ def run_simulation(input_filename: str,
                          f'of {export.TRUTH_COMPRESSION}')
     # a host library that cannot build fails here
     batching.library()
-    if light.light_simulated and sim.max_mc_truth_ids > 0:
+    truth_on = light.light_simulated and sim.max_mc_truth_ids > 0
+    if truth_on:
         if truth_compression == 'lzf':
             lzf.library()
         if truth_path == 'host' and light.enable_lut_smearing:
@@ -608,9 +609,8 @@ def run_simulation(input_filename: str,
         # accumulate order through the FIFO of (future, event, first
         # trigger, group)
         truth_executor = ThreadPoolExecutor(max(int(truth_workers), 1)) \
-            if light.light_simulated and truth_path == 'host' \
-            and sim.max_mc_truth_ids > 0 and light.enable_lut_smearing \
-            else None
+            if truth_on and truth_path == 'host' \
+            and light.enable_lut_smearing else None
         # a worker's records are written once they are this many groups
         # old (or at the end), so where they land in the file depends on
         # no worker's timing
@@ -708,11 +708,13 @@ def run_simulation(input_filename: str,
                     break
                 pending_truth.popleft()
                 truth = fut.result()
-                if isinstance(truth, dict):
-                    truth = export.truth_sparse_to_records(truth, ievd_t,
-                                                           trig_t)
-                else:   # a worker's records, trigger ids counted from 0
-                    truth['trigger_id'] += trig_t
+                with trace.phase('truth/records'):
+                    if isinstance(truth, dict):
+                        truth = export.truth_sparse_to_records(
+                            truth, ievd_t, trig_t)
+                    else:   # a worker's records, trigger ids counted from 0
+                        truth['trigger_id'] += trig_t
+                trace.tally('truth/records', len(truth))
                 gate.submit(functools.partial(write_truth, truth))
 
         def accumulate_light(ievd_l, lres, seq):
@@ -736,6 +738,7 @@ def run_simulation(input_filename: str,
                 fut = Future()
                 fut.set_result(lres.truth_sparse)
             if fut is not None:
+                trace.tally('truth/triggers', ntrig)
                 pending_truth.append((fut, int(ievd_l), i_light_trig, seq,
                                       made))
             i_light_trig += ntrig
@@ -1105,8 +1108,9 @@ def run_simulation(input_filename: str,
                     ctx.stream.synchronize()
         with trace.phase('export/flush'):
             flush_results()
-        with trace.phase('truth/drain'):
-            drain_truth(block=True)
+        if truth_on:
+            with trace.phase('truth/drain'):
+                drain_truth(block=True)
         if truth_executor is not None:
             truth_executor.shutdown()
         memlog.archive(f'loop_mod{i_mod}')

@@ -469,15 +469,16 @@ def _smeared_truth_stage(segs, voxels, n_det, op_channel, time_dist,
     (JAX: ``Precision.HIGHEST``): (ids (C, K), truth (ntrig, C,
     digit_samples, K)) on the batch's device; for a stacked group, one
     product of its G * C * K rows, (G, C, K) and (G, ntrig, C,
-    digit_samples, K)."""
-    ids, series = light_ops.light_truth_series(
-        segs, voxels, n_det, op_channel, time_dist, start_time, light,
-        n_ticks=n_ticks, k_truth=k_truth)
-    *lead, C, K = ids.shape
-    tw = f32.matmul(series.view(-1, n_ticks), table)   # (G*C*K, ntrig*S)
-    # (..., C, K, ntrig, S) -> (..., ntrig, C, S, K)
-    return ids, tw.view(*lead, C, K, ntrig, -1).movedim(
-        (-2, -4, -1, -3), (-4, -3, -2, -1)).contiguous()
+    digit_samples, K).  Traced as ``truth/stage``."""
+    with trace.phase('truth/stage', n_det.device):
+        ids, series = light_ops.light_truth_series(
+            segs, voxels, n_det, op_channel, time_dist, start_time, light,
+            n_ticks=n_ticks, k_truth=k_truth)
+        *lead, C, K = ids.shape
+        tw = f32.matmul(series.view(-1, n_ticks), table)  # (G*C*K, ntrig*S)
+        # (..., C, K, ntrig, S) -> (..., ntrig, C, S, K)
+        return ids, tw.view(*lead, C, K, ntrig, -1).movedim(
+            (-2, -4, -1, -3), (-4, -3, -2, -1)).contiguous()
 
 
 def _empty_truth_sparse() -> dict:

@@ -13,10 +13,10 @@ workers under the same labels, so the shared tables are updated under a
 lock.  A phase's device time comes from the profiler's trace, never from
 the phase itself.
 
-``tally(label)`` counts an event under its label and times nothing: it
-records no wall or CPU time, opens no profiler range, and stays out of the
-phase tables (``summary``, ``report``), so that no phase's row moves by
-it; ``tallies()`` reads the counts.
+``tally(label, n)`` adds ``n`` (1 by default) to the count under its label
+and times nothing: it records no wall or CPU time, opens no profiler
+range, and stays out of the phase tables (``summary``, ``report``), so
+that no phase's row moves by it; ``tallies()`` reads the counts.
 
 ``start_trace`` / ``stop_trace`` capture a ``torch.profiler`` trace of the
 CPU and, where there is one, the card, written as a Chrome trace into the
@@ -77,10 +77,11 @@ def phase(label: str, device=None):
                 _CHILD_CPU[parent] += dc
 
 
-def tally(label: str) -> None:
-    """Count an event under ``label``; no time is taken or kept."""
+def tally(label: str, n: int = 1) -> None:
+    """Add ``n`` to the count under ``label``; no time is taken or
+    kept."""
     with _ACC_LOCK:
-        _TALLIES[label] += 1
+        _TALLIES[label] += int(n)
 
 
 def tallies() -> dict[str, int]:
